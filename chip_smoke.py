@@ -15,6 +15,7 @@
    the launch counters set to 0 just before and read just after; checks that
    both give the same logits bit for bit, that one wave equals the plain
    PyTorch forward on the card, and that a small batch equals the CPU run;
+   then profiles one wave of each (device time by kernel, idle share);
 4. prints one ``{"kernels": [...]}`` line, then the result line.
 
 Exits nonzero, with no result line, when there is no CUDA device, when it
@@ -80,24 +81,29 @@ def cuda_ms(torch, fn, reps: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profile_wave(torch, name: str, engine, images) -> None:
-    """Where one wave's time goes: device time by kernel (torch.profiler)
-    against the wave's wall time; the rest is the device's idle share."""
+def profile_wave(torch, name: str, engine, images, wall_ms: float) -> None:
+    """Where one wave's time goes: device time by kernel (torch.profiler,
+    device-side events only) against ``wall_ms``, the wave's wall time
+    measured without the profiler; the rest is the device's idle share."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         engine.run(images)
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        traced_ms = (time.perf_counter() - t0) * 1e3
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not e.key.startswith("Activity Buffer")]
     rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
     if not rows:
         print(f"  profile {name}: no device time in the trace (not measured)")
         return
-    print(f"  profile {name} wave: wall {wall_ms:.3f} ms, device busy "
-          f"{busy:.3f} ms, idle share {1 - busy / wall_ms:.3f}")
+    busy = sum(r[1] for r in rows)
+    print(f"  profile {name} wave: device busy {busy:.3f} ms of {wall_ms:.3f} "
+          f"ms wall (untraced), idle share {1 - busy / wall_ms:.3f}; "
+          f"traced wall {traced_ms:.3f} ms")
     for key, ms, count in rows[:8]:
         print(f"    {ms:9.3f} ms  {count:4d}x  {key[:90]}")
 
@@ -120,7 +126,6 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
         import numpy as np
-        import torch.nn.functional as F
         from repro_torch.core import (ApproxConfig, acu_operand, make_acu,
                                       quantize, symmetric_qparams)
         from repro_torch.core.approx_ops import _conv_qparams, _im2col
@@ -344,7 +349,8 @@ def main() -> int:
           "a 4-image wave gives the same logits on the card and on the CPU")
 
     for name, eng in engines.items():
-        profile_wave(torch, name, eng, images[:BATCH])
+        profile_wave(torch, name, eng, images[:BATCH],
+                     1e3 * BATCH / rates[name])
 
     # -- 4. report ---------------------------------------------------------
     rows = []
