@@ -2,19 +2,20 @@
 LUT mode).
 
 An :class:`Acu` packages one approximate multiplier with an emulation mode.
-The port serves LUT mode: the (2^b, 2^b) product table, gathered either by
+The port runs LUT mode: the (2^b, 2^b) product table, gathered either by
 the plain PyTorch LUT GEMM (``use_kernels=False``) or by the hand-written
 CUDA kernels (``use_kernels=True``; ``fused=True`` for the single-kernel
 quantize -> LUT GEMM -> dequant routes). All GEMMs consume shifted-code
 integer operands (``code - zero_point``).
 
 Dispatch is two-level, as in the reference: :func:`matmul_plan` (dense
-GEMMs) and :func:`conv_plan` (conv2d sites) resolve (mode, bits,
-use_kernels, fused) to a route. The other modes (EXACT, FUNCTIONAL,
-LOWRANK, FACTORED), the spatially tiled conv route, the approximate
-backward routes, grouped convs and mesh partitions are not ported yet:
-asking for one raises ``NotImplementedError`` naming the ROADMAP queue
-that holds it, never a different answer.
+GEMMs), :func:`matmul_bwd_plan` (the approximate STE gradient GEMMs) and
+:func:`conv_plan` (conv2d sites, with the backward route it implies)
+resolve (mode, bits, use_kernels, fused) to a route. The other modes
+(EXACT, FUNCTIONAL, LOWRANK, FACTORED), the spatially tiled conv route,
+grouped convs and mesh partitions are not ported yet: asking for one
+raises ``NotImplementedError`` naming the ROADMAP queue that holds it,
+never a different answer.
 """
 from __future__ import annotations
 
@@ -183,6 +184,44 @@ def matmul_plan(acu: Acu, *, a_bits: Optional[int] = None,
                       fn=_resolve_unfused(acu))
 
 
+def matmul_bwd_plan(acu: Acu, *, a_bits: Optional[int] = None,
+                    fused: Optional[bool] = None, mesh=None
+                    ) -> tuple[Callable[..., torch.Tensor],
+                               Callable[..., torch.Tensor]]:
+    """Resolve the *approximate* STE backward GEMM pair ``(gx_fn, gw_fn)``
+    for one ACU; each is ``fn(a, b, sa, sb) -> f32 (M, N)``, the
+    approximate GEMM of two float operands quantized per-tensor symmetric
+    (zero point 0) with one combined-scale dequant ``acc * (sa * sb)``. The
+    caller computes ``sa`` / ``sb`` on the full tensors.
+
+    Fused (LUT + kernels) resolves to the in-kernel-quantizing
+    ``fused_lut_bwd`` kernel; otherwise the operands are quantized outside,
+    ``clip(round(a / sa))``, and run the unfused integer GEMM. The two are
+    bitwise equal. Single device: the reference's two callables differ only
+    in their mesh partitions, so here they are one function.
+    """
+    from .quantization import quantize_symmetric
+    _require_single_device(mesh)
+    _require_lut(acu)
+    fused = acu.fused if fused is None else fused
+    a_bits = acu.bits if a_bits is None else a_bits
+    if fused and acu.use_kernels:
+        from repro_torch.kernels.fused_lut_dense.ops import fused_lut_bwd
+
+        def fn(a, b, sa, sb):
+            return fused_lut_bwd(a, b, acu.device_lut(a.device), acu.offset,
+                                 sa, sb, bits=a_bits)
+        return fn, fn
+
+    gemm = _resolve_unfused(acu)
+
+    def fn(a, b, sa, sb):
+        acc = gemm(quantize_symmetric(a, sa, a_bits),
+                   quantize_symmetric(b, sb, a_bits))
+        return acc.to(torch.float32) * (sa * sb)
+    return fn, fn
+
+
 # ---------------------------------------------------------------------------
 # conv planning layer
 # ---------------------------------------------------------------------------
@@ -246,10 +285,16 @@ class ConvPlan:
     ``route`` is ``"fused_conv"`` (the fused CUDA conv kernel:
     ``fn(x, wq, xs, xz, ws) -> (N, Ho, Wo, Cout) f32``) or ``"im2col"``
     (eager patch extraction + the dense :func:`matmul_plan` route; ``fn``
-    is None). ``describe()`` has the reference's keys, so plan reports of
-    the two packages can be compared; ``bwd_route``, ``tiling`` and
-    ``partition`` are None (no approximate backward, tiled route or mesh
-    yet).
+    is None). ``bwd_route`` is where the approximate STE backward runs when
+    ``ApproxConfig.approx_bwd`` asks for it: ``"banded"`` for every fused
+    plan (the weight gradient on ``fused_lut_conv_bwd_w``, the input
+    gradient on ``fused_lut_bwd`` with an integer col2im), None for im2col
+    plans, whose backward is the dense STE's. ``bwd_tiling`` is the
+    reference's VMEM banding ``(bh, bn, mc, n_copies)``; the port's
+    backward runs one band with no VMEM model, so it is always None.
+    ``describe()`` has the reference's keys, so plan reports of the two
+    packages can be compared; ``tiling`` and ``partition`` are None (no
+    tiled route or mesh yet).
     """
 
     mode: AcuMode
@@ -260,6 +305,8 @@ class ConvPlan:
     spec: ConvSpec
     fn: Optional[Callable[..., torch.Tensor]] = None
     report: tuple[str, ...] = ()
+    bwd_route: Optional[str] = None
+    bwd_tiling: Optional[tuple[int, int, int, int]] = None
 
     def __call__(self, *args) -> torch.Tensor:
         if self.fn is None:
@@ -270,7 +317,7 @@ class ConvPlan:
         m, k, n = self.spec.gemm_shape
         return {
             "route": self.route,
-            "bwd_route": None,
+            "bwd_route": self.bwd_route,
             "mode": self.mode.value,
             "fused": self.fused,
             "gemm": f"M={m} K={k} N={n}",
@@ -288,8 +335,9 @@ def conv_plan(acu: Acu, spec: ConvSpec, *, a_bits: Optional[int] = None,
     The rule, with no shared-memory budget in it: a ``groups=1`` conv on a
     LUT ACU with ``use_kernels`` and ``fused`` takes ``"fused_conv"``
     whatever its image size, because the CUDA kernel tiles output pixels
-    across the batch and never needs a whole image on chip. Every other
-    LUT conv takes ``"im2col"`` (recorded in ``report``). ``route`` pins
+    across the batch and never needs a whole image on chip; its backward
+    route is ``"banded"``, for the same reason with no budget either. Every
+    other LUT conv takes ``"im2col"`` (recorded in ``report``). ``route`` pins
     one: ``"im2col"`` forces the eager path (the oracle), ``"fused_conv"``
     raises if the kernel cannot serve the request, ``"tiled"`` is not
     ported.
@@ -331,7 +379,8 @@ def conv_plan(acu: Acu, spec: ConvSpec, *, a_bits: Optional[int] = None,
 
         return ConvPlan(mode=acu.mode, bits=acu.bits, use_kernels=True,
                         fused=True, route="fused_conv", spec=spec,
-                        fn=fused_call, report=tuple(report))
+                        fn=fused_call, report=tuple(report),
+                        bwd_route="banded")
     return ConvPlan(mode=acu.mode, bits=acu.bits, use_kernels=acu.use_kernels,
                     fused=fused, route="im2col", spec=spec,
                     report=tuple(report))

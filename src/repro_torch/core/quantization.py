@@ -1,4 +1,4 @@
-"""Affine quantization (port of ``repro.core.quantization``, forward).
+"""Affine quantization (port of ``repro.core.quantization``).
 
 ``real = scale * (code - zero_point)``. Per-tensor or per-channel; the
 integer fed to the ACU is ``code - zero_point``.
@@ -112,10 +112,41 @@ def acu_operand(q: torch.Tensor, qp: QParams) -> torch.Tensor:
     return (q - z.to(torch.int32)).to(torch.int32)
 
 
+class FakeQuant(torch.autograd.Function):
+    """``(clip(round(x / s + z), lo, hi) - z) * s`` with the reference's
+    straight-through estimator: the gradient passes where ``x / s + z``
+    lies inside ``[lo, hi]`` (the same expression as the forward's, so the
+    clip edges agree) and is 0 outside; the scale and zero point get
+    none."""
+
+    @staticmethod
+    def forward(ctx, x, scale, zero_point, lo: float, hi: float):
+        t = x / scale + zero_point
+        if ctx.needs_input_grad[0]:
+            ctx.save_for_backward((t >= lo) & (t <= hi))
+        return (torch.clamp(torch.round(t), lo, hi) - zero_point) * scale
+
+    @staticmethod
+    def backward(ctx, g):
+        (in_range,) = ctx.saved_tensors
+        return (torch.where(in_range, g, torch.zeros_like(g)), None, None,
+                None, None)
+
+
 def fake_quantize(x: torch.Tensor, qp: QParams) -> torch.Tensor:
-    """Fake-quantize (forward): ``(clip(round(x / s + z)) - z) * s``. The
-    straight-through backward belongs to the training slice."""
+    """Fake-quantize with the STE (differentiable); per-channel qparams
+    broadcast along ``qp.axis``."""
     s = qp._expand(x, qp.scale)
     z = qp._expand(x, qp.zero_point)
-    q = torch.clamp(torch.round(x / s + z), float(qp.lo), float(qp.hi))
-    return (q - z) * s
+    return FakeQuant.apply(x, s, z, float(qp.lo), float(qp.hi))
+
+
+def quantize_symmetric(x: torch.Tensor, scale: torch.Tensor,
+                       bits: int) -> torch.Tensor:
+    """Per-tensor symmetric codes of the approximate backward:
+    ``clip(round(x / s), lo, hi)`` (no zero point), int32."""
+    lo = -(1 << (bits - 1))
+    hi = (1 << (bits - 1)) - 1
+    s = scale.to(device=x.device, dtype=torch.float32)
+    return torch.clamp(torch.round(x.to(torch.float32) / s), lo, hi
+                       ).to(torch.int32)

@@ -126,14 +126,15 @@ extern "C" int fused_lut_conv_launch(
   ConvLoader load{x,  xs, xz, M,  K,  n_codes, offset, static_cast<float>(lo),
                   static_cast<float>(hi), c, h, w, kh, kw, sh, sw, ph, pw,
                   dh, dw, ho, wo};
+  lutgemm::CodeBLoader bload{wq, K, cout, n_codes, offset};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (emit_acc) {
     lutgemm::StoreInt store{static_cast<int*>(out), cout};
-    return lutgemm::launch(load, store, wq, lut, n_codes, offset, M, K, cout,
+    return lutgemm::launch(load, bload, store, lut, n_codes, M, K, cout,
                            num_blocks, s);
   }
   lutgemm::StoreDequant store{static_cast<float*>(out), xs, ws, cout};
-  return lutgemm::launch(load, store, wq, lut, n_codes, offset, M, K, cout,
+  return lutgemm::launch(load, bload, store, lut, n_codes, M, K, cout,
                          num_blocks, s);
 }
 

@@ -50,14 +50,15 @@ extern "C" int fused_lut_dense_launch(const float* x, const int* wq,
                                       int hi, int num_blocks, void* stream) {
   QuantLoader load{x, xs, xz, M, K, n_codes, offset,
                    static_cast<float>(lo), static_cast<float>(hi)};
+  lutgemm::CodeBLoader bload{wq, K, N, n_codes, offset};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (emit_acc) {
     lutgemm::StoreInt store{static_cast<int*>(out), N};
-    return lutgemm::launch(load, store, wq, lut, n_codes, offset, M, K, N,
+    return lutgemm::launch(load, bload, store, lut, n_codes, M, K, N,
                            num_blocks, s);
   }
   lutgemm::StoreDequant store{static_cast<float*>(out), xs, ws, N};
-  return lutgemm::launch(load, store, wq, lut, n_codes, offset, M, K, N,
+  return lutgemm::launch(load, bload, store, lut, n_codes, M, K, N,
                          num_blocks, s);
 }
 

@@ -1,5 +1,6 @@
-"""Public wrapper of the fused conv kernel (``csrc/fused_lut_conv.cu``) and
-the conv geometry helpers.
+"""Public wrappers of the fused conv kernels, the forward
+(``csrc/fused_lut_conv.cu``) and the approximate weight gradient
+(``csrc/fused_lut_conv_bwd_w.cu``), and the conv geometry helpers.
 
 The kernel reads the unpadded NCHW image and treats every tap that falls
 outside it as the zero-point code, which is what the reference's quantized
@@ -8,6 +9,12 @@ copy of the image. Channels are not padded, so there is no channel-pad
 correction either. The reference's VMEM working-set model has no
 counterpart: the kernel tiles output pixels across the whole batch, so no
 image has to fit on chip.
+
+The weight-gradient wrapper drops the reference's ``bh``, ``bn``, ``mc``
+and ``rmask`` arguments: they size VMEM row bands and mask band-padding
+rows and mesh slabs. The CUDA kernel streams output pixels straight from
+the unpadded tensors, split across blocks, so there are no bands, no
+padded rows to mask and no mesh.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
 version in ``ref.py``.
@@ -18,7 +25,7 @@ import torch
 
 from repro_torch.kernels import runtime
 from repro_torch.kernels.fused_lut_dense.ops import scale_operands
-from .ref import fused_lut_conv_ref
+from .ref import fused_lut_conv_bwd_w_ref, fused_lut_conv_ref
 
 
 def conv_out_size(size: int, k: int, stride: int, dilation: int,
@@ -101,3 +108,64 @@ def fused_lut_conv(x: torch.Tensor, wq: torch.Tensor, lut: torch.Tensor,
 
 
 fused_lut_conv.launches = 0
+
+
+def fused_lut_conv_bwd_w(x: torch.Tensor, g: torch.Tensor, lut: torch.Tensor,
+                         offset: int, x_scale, g_scale, *,
+                         ksize: tuple[int, int], stride=(1, 1),
+                         padding=((0, 0), (0, 0)), dilation=(1, 1),
+                         bits: int = 8) -> torch.Tensor:
+    """Approximate conv weight gradient (the ApproxTrain regime).
+
+    ``x``: (N, C, H, W) float residual (the saved fake-quantized input);
+    ``g``: (N, Ho, Wo, Cout) float incoming gradient, the fused forward's
+    output layout; ``x_scale`` / ``g_scale``: per-tensor symmetric scales
+    the caller computed on the full tensors. Both are quantized in-kernel,
+    ``clip(round(v / s))``; an out-of-image tap is code 0 and contributes
+    ``LUT[off, qg + off]``, as the reference's quantized 0.0 pad does.
+    Returns the raw int32 (kh*kw, C, Cout) tap-major accumulator; the
+    caller dequants once, ``acc * (sx * sg)``.
+    """
+    n_codes = int(round(lut.numel() ** 0.5))
+    n, c, h, w_in = x.shape
+    cout = g.shape[3]
+    kh, kw = ksize
+    sh, sw = stride
+    dh, dw = dilation
+    (ph0, ph1), (pw0, pw1) = padding
+    ho = conv_out_size(h, kh, sh, dh, (ph0, ph1))
+    wo = conv_out_size(w_in, kw, sw, dw, (pw0, pw1))
+    if tuple(g.shape) != (n, ho, wo, cout):
+        raise ValueError(f"g has shape {tuple(g.shape)}, expected "
+                         f"{(n, ho, wo, cout)} for this geometry")
+    if x.device.type == "cpu":
+        return fused_lut_conv_bwd_w_ref(
+            x, g, lut.reshape(-1), offset, n_codes, x_scale, g_scale,
+            ksize=ksize, stride=stride, padding=padding, dilation=dilation,
+            bits=bits)
+    lo = -(1 << (bits - 1))
+    hi = (1 << (bits - 1)) - 1
+    table = runtime.lut_to_int16(lut)
+    x = x.to(torch.float32).contiguous()
+    g = g.to(torch.float32).contiguous()
+    f = dict(dtype=torch.float32, device=x.device)
+    sx = torch.as_tensor(x_scale, **f).reshape(1).contiguous()
+    sg = torch.as_tensor(g_scale, **f).reshape(1).contiguous()
+    for t, name, dt in ((x, "x", torch.float32), (g, "g", torch.float32),
+                        (table, "lut", torch.int16)):
+        runtime.check_cuda_operand(t, name, dt, x.device)
+    # blocks add partial sums over slices of the pixels into it
+    out = torch.zeros((kh * kw, c, cout), device=x.device, dtype=torch.int32)
+    if g.numel() == 0 or out.numel() == 0:
+        return out
+    lib = runtime.kernel_library("fused_lut_conv_bwd_w")
+    blocks, stream = runtime.launch_config(x)
+    lib.check(lib.launch(x.data_ptr(), g.data_ptr(), table.data_ptr(),
+                         sx.data_ptr(), sg.data_ptr(), out.data_ptr(), n, c,
+                         h, w_in, cout, kh, kw, sh, sw, ph0, pw0, dh, dw, ho,
+                         wo, n_codes, offset, lo, hi, blocks, stream))
+    fused_lut_conv_bwd_w.launches += 1
+    return out
+
+
+fused_lut_conv_bwd_w.launches = 0

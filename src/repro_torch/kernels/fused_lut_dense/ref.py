@@ -1,7 +1,8 @@
-"""Plain PyTorch version of the fused quantize -> LUT GEMM -> dequant
-kernel, operation for operation the reference's oracle: the same quantizer
-expression, the same int32 accumulate, the same single combined-scale
-dequant ``acc * (xs * ws)``."""
+"""Plain PyTorch versions of the fused quantize -> LUT GEMM -> dequant
+kernels (forward and backward), operation for operation the reference's
+oracles: the same quantizer expressions, the same int32 accumulate, the
+same single combined-scale dequant ``acc * (xs * ws)`` / ``acc * (sa *
+sb)``."""
 from __future__ import annotations
 
 import torch
@@ -33,3 +34,23 @@ def fused_lut_dense_ref(x: torch.Tensor, wq: torch.Tensor,
         return acc
     ws = torch.as_tensor(w_scale, dtype=torch.float32, device=dev)
     return acc.to(torch.float32) * (xs * ws.reshape(1, -1))
+
+
+def fused_lut_bwd_ref(a: torch.Tensor, b: torch.Tensor,
+                      lut_flat: torch.Tensor, offset: int, n_codes: int,
+                      a_scale, b_scale, *, bits: int = 8,
+                      emit_acc: bool = False) -> torch.Tensor:
+    """Backward flavour: both float operands quantized per-tensor
+    symmetric, ``clip(round(v / s))`` (zero point 0), then the same LUT
+    gather and int32 sum, and one combined-scale dequant ``acc * (sa *
+    sb)`` (or the raw accumulator with ``emit_acc``)."""
+    from repro_torch.core.quantization import quantize_symmetric
+    dev = a.device
+    sa = torch.as_tensor(a_scale, dtype=torch.float32, device=dev)
+    sb = torch.as_tensor(b_scale, dtype=torch.float32, device=dev)
+    qa = quantize_symmetric(a, sa, bits).to(torch.int64) + offset
+    qb = quantize_symmetric(b, sb, bits).to(torch.int64) + offset
+    acc = lut_gather_sum(qa, qb, lut_flat, n_codes)
+    if emit_acc:
+        return acc
+    return acc.to(torch.float32) * (sa * sb)

@@ -48,6 +48,11 @@ SIGNATURES = {
     "fused_lut_conv": ("fused_lut_conv_launch",
                        [_P, _P, _P, _P, _P, _P, _P, _I] + [_I] * 15
                        + [_I, _I, _I, _I, _I, _P]),
+    "fused_lut_bwd": ("fused_lut_bwd_launch",
+                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _P]),
+    "fused_lut_conv_bwd_w": ("fused_lut_conv_bwd_w_launch",
+                             [_P] * 6 + [_I] * 15 + [_I] * 5 + [_P]),
 }
 
 

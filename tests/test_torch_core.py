@@ -173,7 +173,8 @@ RESNET20_CONVS = [   # (x_shape, w_shape, stride, padding) at batch 256
     ((256, 32, 16, 16), (64, 32, 1, 1), 2, "VALID"),
     ((256, 64, 8, 8), (64, 64, 3, 3), 1, "SAME"),
 ]
-KEYS = ("route", "mode", "fused", "gemm", "tiling", "partition")
+KEYS = ("route", "bwd_route", "mode", "fused", "gemm", "tiling",
+        "partition")
 
 
 @pytest.mark.parametrize("kw", [dict(use_kernels=True, fused=True),
@@ -220,8 +221,6 @@ def test_unported_modes_and_routes_raise():
         conv_plan(acu, ConvSpec((1, 4, 6, 6), (4, 2, 3, 3), groups=2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         conv_plan(acu, spec, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ApproxConfig(acu=acu, approx_bwd=True)
     wide = make_acu("mul12s_2KM", "lut")          # > 10 bits: FUNCTIONAL
     assert wide.mode == AcuMode.FUNCTIONAL and wide.lut is None
     assert wide.m00() == 0
@@ -252,16 +251,6 @@ def test_fake_quant_only_matches_reference(ref):
     # differs between the frameworks, so hold it to float32 rounding
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
-
-
-def test_backward_through_approx_op_raises():
-    from repro_torch.core import approx_dense
-    cfg = ApproxConfig(acu=make_acu("mul8s_1L2H", "lut"))
-    x = torch.randn(3, 5, requires_grad=True)
-    w = torch.randn(5, 2)
-    y = approx_dense(x, w, None, cfg)
-    with pytest.raises(NotImplementedError, match="STE backward"):
-        y.sum().backward()
 
 
 def test_entry_points_refuse_missing_gpu(monkeypatch):

@@ -3,10 +3,12 @@
 On a CPU tensor a wrapper runs its kernel's plain PyTorch version, so these
 tests hold that version (and the wrapper's shape handling) against the
 reference's Pallas kernel in interpret mode, bitwise: K not a multiple of
-128, N below 128, stride 2, 1x1 VALID, dilation, channel counts that are not
-multiples of 32, and the raw int32 accumulator (``emit_acc``). The CUDA
-kernels themselves are held against the same plain versions by the tests
-marked ``cuda`` (skipped without a card) and by ``chip_smoke.py``.
+128, N below 128, stride 2, 1x1 VALID, dilation, asymmetric padding,
+channel counts that are not multiples of 32, the raw int32 accumulator
+(``emit_acc``), and a biased table (``M[0, x] != 0``) under which padded
+and out-of-image entries are not free. The CUDA kernels themselves are
+held against the same plain versions by the tests marked ``cuda``
+(skipped without a card) and by ``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -20,10 +22,14 @@ from repro_torch.core import (ApproxConfig, acu_operand, build_lut,  # noqa: E40
                               symmetric_qparams)
 from repro_torch.core.acu import resolve_conv_padding  # noqa: E402
 from repro_torch.kernels import runtime  # noqa: E402
-from repro_torch.kernels.fused_lut_conv.ops import fused_lut_conv  # noqa: E402
-from repro_torch.kernels.fused_lut_conv.ref import fused_lut_conv_ref  # noqa: E402
-from repro_torch.kernels.fused_lut_dense.ops import fused_lut_dense  # noqa: E402
-from repro_torch.kernels.fused_lut_dense.ref import fused_lut_dense_ref  # noqa: E402
+from repro_torch.kernels.fused_lut_conv.ops import (  # noqa: E402
+    conv_out_size, fused_lut_conv, fused_lut_conv_bwd_w)
+from repro_torch.kernels.fused_lut_conv.ref import (  # noqa: E402
+    fused_lut_conv_bwd_w_ref, fused_lut_conv_ref)
+from repro_torch.kernels.fused_lut_dense.ops import (  # noqa: E402
+    fused_lut_bwd, fused_lut_dense)
+from repro_torch.kernels.fused_lut_dense.ref import (  # noqa: E402
+    fused_lut_bwd_ref, fused_lut_dense_ref)
 from repro_torch.kernels.lut_matmul.ops import lut_matmul  # noqa: E402
 from repro_torch.kernels.lut_matmul.ref import lut_matmul_ref  # noqa: E402
 from test_torch_parity import load_reference  # noqa: E402
@@ -31,6 +37,11 @@ from test_torch_parity import load_reference  # noqa: E402
 MULT = "mul8s_1L2H"
 LUT = build_lut(get_multiplier(MULT))
 OFF = 128
+# exact product + 7: M[0, x] = 7, so every padded K entry and every
+# out-of-image tap adds 7 to an accumulator (the reference's _BIASED_LUT)
+_V = np.arange(-128, 128, dtype=np.int32)
+BIASED_LUT = (_V[:, None] * _V[None, :] + 7).astype(np.int32)
+TABLES = {"mul8s_1L2H": LUT, "biased": BIASED_LUT}
 
 
 @pytest.fixture(scope="module")
@@ -130,6 +141,74 @@ def test_fused_lut_conv_matches_reference(ref, geom):
         assert np.array_equal(got.numpy(), want), emit_acc
 
 
+def _sym_scale(v: np.ndarray) -> np.float32:
+    from repro_torch.core import inline_symmetric_scale
+    return np.float32(inline_symmetric_scale(
+        torch.tensor(np.abs(v).max()), 8).item())
+
+
+@pytest.mark.parametrize("table", sorted(TABLES))
+@pytest.mark.parametrize("mkn", [(5, 10, 64), (64, 128, 10), (37, 130, 33)],
+                         ids=["head_gx", "head_gw", "ragged"])
+def test_fused_lut_bwd_matches_reference(ref, mkn, table):
+    """Both float operands quantized symmetric in-kernel, f32 and int32
+    outputs, ragged M/K/N (the reference pads K to 128 and corrects
+    ``k_pad * LUT[off, off]``; the port pads nothing)."""
+    import jax.numpy as jnp
+    m, k, n = mkn
+    lut = TABLES[table]
+    rng = np.random.default_rng(m * k + n)
+    a = (rng.normal(size=(m, k)) * 3).astype(np.float32)
+    b = (rng.normal(size=(k, n)) * 0.01).astype(np.float32)
+    sa, sb = _sym_scale(a), _sym_scale(b)
+    for emit_acc in (False, True):
+        want = np.asarray(ref[1].fused_lut_bwd(
+            jnp.asarray(a), jnp.asarray(b), jnp.asarray(lut), OFF, sa, sb,
+            emit_acc=emit_acc))
+        got = fused_lut_bwd(torch.from_numpy(a), torch.from_numpy(b),
+                            torch.from_numpy(lut), OFF, torch.tensor(sa),
+                            torch.tensor(sb), emit_acc=emit_acc)
+        assert got.dtype == (torch.int32 if emit_acc else torch.float32)
+        assert np.array_equal(got.numpy(), want), emit_acc
+
+
+BWD_W_GEOMS = [  # the reference's own: (n, c, h, w, cout, ksize, stride,
+    # dilation, padding), stride, dilation and asymmetric padding
+    (2, 3, 9, 11, 5, (3, 3), (1, 1), (1, 1), ((1, 1), (1, 1))),
+    (1, 4, 12, 10, 7, (3, 2), (2, 1), (1, 2), ((0, 0), (1, 0))),
+    (2, 2, 8, 8, 3, (2, 2), (2, 2), (1, 1), ((0, 0), (0, 0))),
+    (1, 5, 14, 9, 6, (3, 3), (1, 2), (2, 1), ((2, 2), (1, 1))),
+]
+
+
+@pytest.mark.parametrize("table", sorted(TABLES))
+@pytest.mark.parametrize("geom", BWD_W_GEOMS,
+                         ids=["same3x3", "rect_dil", "valid2x2", "pad2"])
+def test_fused_lut_conv_bwd_w_matches_reference(ref, geom, table):
+    """The weight-gradient plain version (im2col of codes, pads code 0)
+    against the reference's banded kernel, bitwise on the int32 (kh*kw, C,
+    Cout) accumulator; under the biased table every out-of-image tap adds
+    ``LUT[off, qg + off] != 0``."""
+    import jax.numpy as jnp
+    n, c, h, w, cout, ksize, stride, dil, pad = geom
+    lut = TABLES[table]
+    rng = np.random.default_rng(sum(ksize) + n + c + h)
+    x = rng.standard_normal((n, c, h, w)).astype(np.float32)
+    ho = conv_out_size(h, ksize[0], stride[0], dil[0], pad[0])
+    wo = conv_out_size(w, ksize[1], stride[1], dil[1], pad[1])
+    g = rng.standard_normal((n, ho, wo, cout)).astype(np.float32)
+    sx, sg = _sym_scale(x), _sym_scale(g)
+    want = np.asarray(ref[2].fused_lut_conv_bwd_w(
+        jnp.asarray(x), jnp.asarray(g), jnp.asarray(lut), OFF, sx, sg,
+        ksize=ksize, stride=stride, padding=pad, dilation=dil))
+    got = fused_lut_conv_bwd_w(torch.from_numpy(x), torch.from_numpy(g),
+                               torch.from_numpy(lut), OFF, torch.tensor(sx),
+                               torch.tensor(sg), ksize=ksize, stride=stride,
+                               padding=pad, dilation=dil)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert np.array_equal(got.numpy(), want)
+
+
 def test_conv_geometry_helpers_match_reference(ref):
     from repro_torch.kernels.fused_lut_conv.ops import (conv_out_size,
                                                         conv_padded_geometry)
@@ -159,7 +238,8 @@ def test_source_hash_tracks_sources_and_headers(tmp_path, monkeypatch):
 def test_every_kernel_source_has_a_signature():
     names = {p.stem for p in runtime.CSRC.glob("*.cu")}
     assert names == set(runtime.SIGNATURES) == {
-        "lut_matmul", "fused_lut_dense", "fused_lut_conv"}
+        "lut_matmul", "fused_lut_dense", "fused_lut_conv", "fused_lut_bwd",
+        "fused_lut_conv_bwd_w"}
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -170,15 +250,19 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_cpu_tensors_never_launch():
-    before = (lut_matmul.launches, fused_lut_dense.launches,
-              fused_lut_conv.launches)
+    ops = (lut_matmul, fused_lut_dense, fused_lut_conv, fused_lut_bwd,
+           fused_lut_conv_bwd_w)
+    before = [op.launches for op in ops]
     cfg = ApproxConfig(acu=make_acu(MULT, "lut", use_kernels=True,
-                                    fused=True))
-    from repro_torch.core import conv2d
-    with torch.inference_mode():
-        conv2d(torch.randn(1, 3, 6, 6), torch.randn(4, 3, 3, 3), cfg=cfg)
-    assert (lut_matmul.launches, fused_lut_dense.launches,
-            fused_lut_conv.launches) == before
+                                    fused=True), approx_bwd=True)
+    from repro_torch.core import approx_dense, conv2d
+    x = torch.randn(1, 3, 6, 6, requires_grad=True)
+    w = torch.randn(4, 3, 3, 3, requires_grad=True)
+    y = conv2d(x, w, cfg=cfg)
+    approx_dense(y.mean(dim=(2, 3)), torch.randn(4, 2, requires_grad=True),
+                 None, cfg).sum().backward()
+    assert x.grad is not None and w.grad is not None
+    assert [op.launches for op in ops] == before
 
 
 @pytest.mark.cuda
@@ -197,6 +281,13 @@ def test_cuda_kernels_match_plain_versions(cuda):
     assert torch.equal(lut_matmul(a, w, l16, OFF),
                        lut_matmul_ref(a, w, l32, OFF, 256))
     assert lut_matmul.launches == n0 + 1
+    # one output tile, long K: the K split with int32 atomics
+    ag = torch.randint(-128, 128, (144, 20000), generator=g, device=cuda,
+                       dtype=torch.int32)
+    wg = torch.randint(-128, 128, (20000, 16), generator=g, device=cuda,
+                       dtype=torch.int32)
+    assert torch.equal(lut_matmul(ag, wg, l16, OFF),
+                       lut_matmul_ref(ag, wg, l32, OFF, 256))
     x = torch.randn((300, 27), generator=g, device=cuda)
     xs, xz = torch.tensor(0.02, device=cuda), torch.tensor(0.0, device=cuda)
     ws = torch.rand(16, generator=g, device=cuda)
@@ -214,4 +305,41 @@ def test_cuda_kernels_match_plain_versions(cuda):
         assert torch.equal(
             fused_lut_conv(img, wq, l16, OFF, xs, xz, ws8, **kw),
             fused_lut_conv_ref(img, wq, l32, OFF, 256, xs, xz, ws8, **kw))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", sorted(TABLES))
+def test_cuda_backward_kernels_match_plain_versions(cuda, table):
+    """On a card: fused_lut_bwd (f32 and emit_acc) and fused_lut_conv_bwd_w
+    launch and equal their plain versions bitwise, at two shapes each."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(1)
+    lut = torch.from_numpy(TABLES[table])
+    l16 = runtime.lut_to_int16(lut).to(cuda)
+    l32 = lut.reshape(-1).to(cuda)
+    for m, k, n in ((128, 10, 64), (2000, 16, 144)):
+        a = torch.randn((m, k), generator=g, device=cuda)
+        b = torch.randn((k, n), generator=g, device=cuda) * 0.01
+        sa = a.abs().amax() / 127
+        sb = b.abs().amax() / 127
+        for emit in (False, True):
+            n0 = fused_lut_bwd.launches
+            assert torch.equal(
+                fused_lut_bwd(a, b, l16, OFF, sa, sb, emit_acc=emit),
+                fused_lut_bwd_ref(a, b, l32, OFF, 256, sa, sb,
+                                  emit_acc=emit))
+            assert fused_lut_bwd.launches == n0 + 1
+    for n, c, hw, cout, k, s, pad in ((4, 16, 32, 16, 3, 1, ((1, 1),) * 2),
+                                      (3, 32, 16, 64, 3, 2, ((0, 1),) * 2)):
+        x = torch.randn((n, c, hw, hw), generator=g, device=cuda)
+        ho = conv_out_size(hw, k, s, 1, pad[0])
+        gr = torch.randn((n, ho, ho, cout), generator=g, device=cuda)
+        sx, sg = x.abs().amax() / 127, gr.abs().amax() / 127
+        kw = dict(ksize=(k, k), stride=(s, s), padding=pad)
+        n0 = fused_lut_conv_bwd_w.launches
+        assert torch.equal(
+            fused_lut_conv_bwd_w(x, gr, l16, OFF, sx, sg, **kw),
+            fused_lut_conv_bwd_w_ref(x, gr, l32, OFF, 256, sx, sg, **kw))
+        assert fused_lut_conv_bwd_w.launches == n0 + 1
     torch.cuda.synchronize()
