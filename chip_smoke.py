@@ -27,7 +27,20 @@
    and checked against the launches one step must make; checks that every
    loss is finite and that one 4-image step gives the CPU's loss and
    gradients; then profiles one step of each regime;
-6. prints one ``{"kernels": [...]}`` line, then the result line.
+6. serves SmolLM-135M (30 layers, d 576, 9 heads over 3 KV heads, vocab
+   49152, bf16, random weights from a seed) with the fused ACU through the
+   three LM engines (waves, continuous, paged KV): first holds the
+   approximate flash attention kernels (contiguous and paged) against their
+   plain versions on the card (every element within the summation-order ulp
+   term, at most ATTN_FLIP_ROWS rows beyond it by one code flip), and the
+   fused dense
+   kernel bitwise, at the slice's decode and prefill shapes; then serves 64
+   requests (prompts of 16 to 200 tokens, 16 of them sharing a 128-token
+   prefix, 64 new tokens each) through each engine with the launch counters
+   set to 0 just before and checked just after against 30 attention and
+   211 dense launches per model call; checks one short request against the
+   CPU run's tokens; profiles one decode step of each KV layout;
+7. prints one ``{"kernels": [...]}`` line, then the result line.
 
 Exits nonzero, with no result line, when there is no CUDA device, when it
 runs outside the repository, or when any phase fails.
@@ -73,7 +86,18 @@ KERNELS = {
     "fused_lut_conv_bwd_w": (
         "src/repro_torch/csrc/fused_lut_conv_bwd_w.cu",
         "src/repro/kernels/fused_lut_conv/kernel.py:289"),
+    "approx_flash_attention": (
+        "src/repro_torch/csrc/approx_flash_attention.cu",
+        "src/repro/kernels/flash_attention/approx.py:250"),
+    "approx_flash_attention_paged": (
+        "src/repro_torch/csrc/approx_flash_attention.cu",
+        "src/repro/kernels/flash_attention/approx.py:431"),
 }
+# the LM serve phase: SmolLM-135M at full width and depth, bf16
+LM_ARCH = "smollm-135m"
+LM_REQUESTS, LM_SHARED, LM_PREFIX, LM_NEW = 64, 16, 128, 64
+LM_SLOTS, LM_MAX_SEQ, LM_BLOCK = 32, 512, 16
+LM_WAVE_PROMPT = 200     # the longest prompt: the wave engine's prefill
 # card vs CPU, one 4-image step: largest gradient difference allowed, as a
 # fraction of the tensor's largest entry. exact: float32 sums in another
 # order (cuBLAS, cuDNN-free col2im) move entries near cancellation by a
@@ -82,6 +106,14 @@ KERNELS = {
 # gradient code that flips moves one entry by one LUT step times the two
 # scales, a few percent of the largest entry at most.
 GRAD_TOL = {"exact": 1e-4, "approx_fused": 5e-2, "approx_unfused": 5e-2}
+# kernels 8 and 9 against their plain versions on the card: the same expf,
+# tanhf and half-to-even rounding give the same codes, so each element is
+# held to the summation-order term 4 * bk * eps * max|y| (the normalizer
+# and the accumulator sum bk terms per block in another order). At most
+# this many query rows may hold elements beyond it, each within one
+# probability-code flip: a score on a code boundary whose last ulp the
+# reordered sums moved.
+ATTN_FLIP_ROWS = 2
 # launches of one training step at batch 128, by regime: 21 convs + 1 dense
 # forward; the stem has no input gradient
 STEP_LAUNCHES = {
@@ -155,6 +187,334 @@ class Check:
             self.failures.append(what)
 
 
+def lm_requests(np, vocab: int):
+    """64 requests from a seed: prompts of 16 to 200 tokens, every fourth
+    one (16 in all) a shared 128-token prefix plus its own 16 to 72."""
+    rng = np.random.default_rng(7)
+    prefix = rng.integers(1, vocab, LM_PREFIX)
+    top = LM_WAVE_PROMPT + 1
+    prompts = []
+    for i in range(LM_REQUESTS):
+        if i % (LM_REQUESTS // LM_SHARED) == 0:
+            tail = rng.integers(1, vocab, rng.integers(16, top - LM_PREFIX))
+            prompts.append(np.concatenate([prefix, tail]))
+        else:
+            prompts.append(rng.integers(1, vocab, rng.integers(16, top)))
+    prompts[1] = rng.integers(1, vocab, LM_WAVE_PROMPT)
+    return [p.astype(np.int32) for p in prompts]
+
+
+def attn_work(np, info, sq: int, hq: int, hkv: int, d: int, itemsize: int):
+    """(bytes, lookups) one attention call must touch for (B, 3) rows of
+    [q_base, kv_start, kv_len]: every real query row reads its visible
+    keys (kv_start <= key < kv_len, key <= its position) once in QK and
+    once in PV; Q, the visible K/V span of each batch row and the float32
+    output cross device memory once."""
+    q_pos = info[:, :1] + np.arange(sq)[None, :]
+    vis = np.clip(np.minimum(info[:, 2:3], q_pos + 1) - info[:, 1:2], 0,
+                  None)
+    span = np.clip(np.minimum(info[:, 2], info[:, 0] + sq) - info[:, 1], 0,
+                   None)
+    lookups = 2 * d * hq * int(vis.sum())
+    bytes_ = (len(info) * hq * sq * d * (itemsize + 4)
+              + 2 * hkv * d * itemsize * int(span.sum()))
+    return bytes_, lookups
+
+
+def lm_phase(torch, np, dev, check, acu, ops, launches, account,
+             lookups_per_s, lut_bytes) -> dict:
+    """SmolLM-135M on the fused ACU: the slice's kernels at its shapes,
+    then 64 requests through each LM engine. Returns tokens/s by engine."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.core import (ApproxConfig, acu_operand,
+                                  inline_symmetric_scale, quantize,
+                                  symmetric_qparams)
+    from repro_torch.kernels.flash_attention import ref as aref
+    from repro_torch.kernels.fused_lut_dense.ref import fused_lut_dense_ref
+    from repro_torch.models.transformer import (init_cache, init_paged_cache,
+                                                init_params)
+    from repro_torch.serve import engine as E
+
+    cfg = get_config(LM_ARCH)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    bf = torch.bfloat16
+    acfg = ApproxConfig(acu=acu)
+    lut16, lut32 = acu.device_lut(dev), torch.from_numpy(
+        acu.lut.reshape(-1)).to(dev)
+    off, n_codes = acu.offset, acu.multiplier.n_codes
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    rng = np.random.default_rng(11)
+    print(f"SmolLM-135M ({cfg.n_layers} layers, d {cfg.d_model}, {hq} heads "
+          f"over {hkv} KV heads, head_dim {d}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_padded}, bf16), {MULT} fused ACU:")
+
+    def sym(t):
+        return inline_symmetric_scale(torch.clamp_min(t.abs().amax(), 1e-6),
+                                      8)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    # -- kernels 8 and 9 at the decode and prefill shapes -------------------
+    b = LM_SLOTS
+    pos = rng.integers(16, LM_MAX_SEQ // 2 + 8, b)   # decode positions
+    pad = rng.integers(0, 8, b)
+    n_log = LM_MAX_SEQ // LM_BLOCK
+    n_pool = LM_SLOTS * n_log
+    cases = {
+        # name: (batch, query rows, rowinfo, paged)
+        "decode": (b, 1, np.stack([pos, pad, pos + 1], 1), False),
+        "wave prefill": (b, LM_WAVE_PROMPT,
+                         np.stack([np.zeros(b, int), pad,
+                                   np.full(b, LM_WAVE_PROMPT)], 1), False),
+        "paged decode": (b, 1, np.stack([pos, np.zeros(b, int), pos + 1], 1),
+                         True),
+        "paged prefill chunk": (1, LM_BLOCK,
+                                np.array([[LM_PREFIX - LM_BLOCK, 0,
+                                           LM_PREFIX]]), True),
+    }
+    kc = rand(b, LM_MAX_SEQ, hkv, d)
+    vc = rand(b, LM_MAX_SEQ, hkv, d)
+    k_pool = rand(hkv, n_pool, LM_BLOCK, d)
+    v_pool = rand(hkv, n_pool, LM_BLOCK, d)
+    print(f"  attention kernels against their plain versions (each element "
+          f"within 4*bk*eps*max|y|; at most {ATTN_FLIP_ROWS} rows beyond "
+          f"it, by one code flip at most):")
+    for name, (nb, sq, info, paged) in cases.items():
+        q = rand(nb, sq, hq, d).transpose(1, 2)         # (B, Hq, Sq, D) view
+        rows = torch.from_numpy(info.astype(np.int32)).to(dev)
+        rows_h = rows.repeat_interleave(hq, dim=0)     # per head: plain
+        if paged:
+            table = np.zeros((nb, n_log), np.int32)
+            for i in range(nb):
+                used = -(-int(info[i, 2]) // LM_BLOCK)
+                table[i, :used] = rng.choice(np.arange(2, n_pool), used,
+                                             replace=False)
+            pt = torch.from_numpy(table).to(dev)
+            pt_h = pt.repeat_interleave(hq, dim=0)
+            ptl = pt.long()
+            kname = "approx_flash_attention_paged"
+            s3 = [sym(q), sym(k_pool[:, ptl]), sym(v_pool[:, ptl])]
+            kern = lambda: ops[kname](
+                q, k_pool, v_pool, lut16, off, *s3, rowinfo=rows,
+                page_table=pt, rep=hq // hkv, row_heads=hq)
+            plain = lambda: aref.approx_attention_paged_ref(
+                q.reshape(-1, sq, d), k_pool, v_pool, lut32, off, *s3,
+                rowinfo=rows_h, page_table=pt_h, rep=hq // hkv)
+            kd = k_pool[:, ptl].reshape(hkv, nb, -1, d).transpose(0, 1)
+            vd = v_pool[:, ptl].reshape(hkv, nb, -1, d).transpose(0, 1)
+            bk = LM_BLOCK
+        else:
+            k, v = kc[:nb].transpose(1, 2), vc[:nb].transpose(1, 2)
+            kname = "approx_flash_attention"
+            s3 = [sym(q), sym(kc[:nb]), sym(vc[:nb])]
+            kern = lambda: ops[kname](q, k, v, lut16, off, *s3,
+                                      rowinfo=rows, row_heads=hq)
+            plain = lambda: aref.approx_attention_ref(
+                q.reshape(-1, sq, d), k.reshape(-1, LM_MAX_SEQ, d),
+                v.reshape(-1, LM_MAX_SEQ, d), lut32, off, *s3,
+                rowinfo=rows_h)
+            kd, vd = k, v
+            bk = 128
+        yk, yp = kern(), plain()
+        pv_scale = aref.attn_scales(*s3, d, 127)[1]
+        agree = aref.same_device_agreement(yk, yp, lut32, off, 127, pv_scale,
+                                           bk)
+        err = agree["max_err"]
+        check(bool(torch.isfinite(yk).all()) and agree["within_flip"]
+              and agree["flip_rows"] <= ATTN_FLIP_ROWS,
+              f"{kname} {name} {tuple(q.shape)}: max |diff| {err:.3e}, "
+              f"{agree['flip_rows']} rows beyond {agree['ulp_tol']:.3e} "
+              f"(at most {ATTN_FLIP_ROWS}, each within one flip, "
+              f"{agree['flip_tol']:.3e}); mean |y| {agree['mean_abs']:.3e}")
+        # yardstick: exact attention on the same q/k/v and mask
+        kpos = torch.arange(kd.shape[2], device=dev)
+        qpos = rows[:, :1, None] + torch.arange(sq, device=dev)[None, :,
+                                                                 None]
+        mask = ((kpos >= rows[:, 1:2, None]) & (kpos < rows[:, 2:3, None])
+                & (kpos <= qpos))[:, None]
+        qd, kdd, vdd = q.contiguous(), kd.contiguous(), vd.contiguous()
+        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qd, kdd, vdd, attn_mask=mask, enable_gqa=True), 10)
+        reps = 20 if sq == 1 else 5
+        ms = cuda_ms(torch, kern, reps)
+        pms = cuda_ms(torch, plain, 1, warm=0)
+        bytes_, lookups = attn_work(np, info, sq, hq, hkv, d, 2)
+        bound = max(bytes_ / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
+        print(f"    {name:19s} {kname}: {ms:.4f} ms (plain {pms:.2f}, "
+              f"scaled_dot_product_attention {lib:.4f}), bound {bound:.4f} "
+              f"ms ({lookups / 1e6:.1f} M lookups, {bytes_ / 1e6:.2f} MB)",
+              flush=True)
+        if name.endswith("decode"):   # the JSON row: one decode step
+            account(kname, cfg.n_layers, ms, pms, lib, bytes_, lookups, err)
+
+    # -- kernel 3 at the LM's GEMM shapes, bitwise --------------------------
+    print("  fused_lut_dense at the LM's GEMM shapes, bitwise:")
+    gemms = [("q/o", cfg.d_model, hq * d, 2), ("k/v", cfg.d_model, hkv * d, 2),
+             ("gate/up", cfg.d_model, cfg.d_ff, 2),
+             ("down", cfg.d_ff, cfg.d_model, 1),
+             ("head", cfg.d_model, cfg.vocab_padded, 1)]
+    for m_rows in (b, 256):
+        for label, kk, nn, per_layer in gemms:
+            x = rand(m_rows, kk)
+            w = rand(kk, nn) * 0.05
+            xqp = symmetric_qparams(torch.clamp_min(x.abs().amax(), 1e-6), 8)
+            wqp = symmetric_qparams(torch.clamp_min(w.abs().amax(dim=0),
+                                                    1e-9), 8, axis=1)
+            wq = acu_operand(quantize(w, wqp), wqp).contiguous()
+            a3 = (xqp.scale, xqp.zero_point, wqp.scale)
+            kern = lambda: ops["fused_lut_dense"](x, wq, lut16, off, *a3)
+            yk = kern()
+            yp = fused_lut_dense_ref(x, wq, lut32, off, n_codes, *a3)
+            check(torch.equal(yk, yp), f"fused_lut_dense {label} "
+                                       f"{m_rows}x{kk}x{nn}: bitwise equal "
+                                       f"to the plain version")
+            ms = cuda_ms(torch, kern, 10)
+            xf, wf = x.float(), w.float()
+            lib = cuda_ms(torch, lambda: torch.matmul(xf, wf), 10)
+            bound = max((m_rows * kk * 2 + kk * nn * 4 + lut_bytes
+                         + m_rows * nn * 4) / HBM_BYTES_PER_S,
+                        m_rows * kk * nn / lookups_per_s) * 1e3
+            line = (f"    M={m_rows:4d} {label:8s} {kk}x{nn}: {ms:.4f} ms, "
+                    f"torch.matmul f32 {lib:.4f} ms, bound {bound:.4f} ms")
+            if m_rows == b:              # the JSON row: one decode step
+                count = 1 if label == "head" else per_layer * cfg.n_layers
+                pms = cuda_ms(torch, lambda: fused_lut_dense_ref(
+                    x, wq, lut32, off, n_codes, *a3), 1, warm=0)
+                account("fused_lut_dense", count, ms, pms, lib,
+                        m_rows * kk * 2 + kk * nn * 4 + lut_bytes
+                        + m_rows * nn * 4, m_rows * kk * nn, 0.0)
+                line += f" (plain {pms:.2f} ms, x{count} per decode step)"
+            print(line, flush=True)
+    del kc, vc, k_pool, v_pool
+
+    # -- serve 64 requests through each engine -----------------------------
+    params = init_params(0, cfg, device=dev)
+    prompts = lm_requests(np, cfg.vocab_size)
+    engines = {
+        "wave": E.ServeEngine(params, cfg, slots=LM_SLOTS,
+                              max_seq=LM_MAX_SEQ, acfg=acfg, device=dev),
+        "continuous": E.ContinuousServeEngine(
+            params, cfg, slots=LM_SLOTS, max_seq=LM_MAX_SEQ, acfg=acfg,
+            device=dev),
+        "paged": E.PagedContinuousServeEngine(
+            params, cfg, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+            block_size=LM_BLOCK, acfg=acfg, device=dev),
+    }
+    attn_kernel = {"wave": "approx_flash_attention",
+                   "continuous": "approx_flash_attention",
+                   "paged": "approx_flash_attention_paged"}
+    calls = [0]
+    inner = E.apply_model
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return inner(*a, **k)
+
+    E.apply_model = counted
+    rates = {}
+    print(f"  serving {LM_REQUESTS} requests ({LM_SHARED} sharing a "
+          f"{LM_PREFIX}-token prefix), {LM_NEW} new tokens each, "
+          f"slots={LM_SLOTS}, max_seq={LM_MAX_SEQ}, paged block "
+          f"{LM_BLOCK}:")
+    try:
+        for name, eng in engines.items():
+            eng.run([E.Request(prompt=prompts[i], max_new_tokens=4)
+                     for i in range(2)])             # warm-up
+            torch.cuda.synchronize()
+            reqs = [E.Request(prompt=p.copy(), max_new_tokens=LM_NEW)
+                    for p in prompts]
+            for op in ops.values():
+                op.launches = 0
+            calls[0] = 0
+            t0 = time.perf_counter()
+            eng.run(reqs)
+            dt = time.perf_counter() - t0
+            counts = {k: op.launches for k, op in ops.items()}
+            n_tok = sum(len(r.out) for r in reqs)
+            rates[name] = n_tok / dt
+            stats = getattr(eng, "stats", {})
+            print(f"    {name}: {rates[name]:.1f} tokens/s ({n_tok} tokens "
+                  f"in {dt:.3f} s, {calls[0]} model calls), launches "
+                  f"{counts}; stats "
+                  + str({k: v for k, v in stats.items()
+                         if not k.endswith("_sum")}), flush=True)
+            check(n_tok == LM_REQUESTS * LM_NEW and all(
+                0 <= t < cfg.vocab_padded for r in reqs for t in r.out),
+                  f"{name}: {LM_REQUESTS} x {LM_NEW} tokens in the vocab")
+            want = {k: 0 for k in ops}
+            want[attn_kernel[name]] = cfg.n_layers * calls[0]
+            want["fused_lut_dense"] = (7 * cfg.n_layers + 1) * calls[0]
+            check(counts == want, f"{name}: launch counts are "
+                                  f"{cfg.n_layers} attention + "
+                                  f"{7 * cfg.n_layers + 1} dense per model "
+                                  f"call x {calls[0]} calls")
+            if name == "paged":
+                check(stats["prefix_hit_blocks"] > 0,
+                      f"paged: the shared prefix was reused "
+                      f"({stats['prefix_hit_blocks']} blocks)")
+            for k in ops:
+                launches[k] += counts[k]
+    finally:
+        E.apply_model = inner
+
+    # -- one short request on the card and on the CPU ----------------------
+    short = [E.Request(prompt=prompts[3][:16].copy(), max_new_tokens=4)]
+    on_gpu = E.ContinuousServeEngine(params, cfg, slots=1, max_seq=64,
+                                     acfg=acfg, device=dev).run(short)
+    def to_cpu(tree):
+        return ({k: to_cpu(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else tree.cpu())
+
+    cpu_params = to_cpu(params)
+    short_cpu = [E.Request(prompt=prompts[3][:16].copy(), max_new_tokens=4)]
+    t0 = time.perf_counter()
+    on_cpu = E.ContinuousServeEngine(cpu_params, cfg, slots=1, max_seq=64,
+                                     acfg=acfg, device="cpu").run(short_cpu)
+    print(f"  one 16-token request, 4 new tokens: card {list(on_gpu[0].out)}"
+          f", CPU {list(on_cpu[0].out)} ({time.perf_counter() - t0:.1f} s "
+          f"on the CPU)")
+    check(list(on_gpu[0].out) == list(on_cpu[0].out),
+          "a short request gives the same tokens on the card and the CPU")
+
+    # -- profile one decode step of each KV layout ------------------------
+    cache = init_cache(cfg, b, LM_MAX_SEQ, device=dev)
+    for kv in cache["groups"]["b0"]["attn"]:
+        kv.normal_(generator=gen)
+    pos_t = torch.from_numpy(pos).to(dev)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                         (b, 1))).to(dev)
+    dkw = dict(pos_offset=torch.zeros(b, dtype=torch.long, device=dev),
+               pad_mask=torch.ones((b, LM_MAX_SEQ), dtype=torch.bool,
+                                   device=dev))
+    pool = init_paged_cache(cfg, n_pool + 2, LM_BLOCK, device=dev)
+    for kv in pool["groups"]["b0"]["attn"]:
+        kv.normal_(generator=gen)
+    table = torch.from_numpy(2 + rng.permutation(n_pool).reshape(
+        b, n_log).astype(np.int32)).to(dev)
+    steps = {
+        "contiguous": lambda: E.apply_model(
+            params, toks, cfg, acfg=acfg, cache=cache, cache_pos=pos_t,
+            decode=True, **dkw),
+        "paged": lambda: E.apply_model(
+            params, toks, cfg, acfg=acfg, cache=pool, cache_pos=pos_t,
+            decode=True, page_table=table),
+    }
+    with torch.inference_mode():
+        for name, step in steps.items():
+            step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                step()[0].argmax(-1).cpu()
+            wall = (time.perf_counter() - t0) / 5 * 1e3
+            profile(torch, f"{name} decode step, {b} rows",
+                    lambda: step()[0].argmax(-1).cpu(), wall)
+    return rates
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -178,6 +538,8 @@ def main() -> int:
                                                              fused_lut_dense)
         from repro_torch.kernels.fused_lut_dense.ref import (
             fused_lut_bwd_ref, fused_lut_dense_ref)
+        from repro_torch.kernels.flash_attention.ops import (
+            approx_flash_attention, approx_flash_attention_paged)
         from repro_torch.kernels.lut_matmul.ops import lut_matmul
         from repro_torch.kernels.lut_matmul.ref import lut_matmul_ref
         from repro_torch.models.vision import init_resnet, resnet_forward
@@ -203,7 +565,7 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = runtime.BUILDER.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s "
-          f"({len(logs)} of {len(KERNELS)} libraries compiled)")
+          f"({len(logs)} of {len(runtime.SIGNATURES)} libraries compiled)")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -438,7 +800,9 @@ def main() -> int:
     }
     ops = {"lut_matmul": lut_matmul, "fused_lut_dense": fused_lut_dense,
            "fused_lut_conv": fused_lut_conv, "fused_lut_bwd": fused_lut_bwd,
-           "fused_lut_conv_bwd_w": fused_lut_conv_bwd_w}
+           "fused_lut_conv_bwd_w": fused_lut_conv_bwd_w,
+           "approx_flash_attention": approx_flash_attention,
+           "approx_flash_attention_paged": approx_flash_attention_paged}
     path_kernels = {"fused": ("fused_lut_conv", "fused_lut_dense"),
                     "unfused": ("lut_matmul",)}
     launches = {k: 0 for k in KERNELS}
@@ -571,7 +935,11 @@ def main() -> int:
         profile(torch, f"{regime} training step",
                 lambda: trainer.fit(p, state, batches, 1), 1e3 / rate)
 
-    # -- 6. report ---------------------------------------------------------
+    # -- 6. serve SmolLM-135M ----------------------------------------------
+    lm_rates = lm_phase(torch, np, dev, check, acu, ops, launches, account,
+                        lookups_per_s, lut_bytes)
+
+    # -- 7. report ---------------------------------------------------------
     rows = []
     for name, (source, replaces) in KERNELS.items():
         s = stats[name]
@@ -584,9 +952,13 @@ def main() -> int:
             else "bytes",
             "library_ms": s["lib_ms"]})
     print(f"ms summed over the calls of one serve wave of {BATCH} images "
-          f"(forward kernels) or one training step at batch {tb} (backward "
-          "kernels): " + ", ".join(f"{r['name']} {r['ms']:.3f} ms vs bound "
-                                   f"{r['bound_ms']:.3f}" for r in rows))
+          f"(forward kernels; fused_lut_dense adds one SmolLM decode step's "
+          f"211 GEMMs), one training step at batch {tb} (backward kernels) "
+          f"or one SmolLM decode step of {LM_SLOTS} rows (attention): "
+          + ", ".join(f"{r['name']} {r['ms']:.3f} ms vs bound "
+                      f"{r['bound_ms']:.3f}" for r in rows))
+    print("SmolLM-135M tokens/s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in lm_rates.items()))
     print(f"images/s: fused {rates['fused']:.1f}, "
           f"unfused {rates['unfused']:.1f}; training steps/s: "
           + ", ".join(f"{k} {v[-1]:.3f}" for k, v in train.items()))

@@ -1,8 +1,10 @@
 """Multipliers, LUTs, quantization, ACUs and approximate ops."""
-from .acu import (Acu, AcuMode, ConvPlan, ConvSpec, MatmulPlan, conv_plan,
-                  make_acu, matmul_plan, resolve_conv_padding)
-from .approx_ops import (ApproxConfig, approx_dense, approx_matmul, conv2d,
-                         conv_plan_report)
+from .acu import (Acu, AcuMode, AttnPlan, AttnSpec, ConvPlan, ConvSpec,
+                  MatmulPlan, attn_plan, conv_plan, make_acu, matmul_plan,
+                  resolve_conv_padding)
+from .approx_ops import (ApproxConfig, approx_attention,
+                         approx_attention_paged, approx_dense, approx_matmul,
+                         conv2d, conv_plan_report)
 from .lut import build_error_table, build_lut
 from .multipliers import REGISTRY, Multiplier, error_stats, get_multiplier
 from .quantization import (QParams, acu_operand, affine_qparams, dequantize,
@@ -10,9 +12,10 @@ from .quantization import (QParams, acu_operand, affine_qparams, dequantize,
                            symmetric_qparams)
 
 __all__ = [
-    "Acu", "AcuMode", "ApproxConfig", "ConvPlan", "ConvSpec", "MatmulPlan",
-    "Multiplier", "QParams", "REGISTRY", "acu_operand", "affine_qparams",
-    "approx_dense", "approx_matmul", "build_error_table", "build_lut",
+    "Acu", "AcuMode", "ApproxConfig", "AttnPlan", "AttnSpec", "ConvPlan",
+    "ConvSpec", "MatmulPlan", "Multiplier", "QParams", "REGISTRY",
+    "acu_operand", "affine_qparams", "approx_attention",
+    "approx_attention_paged", "approx_dense", "approx_matmul", "attn_plan", "build_error_table", "build_lut",
     "conv2d", "conv_plan", "conv_plan_report", "dequantize", "error_stats",
     "fake_quantize", "get_multiplier", "inline_symmetric_scale", "make_acu",
     "matmul_plan", "quantize", "resolve_conv_padding", "symmetric_qparams",

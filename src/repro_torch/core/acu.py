@@ -9,9 +9,10 @@ quantize -> LUT GEMM -> dequant routes). All GEMMs consume shifted-code
 integer operands (``code - zero_point``).
 
 Dispatch is two-level, as in the reference: :func:`matmul_plan` (dense
-GEMMs), :func:`matmul_bwd_plan` (the approximate STE gradient GEMMs) and
-:func:`conv_plan` (conv2d sites, with the backward route it implies)
-resolve (mode, bits, use_kernels, fused) to a route. The other modes
+GEMMs), :func:`matmul_bwd_plan` (the approximate STE gradient GEMMs),
+:func:`conv_plan` (conv2d sites, with the backward route it implies) and
+:func:`attn_plan` (attention over a contiguous or paged KV cache) resolve
+(mode, bits, use_kernels, fused) to a route. The other modes
 (EXACT, FUNCTIONAL, LOWRANK, FACTORED), the spatially tiled conv route,
 grouped convs and mesh partitions are not ported yet: asking for one
 raises ``NotImplementedError`` naming the ROADMAP queue that holds it,
@@ -59,6 +60,10 @@ class Acu:
     # plain versions, int16 for the kernels' shared memory)
     _tables: dict = dataclasses.field(default_factory=dict, compare=False,
                                       repr=False, hash=False)
+    # attention plans resolved so far, by (spec, a_bits); not an init
+    # field, so dataclasses.replace starts an empty one
+    _plans: dict = dataclasses.field(default_factory=dict, init=False,
+                                     compare=False, repr=False, hash=False)
 
     @property
     def bits(self) -> int:
@@ -384,6 +389,144 @@ def conv_plan(acu: Acu, spec: ConvSpec, *, a_bits: Optional[int] = None,
     return ConvPlan(mode=acu.mode, bits=acu.bits, use_kernels=acu.use_kernels,
                     fused=fused, route="im2col", spec=spec,
                     report=tuple(report))
+
+
+# ---------------------------------------------------------------------------
+# attention planning layer: GQA geometry x (mode, bits, use_kernels)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttnSpec:
+    """Static geometry of one attention site. ``hq``/``hkv``: query / KV
+    head counts (``hq % hkv == 0``); ``causal``/``window``/``softcap``: the
+    mask and logit statics. ``kv_layout`` is ``"contiguous"`` (per-row
+    ``(B, Hkv, Sk, D)`` K/V) or ``"paged"`` (a shared ``(Hkv, P, bk, D)``
+    block pool read through a page table); ``bk`` is the pool's block size
+    there (the contiguous kernel derives its tiles from the sequence)."""
+
+    hq: int
+    hkv: int
+    causal: bool = True
+    window: Optional[int] = None
+    softcap: Optional[float] = None
+    bk: Optional[int] = None
+    kv_layout: str = "contiguous"
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnPlan:
+    """A resolved attention route for one ACU at one static geometry.
+
+    * ``"fused_attn"``: the approximate flash attention kernel (kernel 8),
+      ``fn(q, k, v, q_scale, k_scale, v_scale, rowinfo) -> (B, Hq, Sq, D)
+      f32`` with ``q`` (B, Hq, Sq, D), ``k``/``v`` (B, Hkv, Sk, D) (views
+      are fine), scales computed by the caller on the full tensors and
+      ``rowinfo`` (B, 3) int32 ``[q_base, kv_start, kv_len]`` (None = the
+      end-aligned default);
+    * ``"fused_attn_paged"``: the same over a block pool (kernel 9),
+      ``fn(q, k_pool, v_pool, q_scale, k_scale, v_scale, rowinfo,
+      page_table)`` with ``(Hkv, P, bk, D)`` pools and a (B, n_logical)
+      page table; ``rowinfo`` required;
+    * ``"dense"``: the audited fallback (not a LUT ACU on the kernels, or
+      no table): ``fn`` is None and the caller keeps its exact float
+      attention, gathering pool blocks first when paged.
+
+    ``use_kernels`` plays the part of the reference's ``use_pallas``; a
+    CPU tensor takes the kernels' plain versions, as everywhere.
+    ``describe()`` has the reference's keys; ``partition`` is None (no
+    mesh yet).
+    """
+
+    mode: AcuMode
+    bits: int
+    use_kernels: bool
+    route: str
+    spec: AttnSpec
+    fn: Optional[Callable[..., torch.Tensor]] = None
+    report: tuple[str, ...] = ()
+
+    def __call__(self, *args) -> torch.Tensor:
+        if self.fn is None:
+            raise ValueError(f"route {self.route} has no direct kernel")
+        return self.fn(*args)
+
+    def describe(self) -> dict:
+        return {
+            "route": self.route,
+            "mode": self.mode.value,
+            "heads": f"hq={self.spec.hq} hkv={self.spec.hkv} "
+                     f"(rep={self.spec.hq // self.spec.hkv})",
+            "kv_layout": self.spec.kv_layout
+                + (f" (block={self.spec.bk})"
+                   if self.spec.kv_layout == "paged" else ""),
+            "mask": f"causal={self.spec.causal} window={self.spec.window} "
+                    f"softcap={self.spec.softcap}",
+            "partition": None,
+            "report": list(self.report),
+        }
+
+
+def attn_plan(acu: Acu, spec: AttnSpec, *,
+              a_bits: Optional[int] = None) -> AttnPlan:
+    """Resolve one attention site to a route, with the reference's audited
+    fallback: an ACU that cannot run the approximate kernel (not LUT mode,
+    no ``use_kernels``, no table) resolves to ``"dense"`` and attention
+    stays exact. A plan depends only on static geometry, so the ACU keeps
+    each one it resolves and hands it out again."""
+    a_bits = acu.bits if a_bits is None else a_bits
+    plan = acu._plans.get((spec, a_bits))
+    if plan is None:
+        plan = acu._plans[spec, a_bits] = _resolve_attn(acu, spec, a_bits)
+    return plan
+
+
+def _resolve_attn(acu: Acu, spec: AttnSpec, a_bits: int) -> AttnPlan:
+    report: list[str] = []
+    if spec.hq % spec.hkv != 0:
+        raise ValueError(f"hq={spec.hq} not a multiple of hkv={spec.hkv}")
+    if spec.kv_layout not in ("contiguous", "paged"):
+        raise ValueError(f"unknown kv_layout {spec.kv_layout!r}")
+    paged = spec.kv_layout == "paged"
+    if not (acu.mode == AcuMode.LUT and acu.use_kernels
+            and acu.lut is not None):
+        report.append(f"fused attention needs LUT mode + use_kernels + a "
+                      f"built table (have mode={acu.mode.value}, "
+                      f"use_kernels={acu.use_kernels}); attention stays "
+                      f"exact")
+        if paged:
+            report.append("paged KV on the dense route: caller gathers pool "
+                          "blocks to a contiguous layout (exact math is "
+                          "layout-independent)")
+        return AttnPlan(mode=acu.mode, bits=acu.bits,
+                        use_kernels=acu.use_kernels, route="dense",
+                        spec=spec, report=tuple(report))
+
+    from repro_torch.kernels.flash_attention.ops import (
+        approx_flash_attention, approx_flash_attention_paged)
+    kw = dict(bits=a_bits, causal=spec.causal, window=spec.window,
+              softcap=spec.softcap, row_heads=spec.hq)
+
+    if paged:
+        rep = spec.hq // spec.hkv
+
+        def fn(q, k_pool, v_pool, qs, ks, vs, rowinfo, page_table):
+            b, hq, sq, d = q.shape
+            out = approx_flash_attention_paged(
+                q, k_pool, v_pool, acu.device_lut(q.device), acu.offset, qs,
+                ks, vs, rowinfo=rowinfo, page_table=page_table, rep=rep,
+                **kw)
+            return out.reshape(b, hq, sq, d)
+    else:
+        def fn(q, k, v, qs, ks, vs, rowinfo=None):
+            b, hq, sq, d = q.shape
+            out = approx_flash_attention(
+                q, k, v, acu.device_lut(q.device), acu.offset, qs, ks, vs,
+                rowinfo=rowinfo, **kw)
+            return out.reshape(b, hq, sq, d)
+
+    return AttnPlan(mode=acu.mode, bits=acu.bits, use_kernels=True,
+                    route="fused_attn_paged" if paged else "fused_attn",
+                    spec=spec, fn=fn, report=tuple(report))
 
 
 def make_acu(name: str, mode: AcuMode | str = AcuMode.LUT,

@@ -35,8 +35,8 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from .acu import (Acu, ConvSpec, conv_plan, matmul_bwd_plan, matmul_plan,
-                  resolve_conv_padding)
+from .acu import (Acu, AttnSpec, ConvSpec, attn_plan, conv_plan,
+                  matmul_bwd_plan, matmul_plan, resolve_conv_padding)
 from .quantization import (QParams, acu_operand, fake_quantize,
                            inline_symmetric_scale, quantize,
                            symmetric_qparams)
@@ -97,19 +97,22 @@ class _Ste(torch.autograd.Function):
                 w_bits: int, w_axis: int):
         need_gx, need_gw = ctx.needs_input_grad[:2]
         xf = wf = None
+        # the residuals keep their operand's dtype, as the reference's do
         if need_gw:
             xf = fake_quantize(x, QParams(scale=xs, zero_point=xz,
-                                          bits=a_bits))
+                                          bits=a_bits)).to(x.dtype)
         if need_gx:
             wf = fake_quantize(w, QParams(scale=ws, zero_point=wz,
-                                          bits=w_bits, axis=w_axis))
+                                          bits=w_bits, axis=w_axis)
+                               ).to(w.dtype)
         ctx.save_for_backward(xf, wf)
         ctx.bwd = bwd
         return fwd(x, w, xs, xz, ws, wz)
 
     @staticmethod
     def backward(ctx, g):
-        xf, wf = ctx.saved_tensors
+        xf, wf = (None if t is None else t.to(torch.float32)
+                  for t in ctx.saved_tensors)
         need_gx, need_gw = ctx.needs_input_grad[:2]
         gx, gw = ctx.bwd(g.to(torch.float32), xf, wf, need_gx, need_gw)
         return (gx, gw) + (None,) * 9
@@ -207,6 +210,67 @@ def approx_dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     if b is not None:
         y = y + b     # a second, separately rounded op after the dequant
     return y
+
+
+# ---------------------------------------------------------------------------
+# Attention through the ACU: the approximate flash attention kernels over a
+# contiguous or a paged KV cache, routed by core/acu.attn_plan
+# ---------------------------------------------------------------------------
+
+def _attn_scale(t: torch.Tensor, bits: int) -> torch.Tensor:
+    """Per-tensor attention scale on the full tensor: ``max(amax, 1e-6)``
+    (in the tensor's dtype, as the reference) through
+    ``inline_symmetric_scale``."""
+    return inline_symmetric_scale(torch.clamp_min(t.abs().amax(), 1e-6),
+                                  bits)
+
+
+def approx_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cfg: ApproxConfig, *, causal: bool = True,
+                     window: Optional[int] = None,
+                     softcap: Optional[float] = None,
+                     rowinfo: Optional[torch.Tensor] = None
+                     ) -> Optional[torch.Tensor]:
+    """Attention through the ACU (kernel 8), or ``None`` when the plan
+    audits to the exact route (the caller keeps its float attention).
+
+    ``q``: (B, Hq, Sq, D); ``k``/``v``: (B, Hkv, Sk, D) (views of the
+    cache are fine); ``rowinfo``: optional (B, 3) int32. The per-tensor
+    scales are calibrated here on the full tensors. Forward only."""
+    spec = AttnSpec(hq=q.shape[1], hkv=k.shape[1], causal=causal,
+                    window=window, softcap=softcap)
+    plan = attn_plan(cfg.acu, spec, a_bits=cfg.a_bits)
+    if plan.route != "fused_attn":
+        return None
+    scales = [_attn_scale(t, cfg.a_bits) for t in (q, k, v)]
+    return plan(q, k, v, *scales, rowinfo)
+
+
+def approx_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, cfg: ApproxConfig, *,
+                           page_table: torch.Tensor, rowinfo: torch.Tensor,
+                           causal: bool = True, window: Optional[int] = None,
+                           softcap: Optional[float] = None
+                           ) -> Optional[torch.Tensor]:
+    """Attention through the ACU over block-paged KV (kernel 9), or
+    ``None`` on the exact route (the caller gathers the pool blocks back to
+    a contiguous layout first).
+
+    ``q``: (B, Hq, Sq, D); ``k_pool``/``v_pool``: (Hkv, P, bk, D);
+    ``page_table``: (B, n_logical) int32 and ``rowinfo``: (B, 3) int32,
+    both required. The K/V amaxes are taken over the blocks the page
+    tables reference (``pool[:, page_table]``), not the whole pool, so a
+    prefix-cache hit sees the scales a cold run computes."""
+    spec = AttnSpec(hq=q.shape[1], hkv=k_pool.shape[0], causal=causal,
+                    window=window, softcap=softcap, bk=k_pool.shape[2],
+                    kv_layout="paged")
+    plan = attn_plan(cfg.acu, spec, a_bits=cfg.a_bits)
+    if plan.route != "fused_attn_paged":
+        return None
+    pt = torch.as_tensor(page_table, dtype=torch.int64, device=q.device)
+    scales = [_attn_scale(q, cfg.a_bits)] + [
+        _attn_scale(pool[:, pt], cfg.a_bits) for pool in (k_pool, v_pool)]
+    return plan(q, k_pool, v_pool, *scales, rowinfo, page_table)
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,9 @@ integer fed to the ACU is ``code - zero_point``.
 
 Rounding is held to the reference's, bit for bit: the quantizer is
 ``clip(round_half_even(x / s + z), lo, hi)`` with a correctly rounded
-divide. On CUDA, PyTorch turns a divide by a Python or CPU scalar into a
+divide, always in float32: JAX promotes ``bfloat16 / float32[]`` to
+float32, where PyTorch would keep a 0-d float32 divisor's quotient in
+bfloat16, so the operand is converted first (exactly). On CUDA, PyTorch turns a divide by a Python or CPU scalar into a
 multiply by its reciprocal, so every divisor here is a tensor on the
 operand's own device. The reference's ``pin_rounding`` has no counterpart:
 eager PyTorch rounds each op once, as written, and never reassociates or
@@ -14,6 +16,7 @@ contracts.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -46,6 +49,21 @@ class QParams:
         return v.reshape(shape)
 
 
+@functools.lru_cache(maxsize=256)
+def _device_scalar(value: float, device: str) -> torch.Tensor:
+    """A float32 constant on ``device``, made once: a fresh
+    ``torch.tensor(value, device="cuda")`` is a pageable host-to-device
+    copy, which PyTorch follows with a stream synchronisation, so the host
+    would wait for the card at every quantizer. Made outside inference mode
+    so that autograd may save it; never written to."""
+    with torch.inference_mode(False):
+        return torch.tensor(value, dtype=torch.float32, device=device)
+
+
+def device_scalar(value: float, device) -> torch.Tensor:
+    return _device_scalar(float(value), str(torch.device(device)))
+
+
 def _f32(v, device=None) -> torch.Tensor:
     if isinstance(v, torch.Tensor):
         return v.to(dtype=torch.float32, device=device or v.device)
@@ -58,8 +76,7 @@ def symmetric_qparams(calib_max, bits: int,
     ``max(calib_max, 1e-12)`` **divided** by ``hi``."""
     hi = (1 << (bits - 1)) - 1
     m = _f32(calib_max)
-    scale = torch.clamp_min(m, 1e-12) / torch.tensor(
-        float(hi), dtype=torch.float32, device=m.device)
+    scale = torch.clamp_min(m, 1e-12) / device_scalar(hi, m.device)
     return QParams(scale=scale, zero_point=torch.zeros_like(scale),
                    bits=bits, axis=axis)
 
@@ -72,8 +89,8 @@ def inline_symmetric_scale(amax, bits: int) -> torch.Tensor:
     hi = (1 << (bits - 1)) - 1
     m = _f32(amax)
     inv = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(
-        float(hi), dtype=torch.float32)
-    return torch.clamp_min(m, 1e-12) * inv.to(m.device)
+        float(hi), dtype=torch.float32)             # rounded once, in f32
+    return torch.clamp_min(m, 1e-12) * device_scalar(inv.item(), m.device)
 
 
 def affine_qparams(xmin, xmax, bits: int,
@@ -95,7 +112,7 @@ def quantize(x: torch.Tensor, qp: QParams) -> torch.Tensor:
     """real -> int code (int32, within [lo, hi])."""
     s = qp._expand(x, qp.scale)
     z = qp._expand(x, qp.zero_point)
-    q = torch.round(x / s + z)
+    q = torch.round(x.to(torch.float32) / s + z)
     return torch.clamp(q, qp.lo, qp.hi).to(torch.int32)
 
 
@@ -117,20 +134,22 @@ class FakeQuant(torch.autograd.Function):
     straight-through estimator: the gradient passes where ``x / s + z``
     lies inside ``[lo, hi]`` (the same expression as the forward's, so the
     clip edges agree) and is 0 outside; the scale and zero point get
-    none."""
+    none. Computed in float32 whatever ``x``'s dtype, as the reference
+    promotes it; the gradient goes back in ``x``'s dtype."""
 
     @staticmethod
     def forward(ctx, x, scale, zero_point, lo: float, hi: float):
-        t = x / scale + zero_point
+        t = x.to(torch.float32) / scale + zero_point
         if ctx.needs_input_grad[0]:
             ctx.save_for_backward((t >= lo) & (t <= hi))
+            ctx.x_dtype = x.dtype
         return (torch.clamp(torch.round(t), lo, hi) - zero_point) * scale
 
     @staticmethod
     def backward(ctx, g):
         (in_range,) = ctx.saved_tensors
-        return (torch.where(in_range, g, torch.zeros_like(g)), None, None,
-                None, None)
+        gx = torch.where(in_range, g, torch.zeros_like(g)).to(ctx.x_dtype)
+        return gx, None, None, None, None
 
 
 def fake_quantize(x: torch.Tensor, qp: QParams) -> torch.Tensor:

@@ -1,0 +1,178 @@
+"""Public wrappers of the approximate flash attention kernel
+(``csrc/approx_flash_attention.cu``): contiguous KV (kernel 8) and
+block-paged KV (kernel 9).
+
+A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
+version in ``ref.py``. Both read the same geometry, default ``rowinfo`` and
+pinned scales from ``prepare_approx_attention`` / ``_paged``. The kernel
+pads nothing: it reads Q, K and V where they lie, through their strides, in
+their own dtype (float32 or bfloat16, converted to float32 on staging), so
+a ``(B, H, S, D)`` view of a ``(B, S, H, D)`` cache is taken as it is.
+
+``BQ`` and ``BK`` are the largest q and KV tiles; each call shrinks them
+for short sequences as the reference does (``prepare_approx_attention``).
+``row_heads`` lets the heads of one batch row share one ``rowinfo`` (and
+page-table) row, so a caller passes its (B, 3) extents as they are.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import runtime
+from .ref import (_rows, approx_attention_paged_ref, approx_attention_ref,
+                  prepare_approx_attention, prepare_approx_attention_paged)
+
+BQ = 128
+BK = 128
+
+
+def _folded(t: torch.Tensor) -> torch.Tensor:
+    """(B, H, S, D) -> (B*H, S, D) for the plain version (a copy where the
+    view does not fold)."""
+    return t.reshape(-1, *t.shape[-2:]) if t.dim() == 4 else t
+
+
+def _addressing(t: torch.Tensor, name: str, paged: bool = False):
+    """(heads per batch row, batch stride, head stride, position stride) of
+    a (rows, S, D) or (B, H, S, D) operand, or of a (Hkv, P, bk, D) pool
+    whose blocks lie back to back. The last dim must be dense."""
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name} must be dense along its last dim")
+    if paged:
+        if t.stride(1) != t.shape[2] * t.stride(2):
+            raise ValueError(f"{name}'s blocks must lie back to back")
+        return t.shape[0], 0, t.stride(0), t.stride(2)
+    if t.dim() == 3:
+        return 1, t.stride(0), 0, t.stride(1)
+    if t.dim() == 4:
+        return t.shape[1], t.stride(0), t.stride(1), t.stride(2)
+    raise ValueError(f"{name} must be 3-D or 4-D, got {tuple(t.shape)}")
+
+
+def _per_row(t, row_heads: int):
+    """Rows shared by ``row_heads`` query rows, one per query row (for the
+    plain versions, on the CPU)."""
+    if t is None or row_heads == 1:
+        return t
+    return torch.as_tensor(t).repeat_interleave(row_heads, dim=0)
+
+
+def _launch(q, k, v, lut_flat, info, page_table, scales, st: dict, counted,
+            *, seq_k: int, n_kv: int, rep: int, row_heads: int, causal: bool,
+            window: Optional[int], softcap: Optional[float],
+            paged: bool) -> torch.Tensor:
+    """Launch the kernel and add one to ``counted.launches``."""
+    if not q.dtype == k.dtype == v.dtype or q.dtype not in (torch.float32,
+                                                            torch.bfloat16):
+        q, k, v = (t.to(torch.float32) for t in (q, k, v))   # exact
+    dev = q.device
+    table = runtime.lut_to_int16(lut_flat)
+    runtime.check_cuda_operand(table, "lut", torch.int16, dev)
+    runtime.check_cuda_operand(info, "rowinfo", torch.int32, dev)
+    if page_table is not None:
+        runtime.check_cuda_operand(page_table, "page_table", torch.int32, dev)
+    for t, name in ((k, "k"), (v, "v")):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    qh, *q_addr = _addressing(q, "q")
+    kh, *k_addr = _addressing(k, "k", paged)
+    _, *v_addr = _addressing(v, "v", paged)
+    bh, sq, d = _rows(q)
+    out = torch.empty((bh, sq, d), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    lib = runtime.kernel_library("approx_flash_attention")
+    blocks, stream = runtime.launch_config(q)
+    lib.check(lib.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
+        info.data_ptr(),
+        None if page_table is None else page_table.data_ptr(),
+        *(s.data_ptr() for s in scales), out.data_ptr(),
+        int(q.dtype == torch.bfloat16), bh, sq, d, seq_k, st["bq"],
+        st["bk"], n_kv, rep, qh, kh, row_heads, *q_addr, *k_addr, *v_addr,
+        st["n_codes"], st["offset"], st["lo"], st["hi"], int(causal),
+        -1 if window is None else int(window), int(softcap is not None),
+        0.0 if softcap is None else float(softcap), int(paged), blocks,
+        stream))
+    counted.launches += 1
+    return out
+
+
+def approx_flash_attention(q, k, v, lut, offset: int, q_scale, k_scale,
+                           v_scale, *, bits: int = 8, causal: bool = True,
+                           window: Optional[int] = None,
+                           softcap: Optional[float] = None, rowinfo=None,
+                           row_heads: int = 1, bq: int = BQ,
+                           bk: int = BK) -> torch.Tensor:
+    """Approximate GQA flash attention on the ACU (kernel 8).
+
+    ``q``: (B*Hq, Sq, D) or (B, Hq, Sq, D) float; ``k``/``v``: (B*Hkv, Sk,
+    D) or (B, Hkv, Sk, D), ``Hq % Hkv == 0`` (query row ``b`` of the folded
+    layout reads KV row ``b // rep``); ``lut`` the product table (int32, or
+    int16 from :func:`runtime.lut_to_int16`) with shifted-code ``offset``;
+    per-tensor symmetric scales (``inline_symmetric_scale``); ``rowinfo``
+    optional (B*Hq / ``row_heads``, 3) int32 ``[q_base, kv_start,
+    kv_len]``, default end-aligned over the whole key sequence. Returns
+    (B*Hq, Sq, D) float32.
+    """
+    if q.device.type == "cpu":
+        return approx_attention_ref(
+            _folded(q), _folded(k), _folded(v), lut, offset, q_scale,
+            k_scale, v_scale, bits=bits, causal=causal, window=window,
+            softcap=softcap, rowinfo=_per_row(rowinfo, row_heads), bq=bq,
+            bk=bk)
+    ops, st = prepare_approx_attention(
+        q, k, v, lut, offset, q_scale, k_scale, v_scale, bits=bits,
+        rowinfo=rowinfo, bq=bq, bk=bk, pad=False, row_heads=row_heads)
+    _, _, _, lut_flat, info, *scales = ops
+    sk = st["seq_k_real"]
+    return _launch(q, k, v, lut_flat, info, None, scales, st,
+                   approx_flash_attention, seq_k=sk,
+                   n_kv=-(-sk // st["bk"]), rep=st["rep"],
+                   row_heads=row_heads, causal=causal, window=window,
+                   softcap=softcap, paged=False)
+
+
+approx_flash_attention.launches = 0
+
+
+def approx_flash_attention_paged(q, k_pool, v_pool, lut, offset: int,
+                                 q_scale, k_scale, v_scale, *, rowinfo,
+                                 page_table, rep: int, bits: int = 8,
+                                 causal: bool = True,
+                                 window: Optional[int] = None,
+                                 softcap: Optional[float] = None,
+                                 row_heads: int = 1,
+                                 bq: int = BQ) -> torch.Tensor:
+    """Approximate GQA flash attention over block-paged KV (kernel 9).
+
+    ``q``: (B*Hq, Sq, D) or (B, Hq, Sq, D) float; ``k_pool``/``v_pool``:
+    (Hkv, P, bk, D), the physical block pool shared by every row (blocks
+    back to back); ``page_table``: (B*Hq / ``row_heads``, n_logical) int32
+    physical block of each logical block; ``rowinfo``: (B*Hq /
+    ``row_heads``, 3) int32 logical ``[q_base, kv_start, kv_len]``,
+    required. Query row ``b`` reads pool head ``(b //
+    rep) % Hkv``. Returns (B*Hq, Sq, D) float32, equal to the contiguous
+    kernel at ``bk`` = the block size on the gathered blocks.
+    """
+    if q.device.type == "cpu":
+        return approx_attention_paged_ref(
+            _folded(q), k_pool, v_pool, lut, offset, q_scale, k_scale,
+            v_scale, rowinfo=_per_row(rowinfo, row_heads),
+            page_table=_per_row(page_table, row_heads), rep=rep, bits=bits,
+            causal=causal, window=window, softcap=softcap, bq=bq)
+    ops, st = prepare_approx_attention_paged(
+        q, k_pool, v_pool, lut, offset, q_scale, k_scale, v_scale,
+        bits=bits, rowinfo=rowinfo, page_table=page_table, bq=bq, pad=False,
+        row_heads=row_heads)
+    _, _, _, lut_flat, info, pt, *scales = ops
+    n_logical = pt.shape[1]
+    return _launch(q, k_pool, v_pool, lut_flat, info, pt, scales, st,
+                   approx_flash_attention_paged, seq_k=n_logical * st["bk"],
+                   n_kv=n_logical, rep=rep, row_heads=row_heads,
+                   causal=causal, window=window, softcap=softcap, paged=True)
+
+
+approx_flash_attention_paged.launches = 0

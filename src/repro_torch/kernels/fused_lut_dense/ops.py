@@ -30,7 +30,9 @@ def fused_lut_dense(x: torch.Tensor, wq: torch.Tensor, lut: torch.Tensor,
                     emit_acc: bool = False) -> torch.Tensor:
     """Fused approximate dense forward.
 
-    ``x``: (M, K) float32 activations; ``wq``: (K, N) int32 shifted weight
+    ``x``: (M, K) float activations (bfloat16 is widened to float32
+    first, an exact conversion, as the reference's kernel does in-kernel);
+    ``wq``: (K, N) int32 shifted weight
     codes; ``lut``: the product table (int32, or int16 from
     :func:`runtime.lut_to_int16`); ``x_scale``/``x_zp``: per-tensor
     activation qparams; ``w_scale``: scalar or (N,) weight scales; ``bits``:
@@ -50,7 +52,7 @@ def fused_lut_dense(x: torch.Tensor, wq: torch.Tensor, lut: torch.Tensor,
     lo = -(1 << (bits - 1))
     hi = (1 << (bits - 1)) - 1
     table = runtime.lut_to_int16(lut)
-    x = x.contiguous()
+    x = x.to(torch.float32).contiguous()
     wq = wq.contiguous()
     xs, xz, ws = scale_operands(x_scale, x_zp, w_scale, N, x.device)
     for t, name, dt in ((x, "x", torch.float32), (wq, "wq", torch.int32),

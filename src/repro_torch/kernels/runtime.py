@@ -37,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signature of each library's launch entry (pointers and the stream are
 # c_void_p: ctypes would otherwise pass them as 32-bit ints)
 SIGNATURES = {
@@ -53,6 +54,9 @@ SIGNATURES = {
                        _I, _I, _P]),
     "fused_lut_conv_bwd_w": ("fused_lut_conv_bwd_w_launch",
                              [_P] * 6 + [_I] * 15 + [_I] * 5 + [_P]),
+    "approx_flash_attention": ("approx_flash_attention_launch",
+                               [_P] * 12 + [_I] * 12 + [_L] * 9 + [_I] * 7
+                               + [ctypes.c_float, _I, _I, _P]),
 }
 
 

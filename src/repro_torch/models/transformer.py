@@ -1,0 +1,235 @@
+"""Decoder-only LM: init / forward / caches (port of
+``repro.models.transformer``, attention patterns only).
+
+Parameters keep the reference's pytree: group-stacked leaves of shape
+``(n_groups, ...)`` under ``params["groups"]["b<i>"]``, so the reference's
+parameters carry over leaf for leaf (:func:`load_jax_params`). The forward
+is a Python loop over groups where the reference scans. Caches are stacked
+the same way and written in place (``models/layers.py``). Layer kinds
+other than attention (MoE, mamba, rwkv) and the enc-dec family raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.acu import not_ported
+from repro_torch.core.approx_ops import ApproxConfig
+from repro_torch.kernels.runtime import resolve_device
+from repro_torch.models import layers as L
+
+
+def _check_kinds(cfg: ModelConfig) -> None:
+    for kind in cfg.pattern:
+        if kind.endswith("moe"):
+            raise not_ported(f"MoE layers ({cfg.name})", "queue 1, item 12")
+        if not kind.startswith("attn"):
+            raise not_ported(f"{kind} layers ({cfg.name})",
+                             "queue 1, item 14 (other model families)")
+    if cfg.enc_dec:
+        raise not_ported(f"the encoder-decoder family ({cfg.name})",
+                         "queue 1, item 14 (other model families)")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_params(seed: int, cfg: ModelConfig, device=None) -> dict:
+    """Parameters from a seed (``torch.Generator`` on ``device``), in the
+    reference's layout and scales: dense weights ``N(0, 1) / sqrt(d_in)``
+    in ``cfg.param_dtype``, norms at 1 (0 for ``rms1p``), biases 0. The
+    numbers differ from the reference's ``jax.random`` ones; load those
+    with :func:`load_jax_params`."""
+    _check_kinds(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    g, d, hd = cfg.n_groups, cfg.d_model, cfg.head_dim
+    h, hkv, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    pd = cfg.param_dtype
+
+    def dense(*shape, scale=None):
+        scale = scale or shape[-2] ** -0.5
+        w = torch.randn(shape, generator=gen, device=dev,
+                        dtype=torch.float32) * scale
+        return w.to(pd)
+
+    def norm(width, n):
+        if cfg.norm == "ln":
+            return {"w": torch.ones((n, width), device=dev),
+                    "b": torch.zeros((n, width), device=dev)}
+        fill = torch.zeros if cfg.norm == "rms1p" else torch.ones
+        return {"w": fill((n, width), device=dev)}
+
+    groups: dict[str, Any] = {}
+    for i, _ in enumerate(cfg.pattern):
+        attn = {"wq": dense(g, d, h * hd), "wk": dense(g, d, hkv * hd),
+                "wv": dense(g, d, hkv * hd), "wo": dense(g, h * hd, d)}
+        if cfg.qkv_bias:
+            for name, width in (("bq", h * hd), ("bk", hkv * hd),
+                                ("bv", hkv * hd)):
+                attn[name] = torch.zeros((g, width), dtype=pd, device=dev)
+        if cfg.qk_norm:
+            attn["q_norm"] = torch.ones((g, hd), device=dev)
+            attn["k_norm"] = torch.ones((g, hd), device=dev)
+        if cfg.mlp_type in ("swiglu", "geglu"):
+            mlp = {"w_gate": dense(g, d, f), "w_up": dense(g, d, f),
+                   "w_down": dense(g, f, d)}
+        else:
+            mlp = {"w_up": dense(g, d, f),
+                   "b_up": torch.zeros((g, f), dtype=pd, device=dev),
+                   "w_down": dense(g, f, d),
+                   "b_down": torch.zeros((g, d), dtype=pd, device=dev)}
+        blk = {"norm1": norm(d, g), "attn": attn, "norm2": norm(d, g),
+               "mlp": mlp}
+        if cfg.post_norm:
+            blk["post_norm1"] = norm(d, g)
+            blk["post_norm2"] = norm(d, g)
+        groups[f"b{i}"] = blk
+    params = {"embed": dense(cfg.vocab_padded, d, scale=d ** -0.5),
+              "groups": groups, "final_norm": norm(d, 1)}
+    if not cfg.tie_embed:
+        params["lm_head"] = dense(d, cfg.vocab_padded)
+    return params
+
+
+def load_jax_params(tree, device=None, dtype=None) -> dict:
+    """The reference's parameter pytree (numpy leaves, e.g. from
+    ``jax.tree.map(np.asarray, params)``) as the port's parameters on
+    ``device``; bfloat16 leaves arrive as numpy's ml_dtypes bfloat16 and
+    are carried over bit for bit. ``dtype`` converts every leaf."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: load_jax_params(v, dev, dtype) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(device=dev, dtype=dtype or t.dtype)
+
+
+def _at(tree, i: int):
+    """Group ``i`` of a group-stacked pytree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _at(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_at(v, i) for v in tree)
+    return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _norm(x, p, cfg: ModelConfig):
+    if cfg.norm == "ln":
+        return L.layer_norm(x, p["w"], p["b"])
+    return L.rms_norm(x, p["w"], plus_one=(cfg.norm == "rms1p"))
+
+
+def _apply_block(x, blk, kind, cfg, acfg, positions, cache, cache_pos,
+                 pad_mask=None, page_table=None):
+    """One attention layer (+ its MLP); ``cache`` is its (K, V) or None."""
+    window = cfg.window_size if kind == "attn_local" else None
+    h = _norm(x, blk["norm1"], cfg)
+    a, _ = L.attention_block(h, blk["attn"], cfg, acfg, positions,
+                             cache=cache, cache_pos=cache_pos, window=window,
+                             pad_mask=pad_mask, page_table=page_table)
+    if cfg.post_norm:
+        a = _norm(a, blk["post_norm1"], cfg)
+    if cfg.parallel_block:
+        return x + a + L.mlp_block(h, blk["mlp"], cfg, acfg)
+    x = x + a
+    m = L.mlp_block(_norm(x, blk["norm2"], cfg), blk["mlp"], cfg, acfg)
+    if cfg.post_norm:
+        m = _norm(m, blk["post_norm2"], cfg)
+    return x + m
+
+
+def apply_model(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+                acfg: Optional[ApproxConfig] = None,
+                cache: Optional[dict] = None, cache_pos=0,
+                decode: bool = False, last_only: bool = False,
+                pos_offset: Optional[torch.Tensor] = None,
+                pad_mask: Optional[torch.Tensor] = None,
+                page_table: Optional[torch.Tensor] = None):
+    """Token ids (B, S) -> logits (B, S, V) (or (B, 1, V) with
+    ``last_only``), and the cache, written in place.
+
+    ``cache_pos``: an int, or a (B,) tensor (continuous batching: every row
+    at its own cache position). ``pos_offset`` (B,): each row's left-pad
+    count, subtracted from the RoPE positions; ``pad_mask`` (B, T): the
+    valid keys. ``page_table`` (B, n_logical) int32 switches the caches to
+    the block-paged layout of :func:`init_paged_cache`. ``decode`` is
+    accepted for the reference's signature; attention layers need no
+    separate decode path."""
+    _check_kinds(cfg)
+    b, s = tokens.shape
+    x = L.embed(tokens, params["embed"])
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                             device=x.device)
+    ar = torch.arange(s, device=tokens.device)[None, :]
+    if isinstance(cache_pos, int):
+        positions = ar + cache_pos
+    else:
+        cp = torch.as_tensor(cache_pos, device=tokens.device)
+        positions = ar + (cp[:, None] if cp.dim() == 1 else cp)
+    if pos_offset is not None:
+        positions = torch.clamp_min(positions - pos_offset[:, None], 0)
+    positions = positions.expand(b, s)
+
+    groups = cache["groups"] if cache is not None else None
+    for gi in range(cfg.n_groups):
+        gp = _at(params["groups"], gi)
+        for i, kind in enumerate(cfg.pattern):
+            layer_cache = None if groups is None else \
+                _at(groups[f"b{i}"]["attn"], gi)
+            x = _apply_block(x, gp[f"b{i}"], kind, cfg, acfg, positions,
+                             layer_cache, cache_pos, pad_mask, page_table)
+    if last_only:
+        x = x[:, -1:]
+    x = _norm(x, _at(params["final_norm"], 0), cfg)
+    head = params["embed"].t() if cfg.tie_embed else params["lm_head"]
+    return L.lm_head(x, head, acfg, softcap=cfg.softcap_final), cache
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
+               device=None) -> dict:
+    """Decode cache, group-stacked like the parameters: per attention
+    layer (K, V) of shape (n_groups, batch, max_seq, Hkv, D), zeros."""
+    _check_kinds(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.n_groups, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    dt = dtype or cfg.param_dtype
+    return {"groups": {
+        f"b{i}": {"attn": (torch.zeros(shape, dtype=dt, device=dev),
+                           torch.zeros(shape, dtype=dt, device=dev))}
+        for i, _ in enumerate(cfg.pattern)}}
+
+
+def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
+                     dtype=None, device=None) -> dict:
+    """Block-paged decode cache: per attention layer one physical pool
+    (n_groups, Hkv, n_blocks, block_size, D) of zeros shared by every
+    sequence, addressed through the ``page_table`` of :func:`apply_model`.
+    Physical block 0 is the engine's always-zero null block."""
+    _check_kinds(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.n_groups, cfg.n_kv_heads, n_blocks, block_size,
+             cfg.head_dim)
+    dt = dtype or cfg.param_dtype
+    return {"groups": {
+        f"b{i}": {"attn": (torch.zeros(shape, dtype=dt, device=dev),
+                           torch.zeros(shape, dtype=dt, device=dev))}
+        for i, _ in enumerate(cfg.pattern)}}

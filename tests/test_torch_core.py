@@ -253,6 +253,81 @@ def test_fake_quant_only_matches_reference(ref):
                                atol=1e-5)
 
 
+BF16_ROUTES = [dict(), dict(use_kernels=True),
+               dict(use_kernels=True, fused=True)]
+
+
+def _bf16_pair(a: np.ndarray):
+    """The same bfloat16 values in both packages."""
+    import jax.numpy as jnp
+    j = jnp.asarray(a, jnp.bfloat16)
+    return j, torch.from_numpy(np.asarray(j).view(np.int16)).view(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("route", BF16_ROUTES,
+                         ids=["lut", "unfused", "fused"])
+def test_approx_dense_bfloat16_bitwise(ref, route):
+    """bfloat16 activations and weights (the LM's configured dtype): the
+    quantizer divides in float32, as JAX promotes ``bf16 / f32[]``, and the
+    fused route takes bf16 activations; the bf16 output equals the
+    reference's bit for bit on every route."""
+    rng = np.random.default_rng(13)
+    xj, xt = _bf16_pair(rng.normal(size=(3, 7, 64)) * 2)
+    wj, wt = _bf16_pair(rng.normal(size=(64, 40)) * 0.1)
+    bj, bt = _bf16_pair(rng.normal(size=40))
+    jcfg = ref.core.ApproxConfig(acu=ref.core.make_acu(
+        "mul8s_1L2H", "lut", use_pallas=route.get("use_kernels", False),
+        fused=route.get("fused", False)))
+    tcfg = ApproxConfig(acu=make_acu("mul8s_1L2H", "lut", **route))
+    want = ref.core.approx_dense(xj, wj, bj, jcfg)
+    from repro_torch.core import approx_dense
+    with torch.inference_mode():
+        got = approx_dense(xt, wt, bt, tcfg)
+    assert got.dtype == torch.bfloat16 and got.shape == (3, 7, 40)
+    assert np.array_equal(got.view(torch.int16).numpy(),
+                          np.asarray(want).view(np.int16))
+
+
+def test_bfloat16_quantizers_promote_to_float32(ref):
+    """quantize, fake_quantize and the symmetric quantizer divide a bf16
+    tensor by a 0-d float32 scale in float32, as the reference does."""
+    rng = np.random.default_rng(14)
+    xj, xt = _bf16_pair(rng.normal(size=500) * 3)
+    q = ref.core.quantization
+    jqp = q.symmetric_qparams(np.float32(2.7), 8)
+    tqp = symmetric_qparams(torch.tensor(2.7), 8)
+    assert np.array_equal(quantize(xt, tqp).numpy(),
+                          np.asarray(q.quantize(xj, jqp)))
+    fq = fake_quantize(xt, tqp)
+    assert fq.dtype == torch.float32
+    assert np.array_equal(fq.numpy(), np.asarray(q.fake_quantize(xj, jqp)))
+    from repro_torch.core.quantization import quantize_symmetric
+    assert np.array_equal(
+        quantize_symmetric(xt, tqp.scale, 8).numpy(),
+        np.asarray(q.quantize(xj, jqp)))
+
+
+@pytest.mark.cuda
+def test_cuda_fused_dense_takes_bfloat16():
+    """On a card: the fused dense kernel takes bf16 activations (widened
+    exactly) and gives the float32 operand's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CPU has only the plain versions")
+    from repro_torch.kernels.fused_lut_dense.ops import fused_lut_dense
+    acu = make_acu("mul8s_1L2H", "lut", use_kernels=True, fused=True)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    x = torch.randn((70, 576), generator=g, device="cuda").to(torch.bfloat16)
+    wq = torch.randint(-127, 128, (576, 192), generator=g, device="cuda",
+                       dtype=torch.int32)
+    xs, xz = x.abs().amax().float() / 127, torch.zeros((), device="cuda")
+    ws = torch.rand(192, generator=g, device="cuda")
+    lut = acu.device_lut(x.device)
+    assert torch.equal(fused_lut_dense(x, wq, lut, 128, xs, xz, ws),
+                       fused_lut_dense(x.float(), wq, lut, 128, xs, xz, ws))
+
+
 def test_entry_points_refuse_missing_gpu(monkeypatch):
     from repro_torch.kernels import runtime
     from repro_torch.models.vision import init_resnet
