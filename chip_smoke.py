@@ -7,7 +7,9 @@
 2. holds each forward kernel (lut_matmul, fused_lut_dense, fused_lut_conv)
    against its plain PyTorch version on the card, bitwise, at every GEMM
    shape of a ResNet-20 wave of 256 CIFAR-sized images, and times kernel,
-   plain version and a ``torch.matmul`` yardstick there;
+   plain version and a ``torch.matmul`` yardstick there; err_matmul (the
+   LOWRANK GEMM, rank 8) at the same shapes within its summation bound,
+   rounding to lut_matmul's integers where the bound allows;
 3. does the same for the backward kernels (fused_lut_bwd,
    fused_lut_conv_bwd_w, and lut_matmul with its K split at the unfused
    route's weight-gradient shapes) at every gradient GEMM shape of one
@@ -40,7 +42,24 @@
    set to 0 just before and checked just after against 30 attention and
    211 dense launches per model call; checks one short request against the
    CPU run's tokens; profiles one decode step of each KV layout;
-7. prints one ``{"kernels": [...]}`` line, then the result line.
+7. runs Table 4's emulation-mode ladder on ResNet-20 at full width, one
+   wave of 256 images per row through ``VisionServeEngine``: native (no
+   ACU), baseline LUT (the plain one-gather LUT GEMM), the LUT engine fused
+   (kernels 5 and 3) and unfused (kernel 1), the FUNCTIONAL closed form on
+   the card, LOWRANK at rank 8 (kernel 13, ``err_matmul``) and quant-only
+   (EXACT); prints ms per wave and the speedup over the baseline, checks
+   each row's exact launch counts, that the four integer-exact rows give
+   the same logits bit for bit, and that a 4-image batch gives the CPU's
+   logits (bitwise for quant-only, within ``LOWRANK_LOGIT_TOL`` for
+   LOWRANK); kernel 13 itself is held against its plain version in step
+   2, at every GEMM shape of the wave;
+8. runs Table 2's accuracy arc as ``benchmarks/table2_accuracy.py``
+   defines it (CNN-vgg, ResNet-mini, SqueezeNet-fire, LSTM-textcls and
+   VAE-blobs; fp32 pre-training, then quantized, approximate and retrained
+   accuracy for ``mul8s_1L2H`` and ``mul8s_bam8`` on the kernel ACU and
+   ``mul12s_2KM`` FUNCTIONAL at 12 bits) on the card and prints its CSV
+   rows; every loss must be finite;
+9. prints one ``{"kernels": [...]}`` line, then the result line.
 
 Exits nonzero, with no result line, when there is no CUDA device, when it
 runs outside the repository, or when any phase fails.
@@ -92,7 +111,26 @@ KERNELS = {
     "approx_flash_attention_paged": (
         "src/repro_torch/csrc/approx_flash_attention.cu",
         "src/repro/kernels/flash_attention/approx.py:431"),
+    "err_matmul": ("src/repro_torch/csrc/err_matmul.cu",
+                   "src/repro/kernels/err_matmul/kernel.py:55"),
 }
+RANK = 8                   # the LOWRANK rung's factorisation rank
+FP32_LANES = 128           # FP32 FMA lanes per SM (Hopper)
+# the launches one wave of each Table 4 ladder row makes (other rows: none)
+LADDER_LAUNCHES = {"adapt_lut_fused": {"fused_lut_conv": 21,
+                                       "fused_lut_dense": 1},
+                   "adapt_lut_unfused": {"lut_matmul": 22},
+                   "lowrank_r8": {"err_matmul": 22}}
+# LOWRANK logits, card vs CPU, as a fraction of the largest |logit|: every
+# GEMM accumulator agrees to well under one unit (the summation bound), so
+# the activation codes agree except where a value lies on a rounding
+# boundary; each code that flips there moves its downstream accumulators
+# by one LUT step, about 1/127 of that layer's range spread over K >= 27
+# terms, and a few such flips through 20 layers stay under 2 % of the
+# largest logit. A wrong route moves the logits by their own size.
+LOWRANK_LOGIT_TOL = 2e-2
+# Table 2, as benchmarks/table2_accuracy.py: the three ACU rows
+T2_ACUS = ("mul8s_1L2H", "mul8s_hiMRE_bam8", "mul12s_2KM")
 # the LM serve phase: SmolLM-135M at full width and depth, bf16
 LM_ARCH = "smollm-135m"
 LM_REQUESTS, LM_SHARED, LM_PREFIX, LM_NEW = 64, 16, 128, 64
@@ -515,6 +553,283 @@ def lm_phase(torch, np, dev, check, acu, ops, launches, account,
     return rates
 
 
+def hold_err_matmul(torch, check, label, a, w, yk, yp, lut_int, acu):
+    """Kernel 13 against its plain version: every element within the
+    summation bound; ``round(y)`` equal to lut_matmul's integer wherever
+    that bound is below 0.5, and wherever the (tighter) LUT agreement
+    bound is. Returns the largest difference."""
+    from repro_torch.kernels.err_matmul.ref import (lut_agreement_bound,
+                                                    summation_bound)
+    f, g = acu.device_factors(a.device)
+    off = acu.offset
+    bound = summation_bound(a, w, f, g, off)
+    diff = (yk.to(torch.float64) - yp.to(torch.float64)).abs()
+    rounded = torch.round(yk).to(torch.int32)
+    small = bound < 0.5
+    near = lut_agreement_bound(yk, a, w, f, g, off,
+                               acu.lowrank.max_abs_err) < 0.5
+    ok = (bool((diff <= bound).all()) and bool(torch.isfinite(yk).all())
+          and torch.equal(rounded[small], lut_int[small])
+          and torch.equal(rounded[near], lut_int[near]))
+    (m, k), n = a.shape, w.shape[1]
+    check(ok, f"err_matmul {label} {m}x{k}x{n}: max |diff| "
+              f"{float(diff.max()):.3e} within the summation bound (up to "
+              f"{float(bound.max()):.3e}); round(y) == lut_matmul where "
+              f"it is below 0.5 ({float(small.double().mean()):.4f} of "
+              f"elements) and where the LUT agreement bound is "
+              f"({float(near.double().mean()):.4f}); "
+              f"{float((rounded == lut_int).double().mean()):.6f} of all "
+              f"elements round to lut_matmul")
+    return float(diff.max())
+
+
+def ladder_phase(torch, np, dev, check, ops, launches, params, images):
+    """Table 4's emulation-mode ladder on ResNet-20, one wave per row.
+    Returns ms per wave by row."""
+    import dataclasses
+    from repro_torch.core import ApproxConfig, make_acu
+    from repro_torch.models.vision import resnet_forward
+    from repro_torch.serve.engine import VisionServeEngine
+
+    lut = make_acu(MULT, "lut")
+    cfgs = {
+        "native": None,
+        "baseline_lut": ApproxConfig(acu=dataclasses.replace(lut,
+                                                             lut_chunk=0)),
+        "adapt_lut_fused": ApproxConfig(acu=make_acu(
+            MULT, "lut", use_kernels=True, fused=True)),
+        "adapt_lut_unfused": ApproxConfig(acu=make_acu(MULT, "lut",
+                                                       use_kernels=True)),
+        "functional": ApproxConfig(acu=make_acu(MULT, "functional")),
+        "lowrank_r8": ApproxConfig(acu=make_acu(MULT, "lowrank", rank=RANK,
+                                                use_kernels=True)),
+        "quant_only": ApproxConfig(acu=make_acu("mul8s_exact", "exact")),
+    }
+    wave = images[:BATCH]
+    ms, logits, engines = {}, {}, {}
+    print(f"Table 4 ladder: ResNet-20 (width 16, 3 blocks/stage), one wave "
+          f"of {BATCH} images per row, {MULT}:")
+    for name, acfg in cfgs.items():
+        eng = engines[name] = VisionServeEngine(
+            params, resnet_forward, slots=BATCH, acfg=acfg, device=dev)
+        eng.run(wave)                                  # warm-up wave
+        torch.cuda.synchronize()
+        for op in ops.values():
+            op.launches = 0
+        t0 = time.perf_counter()
+        logits[name] = eng.run(wave)                   # ends in a copy out
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        counts = {k: op.launches for k, op in ops.items()}
+        want = {k: LADDER_LAUNCHES.get(name, {}).get(k, 0) for k in ops}
+        check(counts == want and logits[name].shape == (BATCH, 10)
+              and bool(np.isfinite(logits[name]).all()),
+              f"{name}: {ms[name]:.3f} ms per wave, finite logits, launch "
+              f"counts {LADDER_LAUNCHES.get(name, 'none')}")
+        for k in ops:
+            launches[k] += counts[k]
+    base = ms["baseline_lut"]
+    print("  model,mode,ms_per_wave,speedup_vs_baseline_lut")
+    for name in cfgs:
+        print(f"  ResNet-20,{name},{ms[name]:.3f},{base / ms[name]:.2f}x")
+    same = [np.array_equal(logits["baseline_lut"], logits[k])
+            for k in ("adapt_lut_fused", "adapt_lut_unfused", "functional")]
+    check(all(same), "baseline_lut, adapt_lut_fused, adapt_lut_unfused and "
+                     "functional give the same logits bit for bit")
+    lr, lu = logits["lowrank_r8"], logits["baseline_lut"]
+    print(f"  lowrank_r8 vs the LUT rows: largest logit difference "
+          f"{np.abs(lr - lu).max():.3e} of max |logit| {np.abs(lu).max():.3e},"
+          f" argmax agrees on {(lr.argmax(-1) == lu.argmax(-1)).mean():.4f}")
+    for name in ("functional", "lowrank_r8", "quant_only"):
+        profile(torch, f"{name} wave", lambda: engines[name].run(wave),
+                ms[name])
+
+    small = images[:4]
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    for name in ("quant_only", "lowrank_r8"):
+        on_gpu = VisionServeEngine(params, resnet_forward, slots=4,
+                                   acfg=cfgs[name], device=dev).run(small)
+        on_cpu = VisionServeEngine(cpu_params, resnet_forward, slots=4,
+                                   acfg=cfgs[name], device="cpu").run(small)
+        diff = float(np.abs(on_gpu - on_cpu).max())
+        if name == "quant_only":
+            check(np.array_equal(on_gpu, on_cpu),
+                  "quant_only: a 4-image batch gives the CPU's logits bit "
+                  "for bit")
+        else:
+            top = float(np.abs(on_cpu).max())
+            check(diff <= LOWRANK_LOGIT_TOL * top,
+                  f"lowrank_r8: a 4-image batch within "
+                  f"{LOWRANK_LOGIT_TOL:.0e} of the largest |logit| of the "
+                  f"CPU's (largest difference {diff:.3e} of {top:.3e}; "
+                  f"{int((on_gpu != on_cpu).sum())} of {on_gpu.size} "
+                  f"logits differ)")
+    return ms
+
+
+def table2_phase(torch, np, dev, check):
+    """Table 2's accuracy arc, as ``benchmarks/table2_accuracy.py``
+    defines it, on the card. Returns its CSV rows."""
+    from repro_torch.core import ApproxConfig, make_acu
+    from repro_torch.data.pipeline import blob_task, image_task, text_cls_task
+    from repro_torch.models.rnn import init_lstm, lstm
+    from repro_torch.models.vision import (cnn_forward, init_cnn, init_resnet,
+                                           init_squeezenet, init_vae,
+                                           resnet_forward, squeezenet_forward,
+                                           vae_forward, vae_loss)
+    from repro_torch.optim.adamw import SGD, AdamW
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    def approx(name):
+        if name == "mul12s_2KM":
+            return ApproxConfig(acu=make_acu("mul12s_2KM", "functional"),
+                                a_bits=12, w_bits=12)
+        mult = "mul8s_bam8" if name == "mul8s_hiMRE_bam8" else name
+        return ApproxConfig(acu=make_acu(mult, "lut", use_kernels=True,
+                                         fused=True))
+
+    def quant(name):
+        if name == "mul12s_2KM":
+            return ApproxConfig(acu=make_acu("mul12s_exact", "exact"),
+                                a_bits=12, w_bits=12)
+        return ApproxConfig(acu=make_acu("mul8s_exact", "exact"))
+
+    def xent(logits, labels):
+        logz = torch.logsumexp(logits, -1)
+        gold = torch.gather(logits, -1, labels[:, None])[:, 0]
+        return (logz - gold).mean()
+
+    def on_dev(v, long=False):
+        t = torch.from_numpy(np.asarray(v)).to(dev)
+        return t.long() if long else t
+
+    fits = []
+
+    def fit(loss_fn, params, opt, batches, steps, what):
+        """``steps`` optimizer steps from a copy of ``params``."""
+        trainer = Trainer(loss_fn, opt, TrainerConfig(log_every=1))
+        p = {k: v.detach().clone() for k, v in params.items()}
+        p, _ = trainer.fit(p, opt.init(p), batches, steps)
+        losses = [h["loss"] for h in trainer.history if "loss" in h]
+        fits.append(len(losses) == steps and bool(np.isfinite(losses).all()))
+        if not fits[-1]:
+            print(f"  {what}: a non-finite loss (last {losses[-1:]})")
+        return p
+
+    def arc(label, params, acc, retrain):
+        fp32 = acc(params, None)
+        rows = []
+        for name in T2_ACUS:
+            q, a = acc(params, quant(name)), acc(params, approx(name))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p2 = retrain(params, approx(name), f"{label} {name} retraining")
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            r = acc(p2, approx(name))
+            rows.append(f"{label},{name},{fp32:.3f},{q:.3f},{a:.3f},{r:.3f},"
+                        f"{dt:.1f}")
+            print(f"  {rows[-1]}", flush=True)
+        return rows
+
+    def classification(label, fwd, init, task):
+        def loss(acfg):
+            return lambda p, b: xent(fwd(p, on_dev(b["image"]), acfg),
+                                     on_dev(b["label"], long=True))
+
+        def acc(p, acfg):
+            ev, correct = task(64, seed=99), 0
+            with torch.inference_mode():
+                for _ in range(4):
+                    b = next(ev)
+                    pred = fwd(p, on_dev(b["image"]), acfg).argmax(-1)
+                    correct += int((pred.cpu().numpy() == b["label"]).sum())
+            return correct / (4 * 64)
+
+        params = fit(loss(None), init(), AdamW(lr=3e-3, weight_decay=0.0),
+                     task(64, seed=1), 200, f"{label} pre-training")
+        return arc(label, params, acc, lambda p, acfg, what: fit(
+            loss(acfg), p, SGD(lr=1e-3, momentum=0.9), task(64, seed=2), 60,
+            what))
+
+    task16 = image_task(n_classes=10, size=16)
+    t16 = lambda b, seed=1: task16(b, noise=1.8, seed=seed)
+    rows = ["model,acu,fp32,quant,approx,retrained,retrain_s"]
+    print("Table 2 arc (" + rows[0] + "):")
+    rows += classification(
+        "CNN-vgg", cnn_forward,
+        lambda: init_cnn(0, n_classes=10, width=8, in_ch=3, img=16,
+                         device=dev), t16)
+    rows += classification(
+        "ResNet-mini", lambda p, x, a=None: resnet_forward(p, x, a,
+                                                           n_blocks=3),
+        lambda: init_resnet(0, n_classes=10, width=8, n_blocks=3,
+                            device=dev), t16)
+    rows += classification(
+        "SqueezeNet-fire", squeezenet_forward,
+        lambda: init_squeezenet(0, n_classes=10, width=8, device=dev), t16)
+
+    # LSTM text classification
+    text = text_cls_task(vocab=200, n_classes=2)
+    gen = torch.Generator().manual_seed(0)
+    emb = (torch.randn((200, 16), generator=gen) * 0.3).to(dev)
+    p0 = init_lstm(0, 16, 32, device=dev)
+    p0["head"] = (torch.randn((32, 2), generator=gen) * 0.2).to(dev)
+    p0["head_b"] = torch.zeros(2, device=dev)
+
+    def lstm_fwd(p, toks, acfg):
+        return lstm(emb[toks], p, acfg) @ p["head"] + p["head_b"]
+
+    def lstm_train(p, acfg, steps, lr, what):
+        return fit(lambda q, b: xent(lstm_fwd(q, on_dev(b["tokens"], True),
+                                              acfg),
+                                     on_dev(b["label"], long=True)),
+                   p, AdamW(lr=lr, weight_decay=0.0),
+                   text(32, seq=24, seed=3), steps, what)
+
+    def lstm_acc(p, acfg):
+        ev, correct = text(64, seq=24, seed=99), 0
+        with torch.inference_mode():
+            for _ in range(3):
+                b = next(ev)
+                pred = lstm_fwd(p, on_dev(b["tokens"], True), acfg).argmax(-1)
+                correct += int((pred.cpu().numpy() == b["label"]).sum())
+        return correct / (3 * 64)
+
+    p0 = lstm_train(p0, None, 100, 3e-3, "LSTM-textcls pre-training")
+    rows += arc("LSTM-textcls", p0, lstm_acc,
+                lambda p, acfg, what: lstm_train(p, acfg, 30, 3e-4, what))
+
+    # VAE on blobs: reconstruction accuracy, 1 - mean binary error
+    blobs = blob_task()
+
+    def noise(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def vae_batches(seed):
+        for i, b in enumerate(blobs(64, seed=seed)):
+            yield {"image": b["image"], "step": i}
+
+    def vae_train(p, acfg, steps, lr, what):
+        return fit(lambda q, b: vae_loss(q, on_dev(b["image"]),
+                                         noise(b["step"]), acfg),
+                   p, AdamW(lr=lr, weight_decay=0.0), vae_batches(4), steps,
+                   what)
+
+    def vae_acc(p, acfg):
+        x = on_dev(next(blobs(128, seed=99))["image"])
+        with torch.inference_mode():
+            recon, _, _ = vae_forward(p, x, noise(0), acfg)
+        return float(1.0 - ((recon > 0.5).float() - x).abs().mean())
+
+    pv = vae_train(init_vae(0, d_in=784, d_h=128, d_z=16, device=dev), None,
+                   80, 1e-3, "VAE-blobs pre-training")
+    rows += arc("VAE-blobs", pv, vae_acc,
+                lambda p, acfg, what: vae_train(p, acfg, 20, 3e-4, what))
+    check(all(fits), f"Table 2: every loss finite in all {len(fits)} "
+                     f"pre-training and retraining runs")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -540,6 +855,8 @@ def main() -> int:
             fused_lut_bwd_ref, fused_lut_dense_ref)
         from repro_torch.kernels.flash_attention.ops import (
             approx_flash_attention, approx_flash_attention_paged)
+        from repro_torch.kernels.err_matmul.ops import err_matmul
+        from repro_torch.kernels.err_matmul.ref import err_matmul_ref
         from repro_torch.kernels.lut_matmul.ops import lut_matmul
         from repro_torch.kernels.lut_matmul.ref import lut_matmul_ref
         from repro_torch.models.vision import init_resnet, resnet_forward
@@ -598,10 +915,16 @@ def main() -> int:
           f"(max {nvidia_smi('clocks.max.sm')}), {n_sm} SMs")
     lookups_per_s = n_sm * 32 * clk_mhz * 1e6
 
-    def account(name, count, ms, plain_ms, lib_ms, bytes_, ops, err):
+    fma_per_s = n_sm * FP32_LANES * clk_mhz * 1e6
+
+    def account(name, count, ms, plain_ms, lib_ms, bytes_, ops, err,
+                ops_per_s=None):
+        """Adds ``count`` calls to ``name``'s row: ``ops`` table lookups
+        (or, with ``ops_per_s``, operations at that rate) and ``bytes_``
+        moved per call."""
         s = stats[name]
         t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / lookups_per_s * 1e3
+        t_ops = ops / (ops_per_s or lookups_per_s) * 1e3
         s["err"] = max(s["err"], err)
         s["ms"] += count * ms
         s["plain_ms"] += count * plain_ms
@@ -612,6 +935,32 @@ def main() -> int:
 
     def max_err(a, b):
         return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+
+    # kernel 13: the LOWRANK GEMM at rank 8 on the same codes
+    lr_acu = make_acu(MULT, "lowrank", rank=RANK, use_kernels=True)
+    f13, g13 = lr_acu.device_factors(dev)
+    table_bytes = 2 * f13.numel() * 4
+
+    def lowrank_gemm(label, count, a, wmat, lut_int):
+        """Holds err_matmul against its plain version at one GEMM shape
+        and accounts its time; returns the line to print."""
+        (M, K), N = a.shape, wmat.shape[1]
+        em_k = lambda: err_matmul(a, wmat, f13, g13, off)
+        em_p = lambda: err_matmul_ref(a, wmat, f13, g13, off)
+        err = hold_err_matmul(torch, check, label, a, wmat, em_k(), em_p(),
+                              lut_int, lr_acu)
+        fa = torch.randn((M, K * RANK), generator=gen, device=dev)
+        gw = torch.randn((K * RANK, N), generator=gen, device=dev)
+        lib = cuda_ms(torch, lambda: torch.matmul(fa, gw), 10)
+        del fa, gw
+        ms = cuda_ms(torch, em_k, 10)
+        pms = cuda_ms(torch, em_p, 2, warm=1)
+        account("err_matmul", count, ms, pms, lib,
+                (M * K + K * N) * 4 + table_bytes + M * N * 4,
+                M * K * N * RANK, err, ops_per_s=fma_per_s)
+        return (f"err_matmul {ms:.4f} ms (plain {pms:.3f}, torch.matmul "
+                f"f32 at K*r {lib:.4f}, FMA bound "
+                f"{M * K * N * RANK / fma_per_s * 1e3:.4f} ms)")
 
     print("kernel checks at ResNet-20 wave shapes (batch 256):")
     for name, cin, hw, cout, k, stride, padding, count in CONVS:
@@ -657,11 +1006,13 @@ def main() -> int:
         account("lut_matmul", count, ms_m, ms_mp, lib,
                 a.numel() * 4 + wmat.numel() * 4 + lut_bytes + M * N * 4,
                 M * K * N, max_err(mk, mp))
+        line13 = lowrank_gemm(name, count, a, wmat, mk)
         print(f"  {name:16s} x{count} GEMM {M}x{K}x{N}: conv {ms_c:.4f} ms "
               f"(plain {ms_cp:.3f}), lut_matmul {ms_m:.4f} ms "
               f"(plain {ms_mp:.3f}), torch.matmul f32 {lib:.4f} ms, "
-              f"lookup bound {M * K * N / lookups_per_s * 1e3:.4f} ms",
-              flush=True)
+              f"lookup bound {M * K * N / lookups_per_s * 1e3:.4f} ms; "
+              f"{line13}", flush=True)
+        del cols, a, mk, mp
 
     M, K, N = HEAD
     x = torch.relu(torch.randn((M, K), generator=gen, device=dev))
@@ -695,6 +1046,8 @@ def main() -> int:
             cuda_ms(torch, lambda: lut_matmul_ref(a, wq, lut32, off,
                                                   n_codes), 5),
             lib, head_bytes, M * K * N, max_err(mk, mp))
+    print(f"  head             x1 GEMM {M}x{K}x{N}: "
+          + lowrank_gemm("head", 1, a, wq.contiguous(), mk), flush=True)
 
     # -- 3. backward kernels at the gradient shapes of one training step --
     tb = TRAIN_BATCH
@@ -802,7 +1155,8 @@ def main() -> int:
            "fused_lut_conv": fused_lut_conv, "fused_lut_bwd": fused_lut_bwd,
            "fused_lut_conv_bwd_w": fused_lut_conv_bwd_w,
            "approx_flash_attention": approx_flash_attention,
-           "approx_flash_attention_paged": approx_flash_attention_paged}
+           "approx_flash_attention_paged": approx_flash_attention_paged,
+           "err_matmul": err_matmul}
     path_kernels = {"fused": ("fused_lut_conv", "fused_lut_dense"),
                     "unfused": ("lut_matmul",)}
     launches = {k: 0 for k in KERNELS}
@@ -939,7 +1293,16 @@ def main() -> int:
     lm_rates = lm_phase(torch, np, dev, check, acu, ops, launches, account,
                         lookups_per_s, lut_bytes)
 
-    # -- 7. report ---------------------------------------------------------
+    # -- 7. Table 4's emulation-mode ladder ---------------------------------
+    ladder = ladder_phase(torch, np, dev, check, ops, launches, params,
+                          images)
+
+    # -- 8. Table 2's accuracy arc -------------------------------------------
+    t0 = time.perf_counter()
+    table2 = table2_phase(torch, np, dev, check)
+    print(f"Table 2 arc: {time.perf_counter() - t0:.1f} s")
+
+    # -- 9. report ---------------------------------------------------------
     rows = []
     for name, (source, replaces) in KERNELS.items():
         s = stats[name]
@@ -952,7 +1315,8 @@ def main() -> int:
             else "bytes",
             "library_ms": s["lib_ms"]})
     print(f"ms summed over the calls of one serve wave of {BATCH} images "
-          f"(forward kernels; fused_lut_dense adds one SmolLM decode step's "
+          f"(forward kernels and err_matmul; fused_lut_dense adds one SmolLM "
+          f"decode step's "
           f"211 GEMMs), one training step at batch {tb} (backward kernels) "
           f"or one SmolLM decode step of {LM_SLOTS} rows (attention): "
           + ", ".join(f"{r['name']} {r['ms']:.3f} ms vs bound "
@@ -962,6 +1326,10 @@ def main() -> int:
     print(f"images/s: fused {rates['fused']:.1f}, "
           f"unfused {rates['unfused']:.1f}; training steps/s: "
           + ", ".join(f"{k} {v[-1]:.3f}" for k, v in train.items()))
+    print("Table 4 ladder, ms per wave of 256: " + ", ".join(
+        f"{k} {v:.3f} ({ladder['baseline_lut'] / v:.2f}x)"
+        for k, v in ladder.items()))
+    print("Table 2 arc:\n" + "\n".join(table2))
     if check.failures:
         print(f"chip_smoke: {len(check.failures)} check(s) failed",
               file=sys.stderr)

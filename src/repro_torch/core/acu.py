@@ -1,22 +1,38 @@
-"""Approximate Compute Units (port of ``repro.core.acu``, single device,
-LUT mode).
+"""Approximate Compute Units (port of ``repro.core.acu``, single device).
 
-An :class:`Acu` packages one approximate multiplier with an emulation mode.
-The port runs LUT mode: the (2^b, 2^b) product table, gathered either by
-the plain PyTorch LUT GEMM (``use_kernels=False``) or by the hand-written
-CUDA kernels (``use_kernels=True``; ``fused=True`` for the single-kernel
-quantize -> LUT GEMM -> dequant routes). All GEMMs consume shifted-code
-integer operands (``code - zero_point``).
+An :class:`Acu` packages one approximate multiplier with an emulation mode:
+
+* ``FUNCTIONAL``: the multiplier's closed form per scalar product, on the
+  operands' device, reduced in K chunks of 32 (the paper's unoptimised
+  baseline regime).
+* ``LUT``: the (2^b, 2^b) product table, gathered either by the plain
+  PyTorch LUT GEMM (``use_kernels=False``; ``lut_chunk=0`` is the paper's
+  one-gather baseline) or by the hand-written CUDA kernels
+  (``use_kernels=True``; ``fused=True`` for the single-kernel quantize ->
+  LUT GEMM -> dequant routes). Bit-exact.
+* ``LOWRANK``: an exact integer product plus a rank-r SVD correction of the
+  error table (``kernels/err_matmul`` with ``use_kernels``). Near-exact,
+  with a float32 result.
+* ``FACTORED``: the truncation family's exact fast path, ``M[a,w] = (a & m)
+  (w & m)``, one masked integer GEMM.
+* ``EXACT``: no approximation (quantization only).
+
+All GEMMs consume shifted-code integer operands (``code - zero_point``).
+EXACT and FACTORED are integer GEMMs the reference leaves to XLA outside
+any kernel; here they are a library call: ``torch._int_mm`` on int8 codes
+(EXACT at up to 8 bits, on a card), a float64 product cast back to int32
+(every other case on a card), ``torch.matmul`` on int32 on the CPU.
 
 Dispatch is two-level, as in the reference: :func:`matmul_plan` (dense
 GEMMs), :func:`matmul_bwd_plan` (the approximate STE gradient GEMMs),
 :func:`conv_plan` (conv2d sites, with the backward route it implies) and
 :func:`attn_plan` (attention over a contiguous or paged KV cache) resolve
-(mode, bits, use_kernels, fused) to a route. The other modes
-(EXACT, FUNCTIONAL, LOWRANK, FACTORED), the spatially tiled conv route,
-grouped convs and mesh partitions are not ported yet: asking for one
-raises ``NotImplementedError`` naming the ROADMAP queue that holds it,
-never a different answer.
+(mode, bits, use_kernels, fused) to a route; a fused request on a non-LUT
+ACU resolves unfused, a conv to ``im2col`` and attention to ``dense``,
+each audited as in the reference. The spatially tiled conv route, grouped
+convs and mesh partitions are not ported yet: asking for one raises
+``NotImplementedError`` naming the ROADMAP queue that holds it, never a
+different answer.
 """
 from __future__ import annotations
 
@@ -26,8 +42,9 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from .lut import build_lut
+from .lut import LowRankError, build_lut, factorize_error, trunc_masks
 from .multipliers import Multiplier, get_multiplier
 
 
@@ -44,11 +61,48 @@ def not_ported(what: str, queue: str) -> NotImplementedError:
         f"{what} is not ported to repro_torch yet (ROADMAP.md, {queue})")
 
 
+# elements of one (rows, K-chunk, N) product block of the FUNCTIONAL GEMM:
+# 64 MiB of int32 whatever the shape
+_FUNCTIONAL_CHUNK_ELEMS = 1 << 24
+
+
+def _int_mm_padded(a8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """``torch._int_mm`` of int8 operands on a card, padded with code 0 to
+    its shape rules (more than 16 rows; K and N multiples of 8). A code-0
+    row or column adds nothing to an exact product."""
+    m, k = a8.shape
+    n = w8.shape[1]
+    pm, pk, pn = max(17 - m, 0), (-k) % 8, (-n) % 8
+    if pm or pk:
+        a8 = F.pad(a8, (0, pk, 0, pm))
+    if pk or pn:
+        w8 = F.pad(w8, (0, pn, 0, pk))
+    return torch._int_mm(a8.contiguous(), w8.contiguous())[:m, :n]
+
+
+def int_matmul(a: torch.Tensor, w: torch.Tensor, *,
+               as_int8: bool) -> torch.Tensor:
+    """The integer GEMM of EXACT and FACTORED: ``sum_k a * w`` in int32
+    (wrapping as an int32 sum does). ``as_int8`` casts the operands to int8
+    first, as the reference does for EXACT codes of at most 8 bits (a code
+    outside int8 wraps there too)."""
+    if as_int8:
+        a, w = a.to(torch.int8), w.to(torch.int8)
+        if a.device.type == "cuda":
+            return _int_mm_padded(a, w)
+    if a.device.type == "cpu":
+        return torch.matmul(a.to(torch.int32), w.to(torch.int32))
+    from repro_torch.kernels.err_matmul.ref import exact_int_product
+    return exact_int_product(a, w)
+
+
 @dataclasses.dataclass(frozen=True)
 class Acu:
     multiplier: Multiplier
     mode: AcuMode
     lut: Optional[np.ndarray] = None          # (2^b, 2^b) int32
+    lowrank: Optional[LowRankError] = None    # LOWRANK factors
+    mask: Optional[int] = None                # FACTORED operand mask
     use_kernels: bool = False                 # route GEMMs through CUDA kernels
     lut_chunk: int = 256                      # K-chunk for LUT gathers; 0 = the
                                               # paper's unoptimised baseline
@@ -56,8 +110,9 @@ class Acu:
     fused: bool = False                       # default routing for approx_ops:
                                               # single-kernel quantize->LUT
                                               # GEMM->dequant (LUT + kernels)
-    # device copies of the table, built once per device (int32 for the
-    # plain versions, int16 for the kernels' shared memory)
+    # device copies of the table and the factors, built once per device
+    # (the table int32 for the plain versions, int16 for the kernels'
+    # shared memory)
     _tables: dict = dataclasses.field(default_factory=dict, compare=False,
                                       repr=False, hash=False)
     # attention plans resolved so far, by (spec, a_bits); not an init
@@ -75,19 +130,25 @@ class Acu:
 
     def m00(self) -> int:
         """The product at shifted codes (0, 0): what every padded-K entry
-        adds to an accumulator."""
-        if self.lut is not None:
+        adds to an accumulator (0 for the exact-at-zero modes)."""
+        if self.mode == AcuMode.LUT and self.lut is not None:
             return int(np.asarray(self.lut)[self.offset, self.offset])
+        if self.mode in (AcuMode.EXACT, AcuMode.FACTORED, AcuMode.LOWRANK):
+            return 0
         return int(self.multiplier(0, 0))
+
+    def _device(self, device) -> torch.device:
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return dev
 
     def device_lut(self, device) -> torch.Tensor:
         """The table on ``device``, flat: int32 on the CPU (plain versions),
         int16 on a CUDA device (the kernels' shared-memory copy, range
         checked once here)."""
         from repro_torch.kernels.runtime import lut_to_int16
-        dev = torch.device(device)
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
+        dev = self._device(device)
         key = str(dev)
         table = self._tables.get(key)
         if table is None:
@@ -98,6 +159,47 @@ class Acu:
             table = self._tables[key] = flat.to(dev)
         return table
 
+    def device_factors(self, device) -> tuple[torch.Tensor, torch.Tensor]:
+        """The LOWRANK factors ``(f, g)`` on ``device``, float32
+        (n_codes, r)."""
+        dev = self._device(device)
+        key = ("lowrank", str(dev))
+        fg = self._tables.get(key)
+        if fg is None:
+            fg = self._tables[key] = tuple(
+                torch.from_numpy(np.ascontiguousarray(t, np.float32)).to(dev)
+                for t in (self.lowrank.f, self.lowrank.g))
+        return fg
+
+    # ------------------------------------------------------------------
+    # elementwise multiply
+    # ------------------------------------------------------------------
+    def mul(self, a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """The ACU's product of shifted codes ``a`` and ``w`` (broadcast):
+        int32, float32 for LOWRANK."""
+        if self.mode == AcuMode.EXACT:
+            return a.to(torch.int32) * w.to(torch.int32)
+        if self.mode == AcuMode.FACTORED:
+            return (a & self.mask) * (w & self.mask)
+        if self.mode == AcuMode.LUT:
+            n = self.multiplier.n_codes
+            tab = self.device_lut(a.device).to(torch.int32)
+            return tab[(a.long() + self.offset) * n + (w.long() + self.offset)]
+        if self.mode == AcuMode.LOWRANK:
+            f, g = self.device_factors(a.device)
+            exact = a.to(torch.float32) * w.to(torch.float32)
+            return exact + (f[a.long() + self.offset]
+                            * g[w.long() + self.offset]).sum(-1)
+        return self.multiplier(a, w)
+
+    # ------------------------------------------------------------------
+    # GEMM: out[m, n] = sum_k M[a[m, k], w[k, n]]
+    # ------------------------------------------------------------------
+    def matmul(self, a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """Approximate GEMM on integer operands: int32, or float32 for
+        LOWRANK. The unfused route of :func:`matmul_plan`."""
+        return matmul_plan(self, fused=False)(a, w)
+
     def _lut_matmul_torch(self, a: torch.Tensor, w: torch.Tensor,
                           k_chunk: int = 256) -> torch.Tensor:
         """Plain PyTorch LUT GEMM, K-chunked (and row-chunked, so the
@@ -107,18 +209,61 @@ class Acu:
                               self.offset, self.multiplier.n_codes,
                               k_chunk=k_chunk)
 
+    def _lowrank_matmul_torch(self, a: torch.Tensor,
+                              w: torch.Tensor) -> torch.Tensor:
+        """Plain LOWRANK GEMM, the reference's arithmetic: the exact term
+        on int8 codes in int32 (up to 8 bits) or on bfloat16-rounded codes
+        in float32 (above: 12-bit codes round there, as in the reference),
+        plus the gathered ``(M, K*r) @ (K*r, N)`` correction in float32."""
+        from repro_torch.kernels.err_matmul.ref import error_correction
+        from .approx_ops import exact_f32
+        f, g = self.device_factors(a.device)
+        with exact_f32():
+            if self.bits <= 8:
+                exact = int_matmul(a, w, as_int8=True).to(torch.float32)
+            else:
+                exact = torch.matmul(
+                    a.to(torch.bfloat16).to(torch.float32),
+                    w.to(torch.bfloat16).to(torch.float32))
+            return exact + error_correction(a, w, f, g, self.offset)
 
-def _require_lut(acu: Acu) -> None:
-    if acu.mode != AcuMode.LUT:
-        raise not_ported(f"ACU mode {acu.mode.value!r}",
-                         "queue 1, item 4 (core/acu.py, dense part)")
-    if acu.lut is None:
-        raise ValueError("LUT-mode ACU has no table")
+    def _functional_matmul_torch(self, a: torch.Tensor, w: torch.Tensor,
+                                 k_chunk: int = 32) -> torch.Tensor:
+        """FUNCTIONAL GEMM: the closed form on every (m, k, n) product, in
+        K chunks of ``k_chunk`` (K padded with code 0, the pad's ``M[0,
+        0]`` subtracted after) and row chunks that bound the product block.
+        int32 throughout, wrapping as the reference's int32 sums do (its
+        ``jnp.int64`` accumulator is int32 without x64)."""
+        m, k = a.shape
+        n = w.shape[1]
+        acc = torch.zeros((m, n), dtype=torch.int32, device=a.device)
+        if k == 0:
+            return acc
+        k_chunk = min(k_chunk, k)
+        pad = (-k) % k_chunk
+        a = F.pad(a.to(torch.int32), (0, pad))
+        w = F.pad(w.to(torch.int32), (0, 0, 0, pad))
+        rows = max(1, _FUNCTIONAL_CHUNK_ELEMS // (k_chunk * max(n, 1)))
+        for m0 in range(0, m, rows):
+            blk = acc[m0:m0 + rows]
+            for k0 in range(0, k + pad, k_chunk):
+                prods = self.multiplier(a[m0:m0 + rows, k0:k0 + k_chunk, None],
+                                        w[None, k0:k0 + k_chunk, :])
+                blk += prods.sum(dim=1, dtype=torch.int32)
+        if pad:
+            acc -= pad * int(self.multiplier(0, 0))
+        return acc
 
 
 def _require_single_device(mesh) -> None:
     if mesh not in (None, False):
         raise not_ported("mesh partitioning", "queue 1, item 16")
+
+
+def _lut_kernels(acu: Acu) -> bool:
+    """Whether the LUT kernels (fused dense, fused conv, attention) can
+    serve this ACU."""
+    return acu.mode == AcuMode.LUT and acu.use_kernels and acu.lut is not None
 
 
 # ---------------------------------------------------------------------------
@@ -130,9 +275,9 @@ class MatmulPlan:
     """A resolved GEMM route for one ACU.
 
     ``fused=False`` plans consume shifted integer operands and return the
-    raw int32 accumulator: ``plan(a, w)``. ``fused=True`` plans run quantize
-    -> LUT GEMM -> dequant in one kernel: ``plan(x, wq, x_scale, x_zp,
-    w_scale) -> float32``.
+    raw accumulator, int32 (float32 for LOWRANK): ``plan(a, w)``.
+    ``fused=True`` plans run quantize -> LUT GEMM -> dequant in one kernel:
+    ``plan(x, wq, x_scale, x_zp, w_scale) -> float32``.
     """
 
     mode: AcuMode
@@ -147,18 +292,33 @@ class MatmulPlan:
 
 def _resolve_unfused(acu: Acu) -> Callable[[torch.Tensor, torch.Tensor],
                                            torch.Tensor]:
-    """The unfused integer-operand GEMM for ``acu``: the CUDA kernel, the
-    K-chunked plain version, or (``lut_chunk=0``) the paper's unoptimised
-    one-gather baseline."""
-    _require_lut(acu)
-    if acu.use_kernels:
-        from repro_torch.kernels.lut_matmul.ops import lut_matmul
-        return lambda a, w: lut_matmul(a, w, acu.device_lut(a.device),
-                                       acu.offset)
-    if acu.lut_chunk == 0:
-        return lambda a, w: acu._lut_matmul_torch(a, w,
-                                                  k_chunk=max(1, a.shape[1]))
-    return lambda a, w: acu._lut_matmul_torch(a, w, k_chunk=acu.lut_chunk)
+    """The unfused integer-operand GEMM for ``acu``: per mode, the CUDA
+    kernel (LUT: ``lut_matmul``; LOWRANK: ``err_matmul``) with
+    ``use_kernels``, else the plain PyTorch version."""
+    if acu.mode == AcuMode.EXACT:
+        as_int8 = acu.bits <= 8
+        return lambda a, w: int_matmul(a, w, as_int8=as_int8)
+    if acu.mode == AcuMode.FACTORED:
+        return lambda a, w: int_matmul(a & acu.mask, w & acu.mask,
+                                       as_int8=False)
+    if acu.mode == AcuMode.LUT:
+        if acu.lut is None:
+            raise ValueError("LUT-mode ACU has no table")
+        if acu.use_kernels:
+            from repro_torch.kernels.lut_matmul.ops import lut_matmul
+            return lambda a, w: lut_matmul(a, w, acu.device_lut(a.device),
+                                           acu.offset)
+        if acu.lut_chunk == 0:
+            return lambda a, w: acu._lut_matmul_torch(
+                a, w, k_chunk=max(1, a.shape[1]))
+        return lambda a, w: acu._lut_matmul_torch(a, w, k_chunk=acu.lut_chunk)
+    if acu.mode == AcuMode.LOWRANK:
+        if acu.use_kernels:
+            from repro_torch.kernels.err_matmul.ops import err_matmul
+            return lambda a, w: err_matmul(a, w, *acu.device_factors(a.device),
+                                           acu.offset)
+        return acu._lowrank_matmul_torch
+    return acu._functional_matmul_torch
 
 
 def matmul_plan(acu: Acu, *, a_bits: Optional[int] = None,
@@ -166,15 +326,14 @@ def matmul_plan(acu: Acu, *, a_bits: Optional[int] = None,
     """Resolve (mode, bits, use_kernels, fused) into a GEMM callable.
 
     ``a_bits`` is the activation code width a fused plan clips to (default:
-    the ACU's operand width). A fused request without ``use_kernels`` falls
-    back to the unfused plan, as in the reference, so callers can ask for
-    fusion unconditionally.
+    the ACU's operand width). A fused request that cannot be served (not
+    LUT mode, no ``use_kernels``, no table) falls back to the unfused plan,
+    as in the reference, so callers can ask for fusion unconditionally.
     """
     _require_single_device(mesh)
-    _require_lut(acu)
     fused = acu.fused if fused is None else fused
     a_bits = acu.bits if a_bits is None else a_bits
-    if fused and acu.use_kernels:
+    if fused and _lut_kernels(acu):
         from repro_torch.kernels.fused_lut_dense.ops import fused_lut_dense
 
         def fused_call(x, wq, x_scale, x_zp, w_scale, *, emit_acc=False):
@@ -200,17 +359,17 @@ def matmul_bwd_plan(acu: Acu, *, a_bits: Optional[int] = None,
     caller computes ``sa`` / ``sb`` on the full tensors.
 
     Fused (LUT + kernels) resolves to the in-kernel-quantizing
-    ``fused_lut_bwd`` kernel; otherwise the operands are quantized outside,
-    ``clip(round(a / sa))``, and run the unfused integer GEMM. The two are
-    bitwise equal. Single device: the reference's two callables differ only
-    in their mesh partitions, so here they are one function.
+    ``fused_lut_bwd`` kernel; every other ACU quantizes outside,
+    ``clip(round(a / sa))``, and runs its mode's unfused GEMM (LOWRANK with
+    kernels: ``err_matmul``). For LUT the two are bitwise equal. Single
+    device: the reference's two callables differ only in their mesh
+    partitions, so here they are one function.
     """
     from .quantization import quantize_symmetric
     _require_single_device(mesh)
-    _require_lut(acu)
     fused = acu.fused if fused is None else fused
     a_bits = acu.bits if a_bits is None else a_bits
-    if fused and acu.use_kernels:
+    if fused and _lut_kernels(acu):
         from repro_torch.kernels.fused_lut_dense.ops import fused_lut_bwd
 
         def fn(a, b, sa, sb):
@@ -342,7 +501,8 @@ def conv_plan(acu: Acu, spec: ConvSpec, *, a_bits: Optional[int] = None,
     whatever its image size, because the CUDA kernel tiles output pixels
     across the batch and never needs a whole image on chip; its backward
     route is ``"banded"``, for the same reason with no budget either. Every
-    other LUT conv takes ``"im2col"`` (recorded in ``report``). ``route`` pins
+    other conv takes ``"im2col"``, a fused request on another mode or
+    without kernels with the reference's audit line in ``report``. ``route`` pins
     one: ``"im2col"`` forces the eager path (the oracle), ``"fused_conv"``
     raises if the kernel cannot serve the request, ``"tiled"`` is not
     ported.
@@ -356,12 +516,11 @@ def conv_plan(acu: Acu, spec: ConvSpec, *, a_bits: Optional[int] = None,
     if spec.groups != 1:
         raise not_ported(f"grouped conv (groups={spec.groups})",
                          "queue 1, item 6 (the conv slice)")
-    _require_lut(acu)
     fused = acu.fused if fused is None else fused
     a_bits = acu.bits if a_bits is None else a_bits
     report: list[str] = []
     want_fused = fused or route == "fused_conv"
-    can_fuse = acu.use_kernels
+    can_fuse = _lut_kernels(acu)
     if want_fused and not can_fuse:
         report.append(f"fused conv needs LUT mode + use_kernels + a built "
                       f"table (have mode={acu.mode.value}, "
@@ -487,8 +646,7 @@ def _resolve_attn(acu: Acu, spec: AttnSpec, a_bits: int) -> AttnPlan:
     if spec.kv_layout not in ("contiguous", "paged"):
         raise ValueError(f"unknown kv_layout {spec.kv_layout!r}")
     paged = spec.kv_layout == "paged"
-    if not (acu.mode == AcuMode.LUT and acu.use_kernels
-            and acu.lut is not None):
+    if not _lut_kernels(acu):
         report.append(f"fused attention needs LUT mode + use_kernels + a "
                       f"built table (have mode={acu.mode.value}, "
                       f"use_kernels={acu.use_kernels}); attention stays "
@@ -529,21 +687,29 @@ def _resolve_attn(acu: Acu, spec: AttnSpec, a_bits: int) -> AttnPlan:
                     spec=spec, fn=fn, report=tuple(report))
 
 
-def make_acu(name: str, mode: AcuMode | str = AcuMode.LUT,
+def make_acu(name: str, mode: AcuMode | str = AcuMode.LUT, rank: int = 8,
              use_kernels: bool = False, fused: bool = False) -> Acu:
-    """Build a LUT-mode ACU from a registered multiplier name.
+    """Build an ACU from a registered multiplier name.
 
     Large-bitwidth LUT requests fall back to FUNCTIONAL, as in the
-    reference (paper §3.4); the port's planners then refuse that mode, as
-    ``make_acu`` refuses the other modes outright.
+    reference (paper §3.4: a 12-bit table would be 64 MiB). LOWRANK
+    factorises the error table at ``rank``; FACTORED needs a truncation
+    multiplier and raises ``ValueError`` for any other.
     """
     mult = get_multiplier(name)
     mode = AcuMode(mode) if isinstance(mode, str) else mode
-    if mode != AcuMode.LUT:
-        raise not_ported(f"ACU mode {mode.value!r}",
-                         "queue 1, item 4 (core/acu.py, dense part)")
-    if mult.bits > 10:
-        return Acu(multiplier=mult, mode=AcuMode.FUNCTIONAL,
-                   use_kernels=use_kernels, fused=fused)
-    return Acu(multiplier=mult, mode=mode, lut=build_lut(mult),
-               use_kernels=use_kernels, fused=fused)
+    lut = lowrank = mask = None
+    if mode == AcuMode.LUT:
+        if mult.bits > 10:
+            mode = AcuMode.FUNCTIONAL
+        else:
+            lut = build_lut(mult)
+    if mode == AcuMode.LOWRANK:
+        lowrank = factorize_error(mult, rank)
+    if mode == AcuMode.FACTORED:
+        mask = trunc_masks(mult)
+        if mask is None:
+            raise ValueError(f"{name} has no algebraic factorization; "
+                             f"use LUT or LOWRANK")
+    return Acu(multiplier=mult, mode=mode, lut=lut, lowrank=lowrank,
+               mask=mask, use_kernels=use_kernels, fused=fused)

@@ -11,7 +11,9 @@ The forward body is the reference's STE forward, rounding for rounding:
 weights are quantized outside the kernel, per output channel; the
 activation amax is ``max(amax, 1e-6)`` fed to ``symmetric_qparams``; the
 dequant is one multiply by ``xs * ws``; the bias is a second, separately
-rounded add.
+rounded add. Every ACU mode runs through it: a fused LUT plan in one
+kernel, any other plan as quantize -> the mode's GEMM (int32, or the
+LOWRANK float32 accumulator) -> that one dequant.
 
 The backward is the reference's STE (``torch.autograd.Function``s in
 place of its ``custom_vjp``s), on the fake-quantized residuals ``xf`` and
@@ -21,7 +23,8 @@ plain PyTorch as the reference leaves it to XLA. With
 GEMMs go through the ACU: the incoming gradient and the residuals are
 quantized per-tensor symmetric with scales from ``inline_symmetric_scale``
 on the full tensors, and the GEMMs run the routes of
-:func:`~repro_torch.core.acu.matmul_bwd_plan`, or for a fused conv the
+:func:`~repro_torch.core.acu.matmul_bwd_plan` (a non-LUT ACU: quantize
+outside, the mode's GEMM, one dequant), or for a fused conv the
 banded route (the weight gradient on ``fused_lut_conv_bwd_w``, the input
 gradient on ``fused_lut_bwd`` with an integer col2im). Only the gradients
 autograd asks for are computed.

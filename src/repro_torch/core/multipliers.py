@@ -2,7 +2,11 @@
 
 Port of ``repro.core.multipliers``. Each multiplier is a vectorised integer
 function ``fn(a, w)`` over signed operands in ``[-2^(b-1), 2^(b-1)-1]``,
-computed here in numpy int64 (the tables are built once, on the host):
+written in PyTorch int32 as the reference writes it in ``jnp.int32``, so the
+FUNCTIONAL mode evaluates it per product on whatever device its operands
+live on (a CUDA tensor never leaves the card). Called with numpy arrays or
+Python ints (the table builders, ``error_stats``), it computes on the CPU
+and returns a numpy array.
 
 * ``exact``     — reference multiplier.
 * ``trunc(t)``  — low ``t`` bits of both operands gated to zero.
@@ -21,6 +25,9 @@ import dataclasses
 from typing import Callable
 
 import numpy as np
+import torch
+
+Tensor = torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,11 +36,19 @@ class Multiplier:
 
     name: str
     bits: int
-    fn: Callable[[np.ndarray, np.ndarray], np.ndarray]
+    fn: Callable[[Tensor, Tensor], Tensor]
     description: str = ""
 
-    def __call__(self, a, w) -> np.ndarray:
-        return self.fn(np.asarray(a, np.int64), np.asarray(w, np.int64))
+    def __call__(self, a, w):
+        """Products of ``a`` and ``w`` (broadcast). Tensors in, an int32
+        tensor out on their device; anything else in, a numpy array out."""
+        if isinstance(a, Tensor) or isinstance(w, Tensor):
+            dev = a.device if isinstance(a, Tensor) else w.device
+            return self.fn(torch.as_tensor(a, device=dev).to(torch.int32),
+                           torch.as_tensor(w, device=dev).to(torch.int32))
+        out = self.fn(torch.from_numpy(np.asarray(a, np.int64)).to(torch.int32),
+                      torch.from_numpy(np.asarray(w, np.int64)).to(torch.int32))
+        return out.numpy()
 
     @property
     def lo(self) -> int:
@@ -48,18 +63,21 @@ class Multiplier:
         return 1 << self.bits
 
 
-def _floor_log2(m: np.ndarray) -> np.ndarray:
-    """Exact ``floor(log2 m)`` for integers ``m >= 1`` (frexp is exact for
-    every integer a float64 holds)."""
-    _, e = np.frexp(m.astype(np.float64))
-    return e.astype(np.int64) - 1
+def _floor_log2(m: Tensor, bits: int) -> Tensor:
+    """Exact ``floor(log2 m)`` for integers ``1 <= m <= 2^bits``, by
+    comparisons against each power of two (no float log, whose rounding on
+    a device the port would have to trust)."""
+    t = torch.zeros_like(m)
+    for b in range(1, bits + 1):
+        t = t + (m >= (1 << b)).to(m.dtype)
+    return t
 
 
 # ---------------------------------------------------------------------------
 # multiplier families
 # ---------------------------------------------------------------------------
 
-def exact_fn(a: np.ndarray, w: np.ndarray) -> np.ndarray:
+def exact_fn(a: Tensor, w: Tensor) -> Tensor:
     return a * w
 
 
@@ -85,9 +103,10 @@ def make_bam(bits: int, k: int) -> Multiplier:
     """
 
     def fn(a, w):
-        sgn = np.sign(a) * np.sign(w)
-        ma, mw = np.abs(a), np.abs(w)
-        acc = np.zeros(np.broadcast_shapes(a.shape, w.shape), np.int64)
+        sgn = torch.sign(a) * torch.sign(w)
+        ma, mw = torch.abs(a), torch.abs(w)
+        acc = torch.zeros(torch.broadcast_shapes(a.shape, w.shape),
+                          dtype=torch.int32, device=a.device)
         for i in range(bits):
             jmin = max(0, k - i)
             if jmin >= bits:
@@ -106,24 +125,25 @@ def make_mitchell(bits: int) -> Multiplier:
     fb = 15
 
     def fn(a, w):
-        sgn = np.sign(a) * np.sign(w)
-        ma, mw = np.abs(a), np.abs(w)
-        safe_ma, safe_mw = np.maximum(ma, 1), np.maximum(mw, 1)
-        k1, k2 = _floor_log2(safe_ma), _floor_log2(safe_mw)
-        x1 = ((safe_ma - (1 << k1)) << fb) // np.maximum(1 << k1, 1)
-        x2 = ((safe_mw - (1 << k2)) << fb) // np.maximum(1 << k2, 1)
+        sgn = torch.sign(a) * torch.sign(w)
+        ma, mw = torch.abs(a), torch.abs(w)
+        safe_ma, safe_mw = torch.clamp_min(ma, 1), torch.clamp_min(mw, 1)
+        k1, k2 = _floor_log2(safe_ma, bits), _floor_log2(safe_mw, bits)
+        p1, p2 = torch.ones_like(k1) << k1, torch.ones_like(k2) << k2
+        x1 = ((safe_ma - p1) << fb) // torch.clamp_min(p1, 1)
+        x2 = ((safe_mw - p2) << fb) // torch.clamp_min(p2, 1)
         s = x1 + x2
         one = 1 << fb
         ksum = k1 + k2
 
         def shift_to(v, sh):
-            left = v << np.clip(sh, 0, 30)
-            right = v >> np.clip(-sh, 0, 30)
-            return np.where(sh >= 0, left, right)
+            left = v << torch.clamp(sh, 0, 30)
+            right = v >> torch.clamp(-sh, 0, 30)
+            return torch.where(sh >= 0, left, right)
 
-        p = np.where(s < one, shift_to(one + s, ksum - fb),
-                     shift_to(s, ksum + 1 - fb))
-        p = np.where((ma == 0) | (mw == 0), 0, p)
+        p = torch.where(s < one, shift_to(one + s, ksum - fb),
+                        shift_to(s, ksum + 1 - fb))
+        p = torch.where((ma == 0) | (mw == 0), torch.zeros_like(p), p)
         return sgn * p
 
     return Multiplier(f"mul{bits}s_mitchell", bits, fn,
@@ -134,15 +154,15 @@ def make_drum(bits: int, k: int) -> Multiplier:
     """DRUM-style: multiply the leading-``k``-bit windows, LSB set."""
 
     def fn(a, w):
-        sgn = np.sign(a) * np.sign(w)
+        sgn = torch.sign(a) * torch.sign(w)
 
         def window(m):
-            t = _floor_log2(np.maximum(m, 1))
-            shift = np.maximum(t - (k - 1), 0)
-            wnd = ((m >> shift) | np.where(shift > 0, 1, 0)) << shift
-            return np.where(m == 0, 0, wnd)
+            t = _floor_log2(torch.clamp_min(m, 1), bits)
+            shift = torch.clamp_min(t - (k - 1), 0)
+            wnd = ((m >> shift) | (shift > 0).to(m.dtype)) << shift
+            return torch.where(m == 0, torch.zeros_like(wnd), wnd)
 
-        return sgn * (window(np.abs(a)) * window(np.abs(w)))
+        return sgn * (window(torch.abs(a)) * window(torch.abs(w)))
 
     return Multiplier(f"mul{bits}s_drum{k}", bits, fn,
                       f"DRUM dynamic-range, {k}-bit windows")
@@ -187,7 +207,7 @@ def error_stats(mult: Multiplier) -> dict[str, float]:
     vals = np.arange(mult.lo, mult.hi + 1, dtype=np.int64)
     a, w = vals[:, None], vals[None, :]
     exact = a * w
-    err = np.abs(mult(a, w) - exact)
+    err = np.abs(mult(a, w).astype(np.int64) - exact)
     mae = float(err.mean() / float(1 << (2 * mult.bits)) * 100.0)
     nz = exact != 0
     mre = float((err[nz] / np.abs(exact[nz])).mean() * 100.0)

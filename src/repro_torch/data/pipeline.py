@@ -1,6 +1,6 @@
 """Synthetic deterministic data (port of ``repro.data.pipeline``: the
-vision task so far). Pure numpy, so the same seeds give the reference's
-batches exactly."""
+vision, text-classification and blob tasks). Pure numpy, so the same seeds
+give the reference's batches exactly."""
 from __future__ import annotations
 
 from typing import Iterator
@@ -23,5 +23,46 @@ def image_task(n_classes: int = 10, size: int = 32, channels: int = 3,
             x = bases[y] + noise * r.normal(
                 size=(batch, channels, size, size)).astype(np.float32)
             yield {"image": x.astype(np.float32), "label": y.astype(np.int32)}
+
+    return batches
+
+
+def text_cls_task(vocab: int = 1000, n_classes: int = 2, seed: int = 0):
+    """Class-dependent token distributions (an IMDB stand-in)."""
+    rng = np.random.default_rng(seed)
+    class_logits = rng.normal(size=(n_classes, vocab)).astype(
+        np.float32) * 1.5
+
+    def batches(batch: int, seq: int = 64, seed: int = 1) -> Iterator[dict]:
+        r = np.random.default_rng(seed)
+        probs = np.exp(class_logits)
+        probs /= probs.sum(-1, keepdims=True)
+        while True:
+            y = r.integers(0, n_classes, batch)
+            toks = np.stack([r.choice(vocab, size=seq, p=probs[c])
+                             for c in y])
+            yield {"tokens": toks.astype(np.int32),
+                   "label": y.astype(np.int32)}
+
+    return batches
+
+
+def blob_task(size: int = 28, n_classes: int = 10, seed: int = 0):
+    """Digit-like blobs for the VAE / GAN (an MNIST stand-in)."""
+    rng = np.random.default_rng(seed)
+    cx, cy = rng.uniform(6, size - 6, (2, n_classes))
+    r0 = rng.uniform(2, 6, n_classes)
+    yy, xx = np.mgrid[0:size, 0:size]
+
+    def batches(batch: int, seed: int = 1) -> Iterator[dict]:
+        r = np.random.default_rng(seed)
+        while True:
+            y = r.integers(0, n_classes, batch)
+            d2 = (xx[None] - cx[y, None, None]) ** 2 + \
+                (yy[None] - cy[y, None, None]) ** 2
+            img = (d2 < r0[y, None, None] ** 2).astype(np.float32)
+            img = np.clip(img + 0.1 * r.normal(size=img.shape), 0, 1)
+            yield {"image": img.reshape(batch, -1).astype(np.float32),
+                   "label": y.astype(np.int32)}
 
     return batches

@@ -57,6 +57,7 @@ SIGNATURES = {
     "approx_flash_attention": ("approx_flash_attention_launch",
                                [_P] * 12 + [_I] * 12 + [_L] * 9 + [_I] * 7
                                + [ctypes.c_float, _I, _I, _P]),
+    "err_matmul": ("err_matmul_launch", [_P] * 5 + [_I] * 7 + [_P]),
 }
 
 

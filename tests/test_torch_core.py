@@ -224,13 +224,14 @@ def test_unported_modes_and_routes_raise():
     wide = make_acu("mul12s_2KM", "lut")          # > 10 bits: FUNCTIONAL
     assert wide.mode == AcuMode.FUNCTIONAL and wide.lut is None
     assert wide.m00() == 0
+    # every mode is ported: the FUNCTIONAL fallback plans (unfused GEMM,
+    # im2col conv) and each mode builds; only tiled, groups and mesh raise
+    assert not matmul_plan(wide).fused
+    assert conv_plan(wide, spec).route == "im2col"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        matmul_plan(wide)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        conv_plan(wide, spec)
+        conv_plan(wide, spec, route="tiled")
     for mode in ("exact", "functional", "factored", "lowrank"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_acu("mul8s_trunc2", mode)
+        assert make_acu("mul8s_trunc2", mode).mode == AcuMode(mode)
 
 
 def test_fake_quant_only_matches_reference(ref):

@@ -239,7 +239,7 @@ def test_every_kernel_source_has_a_signature():
     names = {p.stem for p in runtime.CSRC.glob("*.cu")}
     assert names == set(runtime.SIGNATURES) == {
         "lut_matmul", "fused_lut_dense", "fused_lut_conv", "fused_lut_bwd",
-        "fused_lut_conv_bwd_w", "approx_flash_attention"}
+        "fused_lut_conv_bwd_w", "approx_flash_attention", "err_matmul"}
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -250,8 +250,9 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_cpu_tensors_never_launch():
+    from repro_torch.kernels.err_matmul.ops import err_matmul
     ops = (lut_matmul, fused_lut_dense, fused_lut_conv, fused_lut_bwd,
-           fused_lut_conv_bwd_w)
+           fused_lut_conv_bwd_w, err_matmul)
     before = [op.launches for op in ops]
     cfg = ApproxConfig(acu=make_acu(MULT, "lut", use_kernels=True,
                                     fused=True), approx_bwd=True)
@@ -262,6 +263,9 @@ def test_cpu_tensors_never_launch():
     approx_dense(y.mean(dim=(2, 3)), torch.randn(4, 2, requires_grad=True),
                  None, cfg).sum().backward()
     assert x.grad is not None and w.grad is not None
+    low = ApproxConfig(acu=make_acu(MULT, "lowrank", use_kernels=True),
+                       approx_bwd=True)
+    conv2d(x, w, cfg=low).sum().backward()
     assert [op.launches for op in ops] == before
 
 
