@@ -59,7 +59,22 @@
    accuracy for ``mul8s_1L2H`` and ``mul8s_bam8`` on the kernel ACU and
    ``mul12s_2KM`` FUNCTIONAL at 12 bits) on the card and prints its CSV
    rows; every loss must be finite;
-9. prints one ``{"kernels": [...]}`` line, then the result line.
+9. serves granite-moe-3b-a800m (32 layers, d 1536, 24 heads over 8 KV
+   heads, 40 experts top-8, d_ff 512 per expert, vocab 49155, bf16, random
+   weights from a seed) with the fused ACU: first holds the ragged grouped
+   LUT-GEMM kernel (fused_lut_grouped) against its plain version on the
+   card, bitwise, at the gate/up and down shapes of a decode step (640
+   groups of 1 capacity row) and of prefills of 128 and 512 tokens (2 and
+   8 rows), with counts from layer 0's routing and synthetic ones (empty
+   experts, all tokens to one expert), and under a biased table with the
+   raw accumulator (dead rows 0); then serves 32 requests (16 to 200 prompt
+   tokens, 8 sharing a 128-token prefix, 32 new tokens each) through the
+   three engines with the counters checked against 96 grouped, 129 dense
+   and 32 attention launches per model call; prints layer 0's dropped
+   fraction and aux loss at a decode step and a prefill; checks a short
+   request's tokens against the CPU on the model cut to 2 layers; profiles
+   one decode step and times the per-call expert weight quantization;
+10. prints one ``{"kernels": [...]}`` line, then the result line.
 
 Exits nonzero, with no result line, when there is no CUDA device, when it
 runs outside the repository, or when any phase fails.
@@ -113,6 +128,8 @@ KERNELS = {
         "src/repro/kernels/flash_attention/approx.py:431"),
     "err_matmul": ("src/repro_torch/csrc/err_matmul.cu",
                    "src/repro/kernels/err_matmul/kernel.py:55"),
+    "fused_lut_grouped": ("src/repro_torch/csrc/fused_lut_grouped.cu",
+                          "src/repro/kernels/fused_lut_grouped/kernel.py:113"),
 }
 RANK = 8                   # the LOWRANK rung's factorisation rank
 FP32_LANES = 128           # FP32 FMA lanes per SM (Hopper)
@@ -136,6 +153,11 @@ LM_ARCH = "smollm-135m"
 LM_REQUESTS, LM_SHARED, LM_PREFIX, LM_NEW = 64, 16, 128, 64
 LM_SLOTS, LM_MAX_SEQ, LM_BLOCK = 32, 512, 16
 LM_WAVE_PROMPT = 200     # the longest prompt: the wave engine's prefill
+# the MoE serve phase: granite-moe-3b-a800m at full width and depth, bf16,
+# the LM phase's slots, max_seq, paged block and prompt lengths
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_REQUESTS, MOE_SHARED, MOE_NEW = 32, 8, 32
+MOE_CPU_LAYERS = 2       # depth of the card-against-CPU check
 # card vs CPU, one 4-image step: largest gradient difference allowed, as a
 # fraction of the tensor's largest entry. exact: float32 sums in another
 # order (cuBLAS, cuDNN-free col2im) move entries near cancellation by a
@@ -225,21 +247,97 @@ class Check:
             self.failures.append(what)
 
 
-def lm_requests(np, vocab: int):
-    """64 requests from a seed: prompts of 16 to 200 tokens, every fourth
-    one (16 in all) a shared 128-token prefix plus its own 16 to 72."""
+def lm_requests(np, vocab: int, n: int, shared: int):
+    """``n`` requests from a seed: prompts of 16 to 200 tokens, every
+    ``n // shared``-th one a shared 128-token prefix plus its own 16 to 72;
+    the second is 200 tokens long (the wave engine's prefill)."""
     rng = np.random.default_rng(7)
     prefix = rng.integers(1, vocab, LM_PREFIX)
     top = LM_WAVE_PROMPT + 1
     prompts = []
-    for i in range(LM_REQUESTS):
-        if i % (LM_REQUESTS // LM_SHARED) == 0:
+    for i in range(n):
+        if i % (n // shared) == 0:
             tail = rng.integers(1, vocab, rng.integers(16, top - LM_PREFIX))
             prompts.append(np.concatenate([prefix, tail]))
         else:
             prompts.append(rng.integers(1, vocab, rng.integers(16, top)))
     prompts[1] = rng.integers(1, vocab, LM_WAVE_PROMPT)
     return [p.astype(np.int32) for p in prompts]
+
+
+def lm_engines(E, params, cfg, acfg, dev):
+    """The three LM engines at the serve phases' slots, max_seq and paged
+    block size."""
+    return {
+        "wave": E.ServeEngine(params, cfg, slots=LM_SLOTS,
+                              max_seq=LM_MAX_SEQ, acfg=acfg, device=dev),
+        "continuous": E.ContinuousServeEngine(
+            params, cfg, slots=LM_SLOTS, max_seq=LM_MAX_SEQ, acfg=acfg,
+            device=dev),
+        "paged": E.PagedContinuousServeEngine(
+            params, cfg, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+            block_size=LM_BLOCK, acfg=acfg, device=dev),
+    }
+
+
+def serve_lm(torch, check, E, engines, prompts, n_new, cfg, ops, launches,
+             per_call) -> dict:
+    """Serves ``prompts`` (``n_new`` greedy tokens each) through each
+    engine after a two-request warm-up, with the launch counters set to 0
+    just before and read just after each run. Checks the tokens, that each
+    model call launched ``per_call`` (kernel: launches) plus one attention
+    kernel per layer (contiguous or paged) and nothing else, and that the
+    paged engine reused the shared prefix. Returns tokens/s by engine."""
+    attn_kernel = {"wave": "approx_flash_attention",
+                   "continuous": "approx_flash_attention",
+                   "paged": "approx_flash_attention_paged"}
+    calls = [0]
+    inner = E.apply_model
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return inner(*a, **k)
+
+    E.apply_model = counted
+    rates = {}
+    try:
+        for name, eng in engines.items():
+            eng.run([E.Request(prompt=prompts[i], max_new_tokens=4)
+                     for i in range(2)])             # warm-up
+            torch.cuda.synchronize()
+            reqs = [E.Request(prompt=p.copy(), max_new_tokens=n_new)
+                    for p in prompts]
+            for op in ops.values():
+                op.launches = 0
+            calls[0] = 0
+            t0 = time.perf_counter()
+            eng.run(reqs)
+            dt = time.perf_counter() - t0
+            counts = {k: op.launches for k, op in ops.items()}
+            n_tok = sum(len(r.out) for r in reqs)
+            rates[name] = n_tok / dt
+            stats = getattr(eng, "stats", {})
+            print(f"    {name}: {rates[name]:.1f} tokens/s ({n_tok} tokens "
+                  f"in {dt:.3f} s, {calls[0]} model calls), launches "
+                  f"{counts}; stats "
+                  + str({k: v for k, v in stats.items()
+                         if not k.endswith("_sum")}), flush=True)
+            check(n_tok == len(prompts) * n_new and all(
+                0 <= t < cfg.vocab_padded for r in reqs for t in r.out),
+                  f"{name}: {len(prompts)} x {n_new} tokens in the vocab")
+            want_call = dict(per_call, **{attn_kernel[name]: cfg.n_layers})
+            want = {k: want_call.get(k, 0) * calls[0] for k in ops}
+            check(counts == want, f"{name}: launch counts are {want_call} "
+                                  f"per model call x {calls[0]} calls")
+            if name == "paged":
+                check(stats["prefix_hit_blocks"] > 0,
+                      f"paged: the shared prefix was reused "
+                      f"({stats['prefix_hit_blocks']} blocks)")
+            for k in ops:
+                launches[k] += counts[k]
+    finally:
+        E.apply_model = inner
+    return rates
 
 
 def attn_work(np, info, sq: int, hq: int, hkv: int, d: int, itemsize: int):
@@ -430,73 +528,14 @@ def lm_phase(torch, np, dev, check, acu, ops, launches, account,
 
     # -- serve 64 requests through each engine -----------------------------
     params = init_params(0, cfg, device=dev)
-    prompts = lm_requests(np, cfg.vocab_size)
-    engines = {
-        "wave": E.ServeEngine(params, cfg, slots=LM_SLOTS,
-                              max_seq=LM_MAX_SEQ, acfg=acfg, device=dev),
-        "continuous": E.ContinuousServeEngine(
-            params, cfg, slots=LM_SLOTS, max_seq=LM_MAX_SEQ, acfg=acfg,
-            device=dev),
-        "paged": E.PagedContinuousServeEngine(
-            params, cfg, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
-            block_size=LM_BLOCK, acfg=acfg, device=dev),
-    }
-    attn_kernel = {"wave": "approx_flash_attention",
-                   "continuous": "approx_flash_attention",
-                   "paged": "approx_flash_attention_paged"}
-    calls = [0]
-    inner = E.apply_model
-
-    def counted(*a, **k):
-        calls[0] += 1
-        return inner(*a, **k)
-
-    E.apply_model = counted
-    rates = {}
+    prompts = lm_requests(np, cfg.vocab_size, LM_REQUESTS, LM_SHARED)
     print(f"  serving {LM_REQUESTS} requests ({LM_SHARED} sharing a "
           f"{LM_PREFIX}-token prefix), {LM_NEW} new tokens each, "
           f"slots={LM_SLOTS}, max_seq={LM_MAX_SEQ}, paged block "
           f"{LM_BLOCK}:")
-    try:
-        for name, eng in engines.items():
-            eng.run([E.Request(prompt=prompts[i], max_new_tokens=4)
-                     for i in range(2)])             # warm-up
-            torch.cuda.synchronize()
-            reqs = [E.Request(prompt=p.copy(), max_new_tokens=LM_NEW)
-                    for p in prompts]
-            for op in ops.values():
-                op.launches = 0
-            calls[0] = 0
-            t0 = time.perf_counter()
-            eng.run(reqs)
-            dt = time.perf_counter() - t0
-            counts = {k: op.launches for k, op in ops.items()}
-            n_tok = sum(len(r.out) for r in reqs)
-            rates[name] = n_tok / dt
-            stats = getattr(eng, "stats", {})
-            print(f"    {name}: {rates[name]:.1f} tokens/s ({n_tok} tokens "
-                  f"in {dt:.3f} s, {calls[0]} model calls), launches "
-                  f"{counts}; stats "
-                  + str({k: v for k, v in stats.items()
-                         if not k.endswith("_sum")}), flush=True)
-            check(n_tok == LM_REQUESTS * LM_NEW and all(
-                0 <= t < cfg.vocab_padded for r in reqs for t in r.out),
-                  f"{name}: {LM_REQUESTS} x {LM_NEW} tokens in the vocab")
-            want = {k: 0 for k in ops}
-            want[attn_kernel[name]] = cfg.n_layers * calls[0]
-            want["fused_lut_dense"] = (7 * cfg.n_layers + 1) * calls[0]
-            check(counts == want, f"{name}: launch counts are "
-                                  f"{cfg.n_layers} attention + "
-                                  f"{7 * cfg.n_layers + 1} dense per model "
-                                  f"call x {calls[0]} calls")
-            if name == "paged":
-                check(stats["prefix_hit_blocks"] > 0,
-                      f"paged: the shared prefix was reused "
-                      f"({stats['prefix_hit_blocks']} blocks)")
-            for k in ops:
-                launches[k] += counts[k]
-    finally:
-        E.apply_model = inner
+    rates = serve_lm(torch, check, E, lm_engines(E, params, cfg, acfg, dev),
+                     prompts, LM_NEW, cfg, ops, launches,
+                     {"fused_lut_dense": 7 * cfg.n_layers + 1})
 
     # -- one short request on the card and on the CPU ----------------------
     short = [E.Request(prompt=prompts[3][:16].copy(), max_new_tokens=4)]
@@ -550,6 +589,239 @@ def lm_phase(torch, np, dev, check, acu, ops, launches, account,
             wall = (time.perf_counter() - t0) / 5 * 1e3
             profile(torch, f"{name} decode step, {b} rows",
                     lambda: step()[0].argmax(-1).cpu(), wall)
+    return rates
+
+
+def moe_phase(torch, np, dev, check, acu, ops, launches, account,
+              lookups_per_s, lut_bytes) -> dict:
+    """granite-moe-3b-a800m on the fused ACU: kernel 10 at the model's
+    shapes, then 32 requests through each LM engine, the card against the
+    CPU on a two-layer cut, and a profile of one decode step. Returns
+    tokens/s by engine."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import (ApproxConfig, QParams, acu_operand,
+                                  inline_symmetric_scale, quantize)
+    from repro_torch.core.quantization import device_scalar
+    from repro_torch.kernels.fused_lut_grouped.ref import (
+        fused_lut_grouped_ref, live_rows)
+    from repro_torch.kernels.runtime import lut_to_int16
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import silu
+    from repro_torch.serve import engine as E
+
+    cfg = get_config(MOE_ARCH)
+    n_exp, k, d, f = cfg.n_experts, cfg.moe_top_k, cfg.d_model, cfg.d_ff
+    bf = torch.bfloat16
+    acfg = ApproxConfig(acu=acu)
+    lut16, lut32 = acu.device_lut(dev), torch.from_numpy(
+        acu.lut.reshape(-1)).to(dev)
+    off, n_codes = acu.offset, acu.multiplier.n_codes
+    zero = device_scalar(0.0, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    print(f"granite-moe-3b-a800m ({cfg.n_layers} layers, d {d}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, head_dim "
+          f"{cfg.head_dim}, {n_exp} experts top-{k}, d_ff {f} per expert, "
+          f"vocab {cfg.vocab_padded}, {cfg.dtype}, {cfg.n_params() / 1e9:.2f} B "
+          f"parameters), {MULT} fused ACU:")
+    t0 = time.perf_counter()
+    params = T.init_params(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    print(f"  random weights from seed 0 in {time.perf_counter() - t0:.2f} s"
+          f", {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    mlp0 = {n: t[0] for n, t in params["groups"]["b0"]["mlp"].items()}
+
+    def codes(w):
+        """Expert weight codes and scales as approx_grouped_dense makes
+        them: per expert and output channel, multiply-form scale."""
+        ws = inline_symmetric_scale(
+            torch.clamp_min(w.abs().amax(dim=1), 1e-9), 8)
+        qp = QParams(scale=ws[:, None, :], zero_point=zero, bits=8)
+        return acu_operand(quantize(w, qp), qp), ws
+
+    def act_scale(x):
+        return inline_symmetric_scale(torch.clamp_min(x.abs().amax(), 1e-6),
+                                      8)
+
+    weights = {n: codes(mlp0[n]) for n in ("w_gate", "w_up", "w_down")}
+
+    def hold(label, x, wname, counts, per_step=0, table=None, emit=False):
+        """Kernel 10 against its plain version at one shape, bitwise;
+        times kernel, plain version and torch.bmm (f32) at (E, nb*C, K) x
+        (E, K, N); accounts ``per_step`` calls of one decode step."""
+        wq, ws = weights[wname]
+        G, C, K = x.shape
+        N = wq.shape[2]
+        nb = G // n_exp
+        xs = act_scale(x)
+        l16, l32 = (lut16, lut32) if table is None else table
+        kern = lambda: ops["fused_lut_grouped"](x, wq, l16, off, xs, zero,
+                                                ws, counts, emit_acc=emit)
+        plain = lambda: fused_lut_grouped_ref(x, wq, l32, off, n_codes, xs,
+                                              zero, ws, counts,
+                                              emit_acc=emit)
+        yk, yp = kern(), plain()
+        dead = ~live_rows(counts, C)
+        ok = torch.equal(yk, yp) and not bool(yk[dead].any())
+        check(ok, f"fused_lut_grouped {label} G={G} C={C} {K}->{N}"
+                  f"{' emit_acc' if emit else ''}: bitwise equal to the "
+                  f"plain version, dead rows 0")
+        per_e = counts.reshape(nb, n_exp).sum(0)
+        live, e_live = int(per_e.sum()), int((per_e > 0).sum())
+        xb = x.reshape(nb, n_exp, C, K).transpose(0, 1).reshape(
+            n_exp, nb * C, K).float()
+        wf = wq.float()
+        lib = cuda_ms(torch, lambda: torch.bmm(xb, wf), 10)
+        del xb, wf
+        ms = cuda_ms(torch, kern, 20)
+        pms = cuda_ms(torch, plain, 1, warm=0)
+        bytes_ = (live * K * x.element_size() + e_live * K * N * 4
+                  + n_exp * N * 4 + l16.numel() * 2 + G * 4 + G * C * N * 4)
+        lookups = live * K * N
+        bound = max(bytes_ / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
+        print(f"    {label:22s} G={G} C={C:2d} {K}->{N}: {ms:.4f} ms (plain "
+              f"{pms:.2f}, torch.bmm f32 {lib:.4f}), bound {bound:.4f} ms "
+              f"({live} live rows, {lookups / 1e9:.3f} G lookups, "
+              f"{bytes_ / 1e6:.1f} MB)", flush=True)
+        if per_step:
+            account("fused_lut_grouped", per_step, ms, pms, lib, bytes_,
+                    lookups, 0.0 if ok else float("inf"))
+        return yk
+
+    # -- kernel 10 at granite's shapes -------------------------------------
+    print("  fused_lut_grouped against its plain version (counts from layer "
+          "0's routing of random hidden states, and synthetic):")
+    for t, label in ((LM_SLOTS, "decode"), (128, "prefill 128"),
+                     (512, "prefill 512")):
+        geo = M.dispatch_geometry(cfg, t)
+        x = torch.randn((t, d), generator=gen, device=dev).to(bf)
+        _, _, top_e = M._route(x, mlp0["router"], k)
+        xe, counts, _, _ = M.dispatch(x, top_e, geo)
+        G, C = geo["n_blocks"] * n_exp, geo["capacity"]
+        xg, cnt = xe.reshape(G, C, d), counts.reshape(G)
+        step = 2 * cfg.n_layers if label == "decode" else 0
+        gate = hold(f"{label} gate", xg, "w_gate", cnt, step)
+        up = hold(f"{label} up", xg, "w_up", cnt)
+        h = silu(gate.to(bf)) * up.to(bf)
+        hold(f"{label} down", h, "w_down", cnt, step // 2)
+        if label == "decode":
+            biased = np.arange(-128, 128, dtype=np.int32)
+            biased = (biased[:, None] * biased[None, :] + 7).reshape(-1)
+            b32 = torch.from_numpy(biased).to(dev)
+            hold("decode gate, biased", xg, "w_gate", cnt,
+                 table=(lut_to_int16(b32), b32), emit=True)
+    geo = M.dispatch_geometry(cfg, 512)
+    nb, C = geo["n_blocks"], geo["capacity"]
+    G = nb * n_exp
+    rng = np.random.default_rng(13)
+    synth = {
+        "empty experts": np.where(np.arange(G) % n_exp % 5 == 0, 0,
+                                  rng.integers(0, C + 1, G)),
+        "all to one": np.where(np.arange(G) % n_exp == 0, C, 0),
+    }
+    for label, cnt in synth.items():
+        cnt = torch.from_numpy(cnt.astype(np.int32)).to(dev)
+        live = live_rows(cnt, C)[..., None]
+        for wname, width in (("w_gate", d), ("w_down", f)):
+            x = torch.randn((G, C, width), generator=gen, device=dev).to(bf)
+            hold(f"{label} {wname[2:]}", x * live.to(bf), wname, cnt)
+
+    # -- serve 32 requests through each engine -----------------------------
+    prompts = lm_requests(np, cfg.vocab_size, MOE_REQUESTS, MOE_SHARED)
+    per_call = {"fused_lut_grouped": 3 * cfg.n_layers,
+                "fused_lut_dense": 4 * cfg.n_layers + 1}
+    print(f"  serving {MOE_REQUESTS} requests ({MOE_SHARED} sharing a "
+          f"{LM_PREFIX}-token prefix), {MOE_NEW} new tokens each, "
+          f"slots={LM_SLOTS}, max_seq={LM_MAX_SEQ}, paged block "
+          f"{LM_BLOCK}:")
+    rates = serve_lm(torch, check, E, lm_engines(E, params, cfg, acfg, dev),
+                     prompts, MOE_NEW, cfg, ops, launches, per_call)
+
+    # -- layer 0's routing statistics at one decode step and one prefill ---
+    b = LM_SLOTS
+    inner, seen = T.moe_block, []
+
+    def layer0_stats(h, p, cfg_, acfg_):
+        if seen:
+            return inner(h, p, cfg_, acfg_)
+        out, st = inner(h, p, cfg_, acfg_, return_stats=True)
+        seen.append({n: float(v) for n, v in st.items()})
+        return out
+
+    cache = T.init_cache(cfg, b, LM_MAX_SEQ, device=dev)
+    pos = torch.from_numpy(rng.integers(16, LM_MAX_SEQ // 2, b)).to(dev)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (b, 1))).to(dev)
+    prefill = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                            (1, 256))).to(dev)
+    T.moe_block = layer0_stats
+    try:
+        with torch.inference_mode():
+            for label, call in (
+                    ("decode step, 32 rows", lambda: T.apply_model(
+                        params, toks, cfg, acfg=acfg, cache=cache,
+                        cache_pos=pos, decode=True)),
+                    ("prefill, 256 tokens", lambda: T.apply_model(
+                        params, prefill, cfg, acfg=acfg, last_only=True))):
+                seen.clear()
+                call()
+                t = toks.numel() if label.startswith("decode") else 256
+                print(f"  layer 0, {label}: dropped_frac "
+                      f"{seen[0]['dropped_frac']:.4f}, aux_loss "
+                      f"{seen[0]['aux_loss']:.4f}; dispatch "
+                      f"{M.dispatch_geometry(cfg, t)}")
+                check(0.0 <= seen[0]["dropped_frac"] < 1.0
+                      and np.isfinite(seen[0]["aux_loss"]),
+                      f"layer 0 statistics at the {label} are finite")
+    finally:
+        T.moe_block = inner
+
+    # -- the card against the CPU, two layers -------------------------------
+    cut = dataclasses.replace(cfg, n_layers=MOE_CPU_LAYERS)
+    small = T.init_params(1, cut, device=dev)
+    short = prompts[3][:16]
+    on_gpu = E.ContinuousServeEngine(small, cut, slots=1, max_seq=64,
+                                     acfg=acfg, device=dev).run(
+        [E.Request(prompt=short.copy(), max_new_tokens=4)])
+
+    def to_cpu(tree):
+        return ({n: to_cpu(v) for n, v in tree.items()}
+                if isinstance(tree, dict) else tree.cpu())
+
+    t0 = time.perf_counter()
+    on_cpu = E.ContinuousServeEngine(to_cpu(small), cut, slots=1, max_seq=64,
+                                     acfg=acfg, device="cpu").run(
+        [E.Request(prompt=short.copy(), max_new_tokens=4)])
+    print(f"  full width cut to {MOE_CPU_LAYERS} layers (32 layers of plain "
+          f"LUT gathers would take minutes on the CPU), one 16-token "
+          f"request, 4 new tokens: card {list(on_gpu[0].out)}, CPU "
+          f"{list(on_cpu[0].out)} ({time.perf_counter() - t0:.1f} s on the "
+          f"CPU)")
+    check(list(on_gpu[0].out) == list(on_cpu[0].out),
+          f"granite-moe-3b-a800m cut to {MOE_CPU_LAYERS} layers: the same "
+          f"tokens on the card and the CPU")
+    del small
+
+    # -- profile one decode step -------------------------------------------
+    with torch.inference_mode():
+        step = lambda: T.apply_model(params, toks, cfg, acfg=acfg,
+                                     cache=cache, cache_pos=pos,
+                                     decode=True)[0].argmax(-1).cpu()
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step()
+        wall = (time.perf_counter() - t0) / 3 * 1e3
+        profile(torch, f"granite-moe-3b-a800m decode step, {b} rows", step,
+                wall)
+        mlp = params["groups"]["b0"]["mlp"]
+        glue = cuda_ms(torch, lambda: [codes(mlp[n][0]) for n in
+                                       ("w_gate", "w_up", "w_down")], 5)
+        print(f"  expert weight quantization (scales, codes) of one layer: "
+              f"{glue:.3f} ms, x{cfg.n_layers} layers = "
+              f"{glue * cfg.n_layers:.1f} ms of each model call")
     return rates
 
 
@@ -857,6 +1129,8 @@ def main() -> int:
             approx_flash_attention, approx_flash_attention_paged)
         from repro_torch.kernels.err_matmul.ops import err_matmul
         from repro_torch.kernels.err_matmul.ref import err_matmul_ref
+        from repro_torch.kernels.fused_lut_grouped.ops import (
+            fused_lut_grouped)
         from repro_torch.kernels.lut_matmul.ops import lut_matmul
         from repro_torch.kernels.lut_matmul.ref import lut_matmul_ref
         from repro_torch.models.vision import init_resnet, resnet_forward
@@ -1156,7 +1430,7 @@ def main() -> int:
            "fused_lut_conv_bwd_w": fused_lut_conv_bwd_w,
            "approx_flash_attention": approx_flash_attention,
            "approx_flash_attention_paged": approx_flash_attention_paged,
-           "err_matmul": err_matmul}
+           "err_matmul": err_matmul, "fused_lut_grouped": fused_lut_grouped}
     path_kernels = {"fused": ("fused_lut_conv", "fused_lut_dense"),
                     "unfused": ("lut_matmul",)}
     launches = {k: 0 for k in KERNELS}
@@ -1302,7 +1576,13 @@ def main() -> int:
     table2 = table2_phase(torch, np, dev, check)
     print(f"Table 2 arc: {time.perf_counter() - t0:.1f} s")
 
-    # -- 9. report ---------------------------------------------------------
+    # -- 9. serve granite-moe-3b-a800m -------------------------------------
+    t0 = time.perf_counter()
+    moe_rates = moe_phase(torch, np, dev, check, acu, ops, launches, account,
+                          lookups_per_s, lut_bytes)
+    print(f"MoE phase: {time.perf_counter() - t0:.1f} s")
+
+    # -- 10. report --------------------------------------------------------
     rows = []
     for name, (source, replaces) in KERNELS.items():
         s = stats[name]
@@ -1317,12 +1597,15 @@ def main() -> int:
     print(f"ms summed over the calls of one serve wave of {BATCH} images "
           f"(forward kernels and err_matmul; fused_lut_dense adds one SmolLM "
           f"decode step's "
-          f"211 GEMMs), one training step at batch {tb} (backward kernels) "
-          f"or one SmolLM decode step of {LM_SLOTS} rows (attention): "
+          f"211 GEMMs), one training step at batch {tb} (backward kernels), "
+          f"one SmolLM decode step of {LM_SLOTS} rows (attention) or one "
+          f"granite-moe-3b-a800m decode step (fused_lut_grouped): "
           + ", ".join(f"{r['name']} {r['ms']:.3f} ms vs bound "
                       f"{r['bound_ms']:.3f}" for r in rows))
     print("SmolLM-135M tokens/s: " + ", ".join(
         f"{k} {v:.1f}" for k, v in lm_rates.items()))
+    print("granite-moe-3b-a800m tokens/s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in moe_rates.items()))
     print(f"images/s: fused {rates['fused']:.1f}, "
           f"unfused {rates['unfused']:.1f}; training steps/s: "
           + ", ".join(f"{k} {v[-1]:.3f}" for k, v in train.items()))

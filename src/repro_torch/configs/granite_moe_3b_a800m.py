@@ -1,5 +1,5 @@
 """granite-moe-3b-a800m [moe]: 32L d1536 24H (GQA kv=8) d_ff=512/expert,
-MoE 40e top-8, vocab 49155. [hf:ibm-granite/granite-3.0-1b-a400m-base]
+MoE 40e top-8, vocab 49155. [hf:ibm-granite/granite-3.0-3b-a800m-base]
 
 24 heads % 16 != 0 -> heads replicated under TP (planner fallback);
 40 experts % 16 != 0 -> TP-in-expert (d_ff 512 / 16 = 32).

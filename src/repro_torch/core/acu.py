@@ -25,14 +25,15 @@ any kernel; here they are a library call: ``torch._int_mm`` on int8 codes
 
 Dispatch is two-level, as in the reference: :func:`matmul_plan` (dense
 GEMMs), :func:`matmul_bwd_plan` (the approximate STE gradient GEMMs),
-:func:`conv_plan` (conv2d sites, with the backward route it implies) and
-:func:`attn_plan` (attention over a contiguous or paged KV cache) resolve
-(mode, bits, use_kernels, fused) to a route; a fused request on a non-LUT
-ACU resolves unfused, a conv to ``im2col`` and attention to ``dense``,
-each audited as in the reference. The spatially tiled conv route, grouped
-convs and mesh partitions are not ported yet: asking for one raises
-``NotImplementedError`` naming the ROADMAP queue that holds it, never a
-different answer.
+:func:`conv_plan` (conv2d sites, with the backward route it implies),
+:func:`attn_plan` (attention over a contiguous or paged KV cache) and
+:func:`grouped_plan` (an MoE layer's expert GEMMs) resolve (mode, bits,
+use_kernels, fused) to a route; a fused request on a non-LUT ACU resolves
+unfused, a conv to ``im2col``, attention to ``dense`` and the expert GEMMs
+to ``vmap``, each audited as in the reference. The spatially tiled conv
+route, grouped convs and mesh partitions are not ported yet: asking for one
+raises ``NotImplementedError`` naming the ROADMAP queue that holds it, never
+a different answer.
 """
 from __future__ import annotations
 
@@ -685,6 +686,115 @@ def _resolve_attn(acu: Acu, spec: AttnSpec, a_bits: int) -> AttnPlan:
     return AttnPlan(mode=acu.mode, bits=acu.bits, use_kernels=True,
                     route="fused_attn_paged" if paged else "fused_attn",
                     spec=spec, fn=fn, report=tuple(report))
+
+
+# ---------------------------------------------------------------------------
+# grouped ragged GEMM plan (MoE expert dispatch)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GroupedSpec:
+    """Static geometry of one MoE grouped-GEMM site. ``n_experts``: E;
+    ``cap``: capacity rows per (dispatch block, expert) group;
+    ``d_in``/``d_out``: the GEMM's contraction and output widths;
+    ``n_blocks``: the dispatch block count ``nb`` the router resolved
+    (``models/moe.dispatch_geometry``). The grouped operand has ``G =
+    n_blocks * n_experts`` groups; group ``g`` multiplies expert ``g %
+    n_experts``."""
+
+    n_experts: int
+    cap: int
+    d_in: int
+    d_out: int
+    n_blocks: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedPlan:
+    """A resolved grouped ragged GEMM route for one ACU at one geometry.
+
+    * ``"fused_grouped"``: the ragged grouped fused LUT-GEMM kernel (kernel
+      10), one launch per projection for every group: ``fn(xe, wq, xs, xz,
+      ws, counts) -> (G, cap, d_out) f32`` with ``xe`` (G, cap, d_in) float
+      dispatched activations, ``wq`` (E, d_in, d_out) shifted int weight
+      codes, ``xs``/``xz`` one activation scale shared by every group,
+      ``ws`` (E, d_out) per-expert weight scales and ``counts`` (G,) int32
+      live rows; rows ``>= counts[g]`` are exactly 0.0.
+    * ``"vmap"``: the audited fallback (not a LUT ACU on the kernels, or no
+      table): ``fn`` is None and the caller runs the per-expert
+      ``approx_dense`` composition masked to the live rows, which is also
+      the fused route's bitwise oracle.
+
+    ``use_kernels`` plays the part of the reference's ``use_pallas``.
+    ``describe()`` has the reference's keys; ``partition`` is None (no mesh
+    yet).
+    """
+
+    mode: AcuMode
+    bits: int
+    use_kernels: bool
+    route: str
+    spec: GroupedSpec
+    fn: Optional[Callable[..., torch.Tensor]] = None
+    report: tuple[str, ...] = ()
+
+    def __call__(self, *args) -> torch.Tensor:
+        if self.fn is None:
+            raise ValueError(f"route {self.route} has no direct kernel")
+        return self.fn(*args)
+
+    def describe(self) -> dict:
+        s = self.spec
+        return {
+            "route": self.route,
+            "mode": self.mode.value,
+            "experts": s.n_experts,
+            "cap": s.cap,
+            "n_blocks": s.n_blocks,
+            "gemm": f"({s.n_blocks}x{s.n_experts}, {s.cap}, {s.d_in}) x "
+                    f"({s.n_experts}, {s.d_in}, {s.d_out})",
+            "partition": None,
+            "report": list(self.report),
+        }
+
+
+def grouped_plan(acu: Acu, spec: GroupedSpec, *, a_bits: Optional[int] = None,
+                 mesh=None, route: Optional[str] = None) -> GroupedPlan:
+    """Resolve one MoE grouped-GEMM site to a route, with the reference's
+    audited fallback: an ACU that cannot run the grouped kernel (not LUT
+    mode, no ``use_kernels``, no table) resolves to ``"vmap"``. The route
+    does not depend on ``fused``. ``route`` pins one: ``"fused_grouped"``
+    raises if the kernel cannot serve the ACU, ``"vmap"`` forces the
+    per-expert composition (the oracle)."""
+    _require_single_device(mesh)
+    a_bits = acu.bits if a_bits is None else a_bits
+    if route not in (None, "fused_grouped", "vmap"):
+        raise ValueError(f"unknown grouped route {route!r}")
+    report: list[str] = []
+    can_fuse = _lut_kernels(acu)
+    if not can_fuse and route != "vmap":
+        report.append(f"fused grouped GEMM needs LUT mode + use_kernels + a "
+                      f"built table (have mode={acu.mode.value}, "
+                      f"use_kernels={acu.use_kernels}); expert GEMMs stay on "
+                      f"the per-expert vmapped route")
+    if route == "fused_grouped" and not can_fuse:
+        raise ValueError(f"fused_grouped route unavailable: {report}")
+    if route == "vmap" or not can_fuse:
+        if route == "vmap":
+            report.append("route pinned to per-expert vmap by caller")
+        return GroupedPlan(mode=acu.mode, bits=acu.bits,
+                           use_kernels=acu.use_kernels, route="vmap",
+                           spec=spec, report=tuple(report))
+
+    from repro_torch.kernels.fused_lut_grouped.ops import fused_lut_grouped
+
+    def fn(xe, wq, xs, xz, ws, counts):
+        return fused_lut_grouped(xe, wq, acu.device_lut(xe.device),
+                                 acu.offset, xs, xz, ws, counts, bits=a_bits)
+
+    return GroupedPlan(mode=acu.mode, bits=acu.bits, use_kernels=True,
+                       route="fused_grouped", spec=spec, fn=fn,
+                       report=tuple(report))
 
 
 def make_acu(name: str, mode: AcuMode | str = AcuMode.LUT, rank: int = 8,

@@ -38,10 +38,11 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from .acu import (Acu, AttnSpec, ConvSpec, attn_plan, conv_plan,
-                  matmul_bwd_plan, matmul_plan, resolve_conv_padding)
-from .quantization import (QParams, acu_operand, fake_quantize,
-                           inline_symmetric_scale, quantize,
+from .acu import (Acu, AttnSpec, ConvSpec, GroupedSpec, attn_plan,
+                  conv_plan, grouped_plan, matmul_bwd_plan, matmul_plan,
+                  resolve_conv_padding)
+from .quantization import (QParams, acu_operand, device_scalar,
+                           fake_quantize, inline_symmetric_scale, quantize,
                            symmetric_qparams)
 
 
@@ -213,6 +214,112 @@ def approx_dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     if b is not None:
         y = y + b     # a second, separately rounded op after the dequant
     return y
+
+
+# ---------------------------------------------------------------------------
+# Grouped ragged MoE GEMM: one kernel launch for all E expert GEMMs of a
+# projection (kernel 10), routed by core/acu.grouped_plan
+# ---------------------------------------------------------------------------
+
+def _grouped_fwd(cfg: ApproxConfig, plan, counts: torch.Tensor) -> Callable:
+    """The grouped forward ``fwd(xe, w, xs, xz, ws3, wz)`` (``ws3``: the
+    (E, 1, N) weight scales): the kernel on the ``fused_grouped`` route;
+    on ``vmap`` the per-expert composition of :func:`approx_matmul`'s
+    forward, each expert's rows of every dispatch block in one GEMM, the
+    dead rows masked to 0.0 (masking, not slicing: under a biased table a
+    dead row's codes still sum to ``K * LUT[0, w] != 0``)."""
+    from repro_torch.kernels.fused_lut_grouped.ref import live_rows
+    spec = plan.spec
+    E, C, nb = spec.n_experts, spec.cap, spec.n_blocks
+    if plan.route != "fused_grouped":
+        mplan = matmul_plan(cfg.acu, a_bits=cfg.a_bits)
+
+    def fwd(xe, w, xs, xz, ws3, wz):
+        wqp = QParams(scale=ws3, zero_point=wz, bits=cfg.w_bits)
+        wq = acu_operand(quantize(w, wqp), wqp)             # (E, K, N)
+        ws = ws3.reshape(E, -1)
+        if plan.route == "fused_grouped":
+            return plan(xe, wq, xs, xz, ws, counts)
+        xqp = QParams(scale=xs, zero_point=xz, bits=cfg.a_bits)
+        x4 = xe.reshape(nb, E, C, xe.shape[-1])
+        if not mplan.fused:
+            x4 = acu_operand(quantize(x4, xqp), xqp)
+        ys = []
+        for e in range(E):
+            xg = x4[:, e].reshape(nb * C, -1)
+            wqp_e = QParams(scale=ws[e], zero_point=wz, bits=cfg.w_bits,
+                            axis=1)
+            y = (mplan(xg, wq[e], xs, xz, ws[e]) if mplan.fused else
+                 _affine_matmul_dequant(mplan(xg, wq[e]), xqp, wqp_e))
+            ys.append(y.reshape(nb, C, -1))
+        y = torch.stack(ys, 1).reshape(nb * E, C, -1)
+        return torch.where(live_rows(counts, C)[..., None], y, 0.0)
+
+    return fwd
+
+
+def _grouped_bwd(spec, counts: torch.Tensor) -> BwdFn:
+    """The reference's grouped STE backward: exact float32 on the
+    fake-quantized residuals, the incoming gradient masked to the live
+    rows (dead slots emit zero forward, so nothing flows back through
+    them)."""
+    from repro_torch.kernels.fused_lut_grouped.ref import live_rows
+    E, C, nb = spec.n_experts, spec.cap, spec.n_blocks
+
+    def bwd(g, xf, wf, need_gx, need_gw):
+        g = torch.where(live_rows(counts, C)[..., None], g, 0.0)
+        g4 = g.reshape(nb, E, C, g.shape[-1])
+        gx = gw = None
+        with exact_f32():
+            if need_gx:
+                gx = torch.einsum("becn,ekn->beck", g4, wf).reshape(
+                    nb * E, C, -1)
+            if need_gw:
+                gw = torch.einsum("beck,becn->ekn",
+                                  xf.reshape(nb, E, C, -1), g4)
+        return gx, gw
+
+    return bwd
+
+
+def approx_grouped_dense(xe: torch.Tensor, w: torch.Tensor,
+                         cfg: ApproxConfig, counts: torch.Tensor,
+                         route: Optional[str] = None) -> torch.Tensor:
+    """Ragged grouped MoE GEMM through the ACU: every expert GEMM of one
+    projection in one dispatch.
+
+    ``xe``: (G, C, K) dispatched capacity buffers, ``G = nb * E`` groups
+    (dispatch blocks x experts, block-major); group ``g`` multiplies expert
+    ``g % E``. ``w``: (E, K, N) per-expert weights; ``counts``: (G,) int32
+    live rows per group, on ``xe``'s device. Output rows ``>= counts[g]``
+    are exactly 0.0. One per-tensor activation scale covers the whole
+    dispatched tensor (``max(amax, 1e-6)`` in ``xe``'s dtype, then
+    ``inline_symmetric_scale``), which is what makes the kernel and the
+    per-expert composition bitwise equal; weight scales are per expert and
+    output channel, in the same multiply form. ``route`` pins the plan's
+    route (``"fused_grouped"`` / ``"vmap"``). The backward is the exact
+    float32 STE. No ``fake_quant_only`` route, as in the reference: QAT
+    keeps the per-expert :func:`approx_dense` path."""
+    G, C, K = xe.shape
+    E, _, N = w.shape
+    if G % E != 0:
+        raise ValueError(f"groups {G} not a multiple of experts {E}")
+    if cfg.fake_quant_only:
+        raise ValueError("approx_grouped_dense has no fake-quant route; "
+                         "keep the per-expert approx_dense path for QAT")
+    zero = device_scalar(0.0, xe.device)
+    xqp = QParams(scale=inline_symmetric_scale(
+        torch.clamp_min(xe.abs().amax(), 1e-6), cfg.a_bits),
+        zero_point=zero, bits=cfg.a_bits)
+    ws3 = inline_symmetric_scale(torch.clamp_min(w.abs().amax(dim=1), 1e-9),
+                                 cfg.w_bits)[:, None, :]       # (E, 1, N)
+    spec = GroupedSpec(n_experts=E, cap=C, d_in=K, d_out=N, n_blocks=G // E)
+    plan = grouped_plan(cfg.acu, spec, a_bits=cfg.a_bits, route=route)
+    counts = counts.to(torch.int32)
+    y = _ste(_grouped_fwd(cfg, plan, counts), _grouped_bwd(spec, counts),
+             xe, w, xqp, QParams(scale=ws3, zero_point=zero,
+                                 bits=cfg.w_bits), cfg, w_axis=None)
+    return y.to(xe.dtype)
 
 
 # ---------------------------------------------------------------------------

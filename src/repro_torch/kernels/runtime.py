@@ -58,6 +58,8 @@ SIGNATURES = {
                                [_P] * 12 + [_I] * 12 + [_L] * 9 + [_I] * 7
                                + [ctypes.c_float, _I, _I, _P]),
     "err_matmul": ("err_matmul_launch", [_P] * 5 + [_I] * 7 + [_P]),
+    "fused_lut_grouped": ("fused_lut_grouped_launch",
+                          [_P, _I] + [_P] * 7 + [_I] * 11 + [_P]),
 }
 
 

@@ -9,7 +9,9 @@ The flags are the reference launcher's (``repro.launch.serve``), plus
 ``--device`` (``cuda`` unless given). ``--approx MULT:lut`` builds the
 kernel ACU (``use_kernels=True, fused=True``): every GEMM runs the fused
 LUT dense kernel and attention the approximate flash attention kernel,
-contiguous or paged. The reference launcher's ACU has ``use_pallas=False``,
+contiguous or paged; in an MoE model (``granite-moe-3b-a800m``,
+``olmoe-1b-7b``) every projection's expert GEMMs run the ragged grouped
+kernel, one launch each. The reference launcher's ACU has ``use_pallas=False``,
 so there attention stays exact and only the GEMMs are approximate.
 Parameters are random, from seed 0 (``init_params``).
 """

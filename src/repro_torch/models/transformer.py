@@ -5,9 +5,10 @@ Parameters keep the reference's pytree: group-stacked leaves of shape
 ``(n_groups, ...)`` under ``params["groups"]["b<i>"]``, so the reference's
 parameters carry over leaf for leaf (:func:`load_jax_params`). The forward
 is a Python loop over groups where the reference scans. Caches are stacked
-the same way and written in place (``models/layers.py``). Layer kinds
-other than attention (MoE, mamba, rwkv) and the enc-dec family raise
-``NotImplementedError`` naming their ROADMAP item.
+the same way and written in place (``models/layers.py``). Attention
+layers take a dense MLP or, for ``attn_moe``, an MoE block
+(``models/moe.py``). Other layer kinds (mamba, rwkv) and the enc-dec family
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -21,12 +22,11 @@ from repro_torch.core.acu import not_ported
 from repro_torch.core.approx_ops import ApproxConfig
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.moe import moe_block
 
 
 def _check_kinds(cfg: ModelConfig) -> None:
     for kind in cfg.pattern:
-        if kind.endswith("moe"):
-            raise not_ported(f"MoE layers ({cfg.name})", "queue 1, item 12")
         if not kind.startswith("attn"):
             raise not_ported(f"{kind} layers ({cfg.name})",
                              "queue 1, item 14 (other model families)")
@@ -53,11 +53,11 @@ def init_params(seed: int, cfg: ModelConfig, device=None) -> dict:
     h, hkv, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
     pd = cfg.param_dtype
 
-    def dense(*shape, scale=None):
+    def dense(*shape, scale=None, dtype=pd):
         scale = scale or shape[-2] ** -0.5
         w = torch.randn(shape, generator=gen, device=dev,
                         dtype=torch.float32) * scale
-        return w.to(pd)
+        return w.to(dtype)
 
     def norm(width, n):
         if cfg.norm == "ln":
@@ -67,7 +67,7 @@ def init_params(seed: int, cfg: ModelConfig, device=None) -> dict:
         return {"w": fill((n, width), device=dev)}
 
     groups: dict[str, Any] = {}
-    for i, _ in enumerate(cfg.pattern):
+    for i, kind in enumerate(cfg.pattern):
         attn = {"wq": dense(g, d, h * hd), "wk": dense(g, d, hkv * hd),
                 "wv": dense(g, d, hkv * hd), "wo": dense(g, h * hd, d)}
         if cfg.qkv_bias:
@@ -77,7 +77,9 @@ def init_params(seed: int, cfg: ModelConfig, device=None) -> dict:
         if cfg.qk_norm:
             attn["q_norm"] = torch.ones((g, hd), device=dev)
             attn["k_norm"] = torch.ones((g, hd), device=dev)
-        if cfg.mlp_type in ("swiglu", "geglu"):
+        if kind.endswith("moe"):
+            mlp = _init_moe(dense, cfg, g)
+        elif cfg.mlp_type in ("swiglu", "geglu"):
             mlp = {"w_gate": dense(g, d, f), "w_up": dense(g, d, f),
                    "w_down": dense(g, f, d)}
         else:
@@ -96,6 +98,17 @@ def init_params(seed: int, cfg: ModelConfig, device=None) -> dict:
     if not cfg.tie_embed:
         params["lm_head"] = dense(d, cfg.vocab_padded)
     return params
+
+
+def _init_moe(dense, cfg: ModelConfig, g: int) -> dict:
+    """MoE leaves in the reference's layout and scales: ``router`` (g, d,
+    E) float32 at ``d**-0.5``; ``w_gate``/``w_up`` (g, E, d, f) at
+    ``d**-0.5`` and ``w_down`` (g, E, f, d) at ``f**-0.5``, in
+    ``cfg.param_dtype``."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {"router": dense(g, d, e, dtype=torch.float32),
+            "w_gate": dense(g, e, d, f), "w_up": dense(g, e, d, f),
+            "w_down": dense(g, e, f, d)}
 
 
 def load_jax_params(tree, device=None, dtype=None) -> dict:
@@ -133,6 +146,14 @@ def _norm(x, p, cfg: ModelConfig):
     return L.rms_norm(x, p["w"], plus_one=(cfg.norm == "rms1p"))
 
 
+def mlp_apply(h, p, kind: str, cfg: ModelConfig, acfg):
+    """The layer's feed-forward: an MoE block for ``*moe`` kinds, else the
+    dense MLP."""
+    if kind.endswith("moe"):
+        return moe_block(h, p, cfg, acfg)
+    return L.mlp_block(h, p, cfg, acfg)
+
+
 def _apply_block(x, blk, kind, cfg, acfg, positions, cache, cache_pos,
                  pad_mask=None, page_table=None):
     """One attention layer (+ its MLP); ``cache`` is its (K, V) or None."""
@@ -144,9 +165,9 @@ def _apply_block(x, blk, kind, cfg, acfg, positions, cache, cache_pos,
     if cfg.post_norm:
         a = _norm(a, blk["post_norm1"], cfg)
     if cfg.parallel_block:
-        return x + a + L.mlp_block(h, blk["mlp"], cfg, acfg)
+        return x + a + mlp_apply(h, blk["mlp"], kind, cfg, acfg)
     x = x + a
-    m = L.mlp_block(_norm(x, blk["norm2"], cfg), blk["mlp"], cfg, acfg)
+    m = mlp_apply(_norm(x, blk["norm2"], cfg), blk["mlp"], kind, cfg, acfg)
     if cfg.post_norm:
         m = _norm(m, blk["post_norm2"], cfg)
     return x + m

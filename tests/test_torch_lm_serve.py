@@ -101,10 +101,13 @@ def test_engines_give_reference_tokens(engine, dtype, monkeypatch):
     engine_parity(engine, dtype, "smollm-135m", monkeypatch)
 
 
-def engine_parity(engine: str, dtype: str, arch: str, monkeypatch) -> None:
+def engine_parity(engine: str, dtype: str, arch: str, monkeypatch,
+                  op_by_op: bool = False, **overrides) -> None:
     """The port's engine against the reference's on :func:`_specs`, at
-    ``reduced_config(arch)`` in ``dtype``, tokens equal request for
-    request."""
+    ``reduced_config(arch)`` in ``dtype`` (with ``overrides`` of its
+    fields, in both packages), tokens equal request for request.
+    ``op_by_op`` runs the reference engine under ``jax.disable_jit``."""
+    import contextlib
     import jax
     load_reference()
     import repro.configs as jconfigs
@@ -113,18 +116,21 @@ def engine_parity(engine: str, dtype: str, arch: str, monkeypatch) -> None:
     import repro.serve.engine as jengine
     from repro_torch.models.transformer import load_jax_params
     _fresh_blocks(monkeypatch, jengine)
-    jcfg = dataclasses.replace(jconfigs.reduced_config(arch), dtype=dtype)
-    tcfg = dataclasses.replace(reduced_config(arch), dtype=dtype)
+    jcfg = dataclasses.replace(jconfigs.reduced_config(arch), dtype=dtype,
+                               **overrides)
+    tcfg = dataclasses.replace(reduced_config(arch), dtype=dtype,
+                               **overrides)
     jp = jtrans.init_params(jax.random.PRNGKey(0), jcfg)
     tp = load_jax_params(jax.tree.map(np.asarray, jp), device="cpu")
     jacfg = jcore.ApproxConfig(acu=jcore.make_acu(
         MULT, "lut", use_pallas=True, interpret=True, fused=True))
     name, kw = ENGINES[engine]
     specs = _specs(tcfg.vocab_size)
-    want = getattr(jengine, name)(jp, jcfg, max_seq=64, acfg=jacfg,
-                                  **kw).run(
-        [jengine.Request(prompt=p.copy(), max_new_tokens=m)
-         for p, m in specs])
+    with jax.disable_jit() if op_by_op else contextlib.nullcontext():
+        want = getattr(jengine, name)(jp, jcfg, max_seq=64, acfg=jacfg,
+                                      **kw).run(
+            [jengine.Request(prompt=p.copy(), max_new_tokens=m)
+             for p, m in specs])
     eng = globals()[name](tp, tcfg, max_seq=64, acfg=_acfg(), **kw, **CPU)
     got = eng.run(_reqs(specs))
     for w, g in zip(want, got):
