@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-1. builds the hand-written CUDA kernels from ``src/repro_torch/csrc``;
+1. builds the eleven hand-written CUDA kernels from the ten sources in
+   ``src/repro_torch/csrc`` (one ``nvcc`` per source, all started
+   together);
 2. holds each forward kernel (lut_matmul, fused_lut_dense, fused_lut_conv)
    against its plain PyTorch version on the card, bitwise, at every GEMM
    shape of a ResNet-20 wave of 256 CIFAR-sized images, and times kernel,
@@ -39,9 +41,10 @@
    kernel bitwise, at the slice's decode and prefill shapes; then serves 64
    requests (prompts of 16 to 200 tokens, 16 of them sharing a 128-token
    prefix, 64 new tokens each) through each engine with the launch counters
-   set to 0 just before and checked just after against 30 attention and
-   211 dense launches per model call; checks one short request against the
-   CPU run's tokens; profiles one decode step of each KV layout;
+   set to 0 just before and checked just after against 30 attention,
+   211 dense and 211 quantize launches per model call; checks one short
+   request against the CPU run's tokens; profiles one decode step of each
+   KV layout;
 7. runs Table 4's emulation-mode ladder on ResNet-20 at full width, one
    wave of 256 images per row through ``VisionServeEngine``: native (no
    ACU), baseline LUT (the plain one-gather LUT GEMM), the LUT engine fused
@@ -69,12 +72,29 @@
    experts, all tokens to one expert), and under a biased table with the
    raw accumulator (dead rows 0); then serves 32 requests (16 to 200 prompt
    tokens, 8 sharing a 128-token prefix, 32 new tokens each) through the
-   three engines with the counters checked against 96 grouped, 129 dense
-   and 32 attention launches per model call; prints layer 0's dropped
-   fraction and aux loss at a decode step and a prefill; checks a short
-   request's tokens against the CPU on the model cut to 2 layers; profiles
-   one decode step and times the per-call expert weight quantization;
-10. prints one ``{"kernels": [...]}`` line, then the result line.
+   three engines with the counters checked against 96 grouped, 129 dense,
+   225 quantize and 32 attention launches per model call; prints layer 0's
+   dropped fraction and aux loss at a decode step and a prefill; checks a
+   short request's tokens against the CPU on the model cut to 2 layers;
+   profiles one decode step and times the per-call expert weight
+   quantization;
+10. serves rwkv6-3b (32 layers, d 2560, 40 wkv heads x 64, d_ff 8960,
+   vocab 65536, bf16, random weights from a seed) with the fused ACU:
+   first holds the WKV recurrence kernel (wkv) against its plain version on
+   the card at the decode shape and the engines' prefill shapes (the state
+   bitwise, the output within the k-sum's summation-order bound), and the
+   quantize kernel bitwise at every weight shape of rwkv6-3b,
+   granite-moe-3b-a800m and ResNet-20 in each broadcast form, in float32
+   and bfloat16, with values on half-code boundaries and past the clip;
+   then serves 32 requests (16 to 200 prompt tokens, 32 new tokens each)
+   through the wave and continuous engines with the counters checked
+   against 257 dense, 257 quantize and 32 wkv launches per model call;
+   checks a short request's tokens against the CPU on the model cut to 2
+   layers; profiles one decode step;
+11. prints one ``{"kernels": [...]}`` line, then the result line.
+
+Every weight of every approximate GEMM is quantized on every call through
+the quantize kernel, so each phase's exact launch counts include it.
 
 Exits nonzero, with no result line, when there is no CUDA device, when it
 runs outside the repository, or when any phase fails.
@@ -92,6 +112,7 @@ MULT = "mul8s_1L2H"
 BATCH = 256            # slots of one wave
 N_IMAGES = 1024
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+SPIN_CYCLES_PER_S = 1.98e9  # the SM clock under load (printed by the run)
 
 # every conv of a ResNet-20 wave: (name, cin, hw, cout, k, stride, padding,
 # convs of this shape per wave)
@@ -130,14 +151,23 @@ KERNELS = {
                    "src/repro/kernels/err_matmul/kernel.py:55"),
     "fused_lut_grouped": ("src/repro_torch/csrc/fused_lut_grouped.cu",
                           "src/repro/kernels/fused_lut_grouped/kernel.py:113"),
+    "quantize": ("src/repro_torch/csrc/quantize.cu",
+                 "src/repro/kernels/quantize/kernel.py:27"),
+    "wkv": ("src/repro_torch/csrc/wkv.cu",
+            "src/repro/kernels/wkv/kernel.py:53"),
 }
 RANK = 8                   # the LOWRANK rung's factorisation rank
 FP32_LANES = 128           # FP32 FMA lanes per SM (Hopper)
-# the launches one wave of each Table 4 ladder row makes (other rows: none)
-LADDER_LAUNCHES = {"adapt_lut_fused": {"fused_lut_conv": 21,
-                                       "fused_lut_dense": 1},
-                   "adapt_lut_unfused": {"lut_matmul": 22},
-                   "lowrank_r8": {"err_matmul": 22}}
+# the launches one wave of each Table 4 ladder row makes (native: none):
+# every row with an ACU quantizes its 22 weights on every call, and every
+# unfused row its 22 activations too
+LADDER_LAUNCHES = {"baseline_lut": {"quantize": 44},
+                   "adapt_lut_fused": {"fused_lut_conv": 21,
+                                       "fused_lut_dense": 1, "quantize": 22},
+                   "adapt_lut_unfused": {"lut_matmul": 22, "quantize": 44},
+                   "functional": {"quantize": 44},
+                   "lowrank_r8": {"err_matmul": 22, "quantize": 44},
+                   "quant_only": {"quantize": 44}}
 # LOWRANK logits, card vs CPU, as a fraction of the largest |logit|: every
 # GEMM accumulator agrees to well under one unit (the summation bound), so
 # the activation codes agree except where a value lies on a rounding
@@ -158,6 +188,12 @@ LM_WAVE_PROMPT = 200     # the longest prompt: the wave engine's prefill
 MOE_ARCH = "granite-moe-3b-a800m"
 MOE_REQUESTS, MOE_SHARED, MOE_NEW = 32, 8, 32
 MOE_CPU_LAYERS = 2       # depth of the card-against-CPU check
+# the RWKV serve phase: rwkv6-3b at full width and depth, bf16, the LM
+# phase's slots, max_seq and prompt lengths; wave and continuous engines
+# (the paged engine pages attention KV only)
+RWKV_ARCH = "rwkv6-3b"
+RWKV_REQUESTS, RWKV_NEW = 32, 32
+RWKV_CPU_LAYERS = 2
 # card vs CPU, one 4-image step: largest gradient difference allowed, as a
 # fraction of the tensor's largest entry. exact: float32 sums in another
 # order (cuBLAS, cuDNN-free col2im) move entries near cancellation by a
@@ -175,12 +211,15 @@ GRAD_TOL = {"exact": 1e-4, "approx_fused": 5e-2, "approx_unfused": 5e-2}
 # reordered sums moved.
 ATTN_FLIP_ROWS = 2
 # launches of one training step at batch 128, by regime: 21 convs + 1 dense
-# forward; the stem has no input gradient
+# forward, each quantizing its weight (and, unfused, its activation) with
+# the quantize kernel; the stem has no input gradient; the backward's
+# per-tensor quantizers are plain PyTorch
 STEP_LAUNCHES = {
-    "exact": {"fused_lut_conv": 21, "fused_lut_dense": 1},
+    "exact": {"fused_lut_conv": 21, "fused_lut_dense": 1, "quantize": 22},
     "approx_fused": {"fused_lut_conv": 21, "fused_lut_dense": 1,
-                     "fused_lut_conv_bwd_w": 21, "fused_lut_bwd": 22},
-    "approx_unfused": {"lut_matmul": 21 + 21 + 20 + 3},
+                     "fused_lut_conv_bwd_w": 21, "fused_lut_bwd": 22,
+                     "quantize": 22},
+    "approx_unfused": {"lut_matmul": 21 + 21 + 20 + 3, "quantize": 44},
 }
 
 
@@ -193,12 +232,23 @@ def nvidia_smi(query: str) -> str:
 
 def cuda_ms(torch, fn, reps: int, warm: int = 2) -> float:
     """Mean device time of one call, from CUDA events around ``reps``
-    calls after ``warm`` untimed ones."""
+    calls after ``warm`` untimed ones. After a warm-up the card first spins
+    (``torch.cuda._sleep``) for longer than the host takes to enqueue the
+    ``reps`` calls, so that the events time the card's work and not the
+    host's dispatch: a small kernel's wrapper can take longer on the host
+    than its kernel on the card. Without a warm-up the host's time is
+    included."""
+    host_s = float("inf")
     for _ in range(warm):
+        t0 = time.perf_counter()
         fn()
+        host_s = min(host_s, time.perf_counter() - t0)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if warm:
+        spin_s = min(2.0 * reps * host_s + 1e-3, 0.5)
+        torch.cuda._sleep(int(spin_s * SPIN_CYCLES_PER_S))
     start.record()
     for _ in range(reps):
         fn()
@@ -281,13 +331,14 @@ def lm_engines(E, params, cfg, acfg, dev):
 
 
 def serve_lm(torch, check, E, engines, prompts, n_new, cfg, ops, launches,
-             per_call) -> dict:
+             per_call, attention=True) -> dict:
     """Serves ``prompts`` (``n_new`` greedy tokens each) through each
     engine after a two-request warm-up, with the launch counters set to 0
     just before and read just after each run. Checks the tokens, that each
-    model call launched ``per_call`` (kernel: launches) plus one attention
-    kernel per layer (contiguous or paged) and nothing else, and that the
-    paged engine reused the shared prefix. Returns tokens/s by engine."""
+    model call launched ``per_call`` (kernel: launches) plus, with
+    ``attention``, one attention kernel per layer (contiguous or paged) and
+    nothing else, and that the paged engine reused the shared prefix.
+    Returns tokens/s by engine."""
     attn_kernel = {"wave": "approx_flash_attention",
                    "continuous": "approx_flash_attention",
                    "paged": "approx_flash_attention_paged"}
@@ -325,7 +376,9 @@ def serve_lm(torch, check, E, engines, prompts, n_new, cfg, ops, launches,
             check(n_tok == len(prompts) * n_new and all(
                 0 <= t < cfg.vocab_padded for r in reqs for t in r.out),
                   f"{name}: {len(prompts)} x {n_new} tokens in the vocab")
-            want_call = dict(per_call, **{attn_kernel[name]: cfg.n_layers})
+            want_call = dict(per_call)
+            if attention:
+                want_call[attn_kernel[name]] = cfg.n_layers
             want = {k: want_call.get(k, 0) * calls[0] for k in ops}
             check(counts == want, f"{name}: launch counts are {want_call} "
                                   f"per model call x {calls[0]} calls")
@@ -533,9 +586,10 @@ def lm_phase(torch, np, dev, check, acu, ops, launches, account,
           f"{LM_PREFIX}-token prefix), {LM_NEW} new tokens each, "
           f"slots={LM_SLOTS}, max_seq={LM_MAX_SEQ}, paged block "
           f"{LM_BLOCK}:")
+    n_dense = 7 * cfg.n_layers + 1
     rates = serve_lm(torch, check, E, lm_engines(E, params, cfg, acfg, dev),
                      prompts, LM_NEW, cfg, ops, launches,
-                     {"fused_lut_dense": 7 * cfg.n_layers + 1})
+                     {"fused_lut_dense": n_dense, "quantize": n_dense})
 
     # -- one short request on the card and on the CPU ----------------------
     short = [E.Request(prompt=prompts[3][:16].copy(), max_new_tokens=4)]
@@ -731,7 +785,8 @@ def moe_phase(torch, np, dev, check, acu, ops, launches, account,
     # -- serve 32 requests through each engine -----------------------------
     prompts = lm_requests(np, cfg.vocab_size, MOE_REQUESTS, MOE_SHARED)
     per_call = {"fused_lut_grouped": 3 * cfg.n_layers,
-                "fused_lut_dense": 4 * cfg.n_layers + 1}
+                "fused_lut_dense": 4 * cfg.n_layers + 1,
+                "quantize": 7 * cfg.n_layers + 1}
     print(f"  serving {MOE_REQUESTS} requests ({MOE_SHARED} sharing a "
           f"{LM_PREFIX}-token prefix), {MOE_NEW} new tokens each, "
           f"slots={LM_SLOTS}, max_seq={LM_MAX_SEQ}, paged block "
@@ -822,6 +877,268 @@ def moe_phase(torch, np, dev, check, acu, ops, launches, account,
         print(f"  expert weight quantization (scales, codes) of one layer: "
               f"{glue:.3f} ms, x{cfg.n_layers} layers = "
               f"{glue * cfg.n_layers:.1f} ms of each model call")
+    return rates
+
+
+def quantize_operands(torch, gen, dev, shape, form, dtype):
+    """x, scale, zero point for one quantize check: scales per ``form``
+    (``"tensor"``, an axis, or ``"grouped"`` (E, 1, N)), half of them
+    powers of two, so that the third of ``x`` put on half-code boundaries
+    ``(k + 0.5) * s`` lies on them exactly in bfloat16 too; 3 % of ``x``
+    far past the clip; zero points nonzero per channel."""
+    if form == "tensor":
+        sshape = ()
+    elif form == "grouped":
+        sshape = (shape[0], 1, shape[2])
+    else:
+        sshape = tuple(n if i == form else 1 for i, n in enumerate(shape))
+    exp = torch.randint(5, 12, sshape, generator=gen, device=dev)
+    s = torch.pow(2.0, -exp.float())
+    odd = torch.rand(sshape, generator=gen, device=dev) < 0.5
+    s = torch.where(odd, s * 1.37, s)
+    z = (torch.zeros(sshape, device=dev) if form in ("tensor", "grouped")
+         else torch.randint(-3, 4, sshape, generator=gen,
+                            device=dev).float())
+    x = torch.randn(shape, generator=gen, device=dev) * 60 * s
+    half = (torch.randint(-128, 128, shape, generator=gen,
+                          device=dev).float() + 0.5) * s
+    pick = torch.rand(shape, generator=gen, device=dev)
+    x = torch.where(pick < 0.33, half, x)
+    x = torch.where(pick > 0.97, torch.sign(x) * 500 * s, x)
+    return x.to(dtype), s, z
+
+
+def perturb_rwkv(torch, params, gen) -> None:
+    """Draws, in place, the rwkv leaves that the reference's init leaves at
+    one value (``lora_B_*`` and ``bonus`` at 0, one decay, mixes at 0.5),
+    so that the served model runs the LoRA token shift, the bonus term and
+    a spread of decays (0.07 to 0.87)."""
+    for blk in params["groups"].values():
+        p = blk["rwkv"]
+        for name, t in p.items():
+            if name.startswith("lora_B"):
+                t.normal_(0.0, 0.05, generator=gen)
+            elif name == "bonus":
+                t.normal_(0.0, 0.5, generator=gen)
+            elif name == "decay_base":
+                t.uniform_(-2.0, 1.0, generator=gen)
+            elif name.startswith(("mu_", "cm_mu")):
+                t.uniform_(0.0, 1.0, generator=gen)
+
+
+def rwkv_phase(torch, np, dev, check, acu, ops, launches, account,
+               fma_per_s) -> dict:
+    """rwkv6-3b on the fused ACU: kernel 12 at the model's shapes, kernel 2
+    at every weight shape of the three served models, then 32 requests
+    through the wave and continuous engines, the card against the CPU on a
+    two-layer cut, and a profile of one decode step. Returns tokens/s by
+    engine."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import (ApproxConfig, acu_operand, quantize,
+                                  symmetric_qparams)
+    from repro_torch.kernels.quantize.ref import quantize_ref
+    from repro_torch.kernels.wkv.ref import out_bound, wkv_ref
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as E
+
+    cfg = get_config(RWKV_ARCH)
+    d, f, h, hd = cfg.d_model, cfg.d_ff, cfg.rwkv_n_heads, cfg.rwkv_head_dim
+    n_layers, b = cfg.n_layers, LM_SLOTS
+    bf = torch.bfloat16
+    acfg = ApproxConfig(acu=acu)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    print(f"rwkv6-3b ({n_layers} layers, d {d}, {h} wkv heads x {hd}, d_ff "
+          f"{f}, vocab {cfg.vocab_padded}, {cfg.dtype}), {MULT} fused ACU:")
+
+    # -- kernel 12 at the decode and prefill shapes --------------------------
+    print("  wkv against its plain version (S_T bitwise; out within "
+          "hd*eps*sum_k |r_k a[k, v]|), w in (0.05, 0.95), s0 and u "
+          "nonzero:")
+    cases = [("decode", b, 1)] + [
+        (f"continuous prefill {n}", 1, n) for n in (16, 32, 64, 128, 256)
+    ] + [("wave prefill", b, LM_WAVE_PROMPT)]
+    for label, nb, t in cases:
+        r, k, v = (torch.randn((nb, t, h, hd), generator=gen, device=dev)
+                   for _ in range(3))
+        w = torch.rand((nb, t, h, hd), generator=gen, device=dev) * 0.9 \
+            + 0.05
+        u = torch.randn((h, hd), generator=gen, device=dev) * 0.5
+        s0 = torch.randn((nb, h, hd, hd), generator=gen, device=dev)
+
+        def fold(a):
+            return a.transpose(1, 2).reshape(nb * h, t, hd)
+
+        folded = [fold(a) for a in (r, k, v, w)] + [
+            u, s0.reshape(nb * h, hd, hd)]
+        kern = lambda: ops["wkv"](r, k, v, w, u, s0)
+        plain = lambda: wkv_ref(*folded)
+        (yk, sk), (yp, sp) = kern(), plain()
+        diff = (fold(yk) - yp).abs()
+        bound = out_bound(*folded)
+        check(torch.equal(sk.reshape(nb * h, hd, hd), sp)
+              and bool((diff <= bound).all())
+              and bool(torch.isfinite(yk).all()),
+              f"wkv {label} (B {nb}, T {t}): S_T bitwise equal to the plain "
+              f"version, out within the bound (max |diff| "
+              f"{float(diff.max()):.3e}, largest bound "
+              f"{float(bound.max()):.3e})")
+        ms = cuda_ms(torch, kern, 20 if t == 1 else 5)
+        pms = cuda_ms(torch, plain, 1, warm=0)
+        bytes_ = (5 * nb * t * h * hd + h * hd + 2 * nb * h * hd * hd) * 4
+        flops = 7 * nb * h * t * hd * hd
+        bound_ms = max(bytes_ / HBM_BYTES_PER_S, flops / fma_per_s) * 1e3
+        print(f"    {label:22s} {ms:.4f} ms (plain {pms:.2f}), bound "
+              f"{bound_ms:.4f} ms ({bytes_ / 1e6:.1f} MB, "
+              f"{flops / 1e6:.1f} M flops)", flush=True)
+        if label == "decode":             # the JSON row: one decode step
+            account("wkv", n_layers, ms, pms, None, bytes_, flops,
+                    float(diff.max()), ops_per_s=fma_per_s)
+        del r, k, v, w, s0, folded, yk, yp, sk, sp, diff, bound
+
+    # -- kernel 2 at every weight shape of the served models ---------------
+    gcfg = get_config(MOE_ARCH)
+    gd, ge, gf = gcfg.d_model, gcfg.n_experts, gcfg.d_ff
+    gq, gkv = gcfg.n_heads * gcfg.head_dim, gcfg.n_kv_heads * gcfg.head_dim
+    shapes = [  # (label, shape, form, calls per rwkv6-3b decode step)
+        ("rwkv Wr/Wk/Wv/Wg/Wo/Wr_cm", (d, d), 1, 6 * n_layers),
+        ("rwkv Wk_cm", (d, f), 1, n_layers),
+        ("rwkv Wv_cm", (f, d), 1, n_layers),
+        ("rwkv head", (d, cfg.vocab_padded), 1, 1),
+        ("granite q/o", (gd, gq), 1, 0), ("granite k/v", (gd, gkv), 1, 0),
+        ("granite head", (gd, gcfg.vocab_padded), 1, 0),
+        ("granite gate/up", (ge, gd, gf), "grouped", 0),
+        ("granite down", (ge, gf, gd), "grouped", 0),
+        ("ResNet head", (64, 10), 1, 0),
+        ("per tensor (wave activations)", (b * LM_WAVE_PROMPT, d), "tensor",
+         0),
+    ] + [(f"ResNet {name}", (cout, cin, k, k), 0, 0)
+         for name, cin, _, cout, k, _, _, _ in CONVS]
+    print("  quantize against its plain version, bitwise, float32 and "
+          "bfloat16 (a third of the values on half-code boundaries, 3 % "
+          "past the clip):")
+    for label, shape, form, per_step in shapes:
+        same = []
+        for dtype in (torch.float32, bf):
+            x, s, z = quantize_operands(torch, gen, dev, shape, form, dtype)
+            qk, qp = ops["quantize"](x, s, z), quantize_ref(x, s, z)
+            same.append(torch.equal(qk, qp) and int(qk.min()) == -128
+                        and int(qk.max()) == 127)
+        check(all(same), f"quantize {label} {shape}, "
+                         f"{'per tensor' if form == 'tensor' else form}: "
+                         f"bitwise equal in float32 and bfloat16, both clip "
+                         f"edges reached")
+        if per_step:                      # the JSON row: one decode step
+            kern = lambda: ops["quantize"](x, s, z)
+            ms = cuda_ms(torch, kern, 10)
+            t0 = time.perf_counter()
+            for _ in range(20):
+                kern()
+            host_ms = (time.perf_counter() - t0) / 20 * 1e3
+            torch.cuda.synchronize()
+            pms = cuda_ms(torch, lambda: quantize_ref(x, s, z), 2, warm=1)
+            xf, sc = x.float(), s.reshape(-1)
+            zi = torch.zeros(sc.shape, dtype=torch.int64, device=dev)
+            lib = cuda_ms(torch, lambda: torch.quantize_per_channel(
+                xf, sc, zi, 1, torch.qint8), 10)
+            bytes_ = x.numel() * 6 + shape[1] * 8
+            account("quantize", per_step, ms, pms, lib, bytes_, 0,
+                    0.0 if all(same) else float("inf"))
+            print(f"    {label:28s} {shape}: {ms:.4f} ms (plain {pms:.3f}, "
+                  f"torch.quantize_per_channel f32 {lib:.4f}, not "
+                  f"bit-identical), bytes bound "
+                  f"{bytes_ / HBM_BYTES_PER_S * 1e3:.4f} ms, x{per_step} "
+                  f"per decode step; host dispatch {host_ms:.4f} ms per "
+                  f"call", flush=True)
+            del xf
+        del x, s, z, qk, qp
+
+    # -- serve 32 requests through the wave and continuous engines --------
+    t0 = time.perf_counter()
+    params = T.init_params(0, cfg, device=dev)
+    perturb_rwkv(torch, params, gen)
+    torch.cuda.synchronize()
+    print(f"  random weights from seed 0 (LoRA, bonus, decays and mixes "
+          f"drawn) in {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    try:
+        E.PagedContinuousServeEngine(params, cfg, slots=b,
+                                     max_seq=LM_MAX_SEQ, block_size=LM_BLOCK,
+                                     acfg=acfg, device=dev)
+        refused = False
+    except NotImplementedError:
+        refused = True
+    check(refused, "the paged engine refuses rwkv (no attention KV to "
+                   "page), as the reference's cache does")
+    prompts = lm_requests(np, cfg.vocab_size, RWKV_REQUESTS, MOE_SHARED)
+    n_gemm = 8 * n_layers + 1
+    per_call = {"fused_lut_dense": n_gemm, "quantize": n_gemm,
+                "wkv": n_layers}
+    engines = {
+        "wave": E.ServeEngine(params, cfg, slots=b, max_seq=LM_MAX_SEQ,
+                              acfg=acfg, device=dev),
+        "continuous": E.ContinuousServeEngine(
+            params, cfg, slots=b, max_seq=LM_MAX_SEQ, acfg=acfg,
+            device=dev)}
+    print(f"  serving {RWKV_REQUESTS} requests, {RWKV_NEW} new tokens each, "
+          f"slots={b}:")
+    rates = serve_lm(torch, check, E, engines, prompts, RWKV_NEW, cfg, ops,
+                     launches, per_call, attention=False)
+    del engines
+
+    # -- the card against the CPU, two layers -------------------------------
+    cut = dataclasses.replace(cfg, n_layers=RWKV_CPU_LAYERS)
+    small = T.init_params(1, cut, device=dev)
+    perturb_rwkv(torch, small, gen)
+    short = prompts[3][:16]
+    on_gpu = E.ContinuousServeEngine(small, cut, slots=1, max_seq=64,
+                                     acfg=acfg, device=dev).run(
+        [E.Request(prompt=short.copy(), max_new_tokens=4)])
+    cpu_small = T.map_cache(lambda t: t.cpu(), small)
+    t0 = time.perf_counter()
+    on_cpu = E.ContinuousServeEngine(cpu_small, cut, slots=1, max_seq=64,
+                                     acfg=acfg, device="cpu").run(
+        [E.Request(prompt=short.copy(), max_new_tokens=4)])
+    print(f"  full width cut to {RWKV_CPU_LAYERS} layers, one 16-token "
+          f"request, 4 new tokens: card {list(on_gpu[0].out)}, CPU "
+          f"{list(on_cpu[0].out)} ({time.perf_counter() - t0:.1f} s on the "
+          f"CPU)")
+    check(list(on_gpu[0].out) == list(on_cpu[0].out),
+          f"rwkv6-3b cut to {RWKV_CPU_LAYERS} layers: the same tokens on the "
+          f"card and the CPU")
+    del small, cpu_small
+
+    # -- profile one decode step; time one layer's weight quantization -----
+    rng = np.random.default_rng(17)
+    cache = T.init_cache(cfg, b, LM_MAX_SEQ, device=dev)
+    for st in cache["groups"]["b0"]["rwkv"]:
+        st.normal_(generator=gen)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (b, 1))).to(dev)
+    blk = {n: t[0] for n, t in params["groups"]["b0"]["rwkv"].items()}
+
+    def weight_codes():
+        for n in ("Wr", "Wk", "Wv", "Wg", "Wo", "Wk_cm", "Wv_cm", "Wr_cm"):
+            w = blk[n]
+            qp = symmetric_qparams(torch.clamp_min(w.abs().amax(dim=0),
+                                                   1e-9), 8, axis=1)
+            acu_operand(quantize(w, qp), qp)
+
+    with torch.inference_mode():
+        step = lambda: T.apply_model(params, toks, cfg, acfg=acfg,
+                                     cache=cache, cache_pos=LM_WAVE_PROMPT,
+                                     decode=True)[0].argmax(-1).cpu()
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step()
+        wall = (time.perf_counter() - t0) / 3 * 1e3
+        profile(torch, f"rwkv6-3b decode step, {b} rows", step, wall)
+        glue = cuda_ms(torch, weight_codes, 5)
+        print(f"  weight quantization (amax, scales, codes) of one layer's 8 "
+              f"weights: {glue:.3f} ms, x{n_layers} layers = "
+              f"{glue * n_layers:.1f} ms of each model call")
     return rates
 
 
@@ -1133,6 +1450,9 @@ def main() -> int:
             fused_lut_grouped)
         from repro_torch.kernels.lut_matmul.ops import lut_matmul
         from repro_torch.kernels.lut_matmul.ref import lut_matmul_ref
+        from repro_torch.kernels.quantize.ops import (
+            quantize as quantize_kernel)
+        from repro_torch.kernels.wkv.ops import wkv
         from repro_torch.models.vision import init_resnet, resnet_forward
         from repro_torch.optim.adamw import SGD
         from repro_torch.serve.engine import VisionServeEngine
@@ -1202,7 +1522,7 @@ def main() -> int:
         s["err"] = max(s["err"], err)
         s["ms"] += count * ms
         s["plain_ms"] += count * plain_ms
-        s["lib_ms"] += count * lib_ms
+        s["lib_ms"] = None if lib_ms is None else s["lib_ms"] + count * lib_ms
         s["t_bytes"] += count * t_bytes
         s["t_ops"] += count * t_ops
         s["bound_ms"] += count * max(t_bytes, t_ops)
@@ -1430,9 +1750,11 @@ def main() -> int:
            "fused_lut_conv_bwd_w": fused_lut_conv_bwd_w,
            "approx_flash_attention": approx_flash_attention,
            "approx_flash_attention_paged": approx_flash_attention_paged,
-           "err_matmul": err_matmul, "fused_lut_grouped": fused_lut_grouped}
-    path_kernels = {"fused": ("fused_lut_conv", "fused_lut_dense"),
-                    "unfused": ("lut_matmul",)}
+           "err_matmul": err_matmul, "fused_lut_grouped": fused_lut_grouped,
+           "quantize": quantize_kernel, "wkv": wkv}
+    path_kernels = {"fused": ("fused_lut_conv", "fused_lut_dense",
+                              "quantize"),
+                    "unfused": ("lut_matmul", "quantize")}
     launches = {k: 0 for k in KERNELS}
     logits, rates = {}, {}
     for name, eng in engines.items():
@@ -1457,8 +1779,9 @@ def main() -> int:
           and launches["fused_lut_dense"] == waves
           and launches["lut_matmul"] == waves * (n_convs + 1)
           and launches["fused_lut_bwd"] == launches["fused_lut_conv_bwd_w"]
-          == 0, f"launch counts match the {n_convs} convs + 1 dense per "
-                f"wave")
+          == 0 and launches["quantize"] == waves * 3 * (n_convs + 1),
+          f"launch counts match the {n_convs} convs + 1 dense per wave "
+          f"(quantize: every weight, and unfused every activation too)")
     lf, lu = logits["fused"], logits["unfused"]
     check(lf.shape == (N_IMAGES, 10) and bool(np.isfinite(lf).all()),
           f"logits finite, shape {lf.shape}")
@@ -1582,7 +1905,13 @@ def main() -> int:
                           lookups_per_s, lut_bytes)
     print(f"MoE phase: {time.perf_counter() - t0:.1f} s")
 
-    # -- 10. report --------------------------------------------------------
+    # -- 10. serve rwkv6-3b --------------------------------------------------
+    t0 = time.perf_counter()
+    rwkv_rates = rwkv_phase(torch, np, dev, check, acu, ops, launches,
+                            account, fma_per_s)
+    print(f"RWKV phase: {time.perf_counter() - t0:.1f} s")
+
+    # -- 11. report --------------------------------------------------------
     rows = []
     for name, (source, replaces) in KERNELS.items():
         s = stats[name]
@@ -1598,14 +1927,17 @@ def main() -> int:
           f"(forward kernels and err_matmul; fused_lut_dense adds one SmolLM "
           f"decode step's "
           f"211 GEMMs), one training step at batch {tb} (backward kernels), "
-          f"one SmolLM decode step of {LM_SLOTS} rows (attention) or one "
-          f"granite-moe-3b-a800m decode step (fused_lut_grouped): "
+          f"one SmolLM decode step of {LM_SLOTS} rows (attention), one "
+          f"granite-moe-3b-a800m decode step (fused_lut_grouped) or one "
+          f"rwkv6-3b decode step (quantize, wkv): "
           + ", ".join(f"{r['name']} {r['ms']:.3f} ms vs bound "
                       f"{r['bound_ms']:.3f}" for r in rows))
     print("SmolLM-135M tokens/s: " + ", ".join(
         f"{k} {v:.1f}" for k, v in lm_rates.items()))
     print("granite-moe-3b-a800m tokens/s: " + ", ".join(
         f"{k} {v:.1f}" for k, v in moe_rates.items()))
+    print("rwkv6-3b tokens/s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in rwkv_rates.items()))
     print(f"images/s: fused {rates['fused']:.1f}, "
           f"unfused {rates['unfused']:.1f}; training steps/s: "
           + ", ".join(f"{k} {v[-1]:.3f}" for k, v in train.items()))

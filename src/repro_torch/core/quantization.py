@@ -7,11 +7,15 @@ Rounding is held to the reference's, bit for bit: the quantizer is
 ``clip(round_half_even(x / s + z), lo, hi)`` with a correctly rounded
 divide, always in float32: JAX promotes ``bfloat16 / float32[]`` to
 float32, where PyTorch would keep a 0-d float32 divisor's quotient in
-bfloat16, so the operand is converted first (exactly). On CUDA, PyTorch turns a divide by a Python or CPU scalar into a
-multiply by its reciprocal, so every divisor here is a tensor on the
-operand's own device. The reference's ``pin_rounding`` has no counterpart:
-eager PyTorch rounds each op once, as written, and never reassociates or
-contracts.
+bfloat16, so the operand is converted first (exactly). :func:`quantize`
+runs kernel 2 (``kernels/quantize``, one elementwise pass with the scale
+and zero point as broadcast views) on a CUDA operand and its plain version
+on a CPU one; the two are bitwise equal. ``quantize_symmetric``,
+``FakeQuant`` and ``dequantize`` stay plain PyTorch. On CUDA, PyTorch
+turns a divide by a Python or CPU scalar into a multiply by its
+reciprocal, so every divisor here is a tensor on the operand's own device.
+The reference's ``pin_rounding`` has no counterpart: eager PyTorch rounds
+each op once, as written, and never reassociates or contracts.
 """
 from __future__ import annotations
 
@@ -20,6 +24,8 @@ import functools
 from typing import Optional
 
 import torch
+
+from repro_torch.kernels.quantize.ops import quantize as quantize_op
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,11 +115,10 @@ def affine_qparams(xmin, xmax, bits: int,
 
 
 def quantize(x: torch.Tensor, qp: QParams) -> torch.Tensor:
-    """real -> int code (int32, within [lo, hi])."""
-    s = qp._expand(x, qp.scale)
-    z = qp._expand(x, qp.zero_point)
-    q = torch.round(x.to(torch.float32) / s + z)
-    return torch.clamp(q, qp.lo, qp.hi).to(torch.int32)
+    """real -> int code (int32, within [lo, hi]): kernel 2 for a CUDA
+    operand, its plain version for a CPU one."""
+    return quantize_op(x, qp._expand(x, qp.scale),
+                       qp._expand(x, qp.zero_point), qp.bits)
 
 
 def dequantize(q: torch.Tensor, qp: QParams) -> torch.Tensor:

@@ -60,6 +60,10 @@ SIGNATURES = {
     "err_matmul": ("err_matmul_launch", [_P] * 5 + [_I] * 7 + [_P]),
     "fused_lut_grouped": ("fused_lut_grouped_launch",
                           [_P, _I] + [_P] * 7 + [_I] * 11 + [_P]),
+    "quantize": ("quantize_launch",
+                 [_P, _I, _P, _P, _P, _I] + [_L] * 16 + [_L, _I, _I, _I,
+                                                         _P]),
+    "wkv": ("wkv_launch", [_P] * 8 + [_I] * 4 + [_L] * 12 + [_P]),
 }
 
 

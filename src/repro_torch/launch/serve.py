@@ -11,7 +11,11 @@ kernel ACU (``use_kernels=True, fused=True``): every GEMM runs the fused
 LUT dense kernel and attention the approximate flash attention kernel,
 contiguous or paged; in an MoE model (``granite-moe-3b-a800m``,
 ``olmoe-1b-7b``) every projection's expert GEMMs run the ragged grouped
-kernel, one launch each. The reference launcher's ACU has ``use_pallas=False``,
+kernel, one launch each; in ``rwkv6-3b`` the time mix's recurrence runs the
+WKV kernel (wave and continuous engines; ``--paged`` raises, as the
+reference's paged cache refuses a pattern without attention). Every weight
+is quantized on every call by the quantize kernel. The reference
+launcher's ACU has ``use_pallas=False``,
 so there attention stays exact and only the GEMMs are approximate.
 Parameters are random, from seed 0 (``init_params``).
 """

@@ -213,7 +213,7 @@ def attention_block(x: torch.Tensor, p: dict, cfg,
     q = approx_dense(x, p["wq"], p.get("bq"), acfg).reshape(b, s_len, h, hd)
     if kv is not None:
         raise not_ported("cross-attention (enc-dec)",
-                         "queue 1, item 14 (models/whisper.py)")
+                         "queue 1, item 14b (models/whisper.py)")
     k = approx_dense(x, p["wk"], p.get("bk"), acfg).reshape(b, s_len, hkv, hd)
     v = approx_dense(x, p["wv"], p.get("bv"), acfg).reshape(b, s_len, hkv, hd)
     if cfg.qk_norm:

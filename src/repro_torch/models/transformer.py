@@ -1,13 +1,15 @@
 """Decoder-only LM: init / forward / caches (port of
-``repro.models.transformer``, attention patterns only).
+``repro.models.transformer``, attention and RWKV patterns).
 
 Parameters keep the reference's pytree: group-stacked leaves of shape
 ``(n_groups, ...)`` under ``params["groups"]["b<i>"]``, so the reference's
 parameters carry over leaf for leaf (:func:`load_jax_params`). The forward
 is a Python loop over groups where the reference scans. Caches are stacked
-the same way and written in place (``models/layers.py``). Attention
-layers take a dense MLP or, for ``attn_moe``, an MoE block
-(``models/moe.py``). Other layer kinds (mamba, rwkv) and the enc-dec family
+the same way and written in place (``models/layers.py``,
+``models/rwkv.py``). Attention layers take a dense MLP or, for
+``attn_moe``, an MoE block (``models/moe.py``); ``rwkv`` layers are the
+RWKV-6 block, whose recurrent state is O(1) per row (the paged cache
+refuses it, as the reference's does). Mamba layers and the enc-dec family
 raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -23,16 +25,17 @@ from repro_torch.core.approx_ops import ApproxConfig
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.moe import moe_block
+from repro_torch.models.rwkv import RwkvState, rwkv_block
 
 
 def _check_kinds(cfg: ModelConfig) -> None:
     for kind in cfg.pattern:
-        if not kind.startswith("attn"):
+        if not (kind.startswith("attn") or kind == "rwkv"):
             raise not_ported(f"{kind} layers ({cfg.name})",
-                             "queue 1, item 14 (other model families)")
+                             "queue 1, item 14b (other model families)")
     if cfg.enc_dec:
         raise not_ported(f"the encoder-decoder family ({cfg.name})",
-                         "queue 1, item 14 (other model families)")
+                         "queue 1, item 14b (other model families)")
 
 
 # ---------------------------------------------------------------------------
@@ -68,6 +71,9 @@ def init_params(seed: int, cfg: ModelConfig, device=None) -> dict:
 
     groups: dict[str, Any] = {}
     for i, kind in enumerate(cfg.pattern):
+        if kind == "rwkv":
+            groups[f"b{i}"] = {"rwkv": _init_rwkv(dense, cfg, g, dev)}
+            continue
         attn = {"wq": dense(g, d, h * hd), "wk": dense(g, d, hkv * hd),
                 "wv": dense(g, d, hkv * hd), "wo": dense(g, h * hd, d)}
         if cfg.qkv_bias:
@@ -111,6 +117,36 @@ def _init_moe(dense, cfg: ModelConfig, g: int) -> dict:
             "w_down": dense(g, e, f, d)}
 
 
+def _init_rwkv(dense, cfg: ModelConfig, g: int, dev) -> dict:
+    """RWKV-6 leaves in the reference's layout, dtypes and scales: the
+    projections and ``lora_A`` / ``Wdecay_A`` at ``d_in**-0.5`` and
+    ``Wdecay_B`` at 1e-2 in ``cfg.param_dtype``; norms at 1 and 0, the
+    token-shift mixes ``mu_*`` at 0.5, ``decay_base`` at 0.5 and ``bonus``
+    at 0, float32; the ``lora_B_*`` at 0 in ``cfg.param_dtype`` (so at
+    init the LoRA mix and the bonus add nothing)."""
+    d, f = cfg.d_model, cfg.d_ff
+    lora_r, decay_r = max(32, d // 32), max(64, d // 16)
+    pd = cfg.param_dtype
+
+    def full(value, *shape, dtype=torch.float32):
+        return torch.full((g, *shape), value, dtype=dtype, device=dev)
+
+    p = {"ln1_w": full(1.0, d), "ln1_b": full(0.0, d),
+         "ln2_w": full(1.0, d), "ln2_b": full(0.0, d),
+         "lora_A": dense(g, d, lora_r), "Wdecay_A": dense(g, d, decay_r),
+         "Wdecay_B": dense(g, decay_r, d, scale=1e-2),
+         "decay_base": full(0.5, d), "bonus": full(0.0, d)}
+    for name in ("Wr", "Wk", "Wv", "Wg", "Wo"):
+        p[name] = dense(g, d, d)
+    p.update(ln_w=full(1.0, d), ln_b=full(0.0, d), Wk_cm=dense(g, d, f),
+             Wv_cm=dense(g, f, d), Wr_cm=dense(g, d, d))
+    for mu in ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w", "cm_mu_k", "cm_mu_r"):
+        p[mu] = full(0.5, d)
+    for name in ("lora_B_r", "lora_B_k", "lora_B_v", "lora_B_g", "lora_B_w"):
+        p[name] = full(0.0, lora_r, d, dtype=pd)
+    return p
+
+
 def load_jax_params(tree, device=None, dtype=None) -> dict:
     """The reference's parameter pytree (numpy leaves, e.g. from
     ``jax.tree.map(np.asarray, params)``) as the port's parameters on
@@ -127,13 +163,21 @@ def load_jax_params(tree, device=None, dtype=None) -> dict:
     return t.to(device=dev, dtype=dtype or t.dtype)
 
 
+def map_cache(fn, tree):
+    """``fn`` applied to every tensor of a cache or parameter tree (dicts,
+    tuples and ``RwkvState``s), keeping its structure."""
+    if isinstance(tree, dict):
+        return {k: map_cache(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        leaves = [map_cache(fn, v) for v in tree]
+        return type(tree)(*leaves) if hasattr(tree, "_fields") \
+            else tuple(leaves)
+    return fn(tree)
+
+
 def _at(tree, i: int):
     """Group ``i`` of a group-stacked pytree (views, no copies)."""
-    if isinstance(tree, dict):
-        return {k: _at(v, i) for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        return tuple(_at(v, i) for v in tree)
-    return tree[i]
+    return map_cache(lambda t: t[i], tree)
 
 
 # ---------------------------------------------------------------------------
@@ -156,7 +200,11 @@ def mlp_apply(h, p, kind: str, cfg: ModelConfig, acfg):
 
 def _apply_block(x, blk, kind, cfg, acfg, positions, cache, cache_pos,
                  pad_mask=None, page_table=None):
-    """One attention layer (+ its MLP); ``cache`` is its (K, V) or None."""
+    """One layer; ``cache`` is its (K, V), its ``RwkvState`` or None.
+    An ``rwkv`` layer ignores positions and masks: its recurrence ingests
+    every token, left pads included, as the reference's does."""
+    if kind == "rwkv":
+        return rwkv_block(x, blk["rwkv"], cfg, acfg, state=cache)[0]
     window = cfg.window_size if kind == "attn_local" else None
     h = _norm(x, blk["norm1"], cfg)
     a, _ = L.attention_block(h, blk["attn"], cfg, acfg, positions,
@@ -188,8 +236,8 @@ def apply_model(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     count, subtracted from the RoPE positions; ``pad_mask`` (B, T): the
     valid keys. ``page_table`` (B, n_logical) int32 switches the caches to
     the block-paged layout of :func:`init_paged_cache`. ``decode`` is
-    accepted for the reference's signature; attention layers need no
-    separate decode path."""
+    the reference's flag; no layer kind needs a separate decode path (an
+    RWKV decode step is its recurrence with T = 1)."""
     _check_kinds(cfg)
     b, s = tokens.shape
     x = L.embed(tokens, params["embed"])
@@ -210,8 +258,9 @@ def apply_model(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     for gi in range(cfg.n_groups):
         gp = _at(params["groups"], gi)
         for i, kind in enumerate(cfg.pattern):
+            entry = "rwkv" if kind == "rwkv" else "attn"
             layer_cache = None if groups is None else \
-                _at(groups[f"b{i}"]["attn"], gi)
+                _at(groups[f"b{i}"][entry], gi)
             x = _apply_block(x, gp[f"b{i}"], kind, cfg, acfg, positions,
                              layer_cache, cache_pos, pad_mask, page_table)
     if last_only:
@@ -227,16 +276,42 @@ def apply_model(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device=None) -> dict:
-    """Decode cache, group-stacked like the parameters: per attention
-    layer (K, V) of shape (n_groups, batch, max_seq, Hkv, D), zeros."""
+    """Decode cache, group-stacked like the parameters, zeros: per
+    attention layer (K, V) of shape (n_groups, batch, max_seq, Hkv, D);
+    per rwkv layer an ``RwkvState`` of shifts (n_groups, batch, 1, d) in
+    ``dtype`` and the wkv state (n_groups, batch, H, hd, hd) in float32."""
     _check_kinds(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_groups, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    g = cfg.n_groups
     dt = dtype or cfg.param_dtype
-    return {"groups": {
-        f"b{i}": {"attn": (torch.zeros(shape, dtype=dt, device=dev),
-                           torch.zeros(shape, dtype=dt, device=dev))}
-        for i, _ in enumerate(cfg.pattern)}}
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    groups = {}
+    for i, kind in enumerate(cfg.pattern):
+        if kind == "rwkv":
+            hd = cfg.rwkv_head_dim
+            groups[f"b{i}"] = {"rwkv": RwkvState(
+                tm_shift=zeros(g, batch, 1, cfg.d_model),
+                wkv=zeros(g, batch, cfg.rwkv_n_heads, hd, hd,
+                          dtype=torch.float32),
+                cm_shift=zeros(g, batch, 1, cfg.d_model))}
+        else:
+            shape = (g, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+            groups[f"b{i}"] = {"attn": (zeros(*shape), zeros(*shape))}
+    return {"groups": groups}
+
+
+def check_paged_kinds(cfg: ModelConfig) -> None:
+    """Only attention layers page: other kinds raise
+    ``NotImplementedError``, as the reference's ``init_paged_cache``
+    does."""
+    _check_kinds(cfg)
+    for kind in cfg.pattern:
+        if not kind.startswith("attn"):
+            raise NotImplementedError("paged cache covers attention-only "
+                                      f"patterns; got {kind!r}")
 
 
 def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
@@ -245,7 +320,7 @@ def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
     (n_groups, Hkv, n_blocks, block_size, D) of zeros shared by every
     sequence, addressed through the ``page_table`` of :func:`apply_model`.
     Physical block 0 is the engine's always-zero null block."""
-    _check_kinds(cfg)
+    check_paged_kinds(cfg)
     dev = resolve_device(device)
     shape = (cfg.n_groups, cfg.n_kv_heads, n_blocks, block_size,
              cfg.head_dim)

@@ -17,12 +17,17 @@ Three LM engines share :func:`~repro_torch.models.transformer.apply_model`:
 Every engine runs on ``device`` (``cuda`` unless given; the parameters must
 already live there) under ``torch.inference_mode()``, reads each step's
 greedy tokens back to the host as the reference does, and writes KV caches
-in place. With a LUT ACU on the kernels (``make_acu(...,
-use_kernels=True)``) every GEMM runs ``fused_lut_dense`` (when ``fused``)
-and attention runs the approximate flash attention kernel, contiguous or
-paged. Pool blocks are zeroed when they are allocated: a recycled block's
-stale K/V would otherwise reach the K/V scales and, under a biased
-multiplier, the masked keys' ``LUT[0, v]`` terms. ``mesh`` is not ported
+in place. The wave and continuous engines also serve RWKV patterns: the
+recurrent state of a slot is zeroed when the slot is refilled (a free slot
+keeps stepping it in the batched decode); the paged engine refuses them
+when it is built (there is no KV to page), as the reference's paged cache
+does. With a LUT ACU on the kernels (``make_acu(..., use_kernels=True)``)
+every GEMM runs ``fused_lut_dense`` (when ``fused``) on weight codes from
+the quantize kernel, attention runs the approximate flash attention
+kernel, contiguous or paged, and an RWKV time mix the WKV kernel. Pool
+blocks are zeroed when they are allocated: a recycled block's stale K/V
+would otherwise reach the K/V scales and, under a biased multiplier, the
+masked keys' ``LUT[0, v]`` terms. ``mesh`` is not ported
 (ROADMAP queue 1, item 16).
 """
 from __future__ import annotations
@@ -36,8 +41,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.runtime import resolve_device
-from repro_torch.models.transformer import (apply_model, init_cache,
-                                            init_paged_cache)
+from repro_torch.models.transformer import (apply_model,
+                                            check_paged_kinds, init_cache,
+                                            init_paged_cache, map_cache)
 
 
 @dataclasses.dataclass
@@ -176,11 +182,10 @@ class ContinuousServeEngine:
         toks[0, off:] = req.prompt
         valid = torch.zeros((1, self.max_seq), dtype=torch.bool, device=dev)
         valid[0, off:] = True
-        # the row's cache as a batch-1 cache of its own, zeroed: the
+        # the row's cache as a batch-1 cache of its own, zeroed (K/V, or
+        # the recurrent state that a free slot kept stepping): the
         # reference prefills a fresh row and inserts it
-        row = {"groups": {name: {"attn": tuple(
-            t[:, slot:slot + 1].zero_() for t in blk["attn"])}
-            for name, blk in cache["groups"].items()}}
+        row = map_cache(lambda t: t[:, slot:slot + 1].zero_(), cache)
         logits, _ = apply_model(
             self.params, torch.from_numpy(toks).to(dev), self.cfg,
             acfg=self.acfg, cache=row, cache_pos=0,
@@ -389,6 +394,9 @@ class PagedContinuousServeEngine:
         self.prefix_cache = prefix_cache
         self.device = resolve_device(device)
         self.n_logical = max_seq // block_size
+        # an rwkv model has no KV to page (and no block bytes to budget);
+        # the reference's engine fails here dividing by them
+        check_paged_kinds(cfg)
         bbytes = kv_block_bytes(cfg, block_size)
         if hbm_budget is None:
             hbm_budget = slots * self.n_logical * bbytes

@@ -240,7 +240,7 @@ def test_every_kernel_source_has_a_signature():
     assert names == set(runtime.SIGNATURES) == {
         "lut_matmul", "fused_lut_dense", "fused_lut_conv", "fused_lut_bwd",
         "fused_lut_conv_bwd_w", "approx_flash_attention", "err_matmul",
-        "fused_lut_grouped"}
+        "fused_lut_grouped", "quantize", "wkv"}
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -252,8 +252,9 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 def test_cpu_tensors_never_launch():
     from repro_torch.kernels.err_matmul.ops import err_matmul
+    from repro_torch.kernels.quantize.ops import quantize
     ops = (lut_matmul, fused_lut_dense, fused_lut_conv, fused_lut_bwd,
-           fused_lut_conv_bwd_w, err_matmul)
+           fused_lut_conv_bwd_w, err_matmul, quantize)
     before = [op.launches for op in ops]
     cfg = ApproxConfig(acu=make_acu(MULT, "lut", use_kernels=True,
                                     fused=True), approx_bwd=True)

@@ -133,7 +133,7 @@ def test_init_params_layout_matches_reference(ref):
 
 
 def test_unported_families_raise():
-    for name in ("jamba-v0.1-52b", "rwkv6-3b", "whisper-small"):
+    for name in ("jamba-v0.1-52b", "whisper-small"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             init_params(0, reduced_config(name), device="cpu")
     cfg = reduced_config("qwen2-vl-72b")

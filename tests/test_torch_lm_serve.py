@@ -102,11 +102,13 @@ def test_engines_give_reference_tokens(engine, dtype, monkeypatch):
 
 
 def engine_parity(engine: str, dtype: str, arch: str, monkeypatch,
-                  op_by_op: bool = False, **overrides) -> None:
+                  op_by_op: bool = False, perturb=None, **overrides) -> None:
     """The port's engine against the reference's on :func:`_specs`, at
     ``reduced_config(arch)`` in ``dtype`` (with ``overrides`` of its
     fields, in both packages), tokens equal request for request.
-    ``op_by_op`` runs the reference engine under ``jax.disable_jit``."""
+    ``op_by_op`` runs the reference engine under ``jax.disable_jit``;
+    ``perturb`` maps the reference's initial parameters to the ones both
+    packages serve (leaves the init leaves at 0 would never exercise)."""
     import contextlib
     import jax
     load_reference()
@@ -121,6 +123,8 @@ def engine_parity(engine: str, dtype: str, arch: str, monkeypatch,
     tcfg = dataclasses.replace(reduced_config(arch), dtype=dtype,
                                **overrides)
     jp = jtrans.init_params(jax.random.PRNGKey(0), jcfg)
+    if perturb is not None:
+        jp = perturb(jp)
     tp = load_jax_params(jax.tree.map(np.asarray, jp), device="cpu")
     jacfg = jcore.ApproxConfig(acu=jcore.make_acu(
         MULT, "lut", use_pallas=True, interpret=True, fused=True))
