@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. builds the eleven hand-written CUDA kernels from the ten sources in
+1. builds the twelve hand-written CUDA kernels from the eleven sources in
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, all started
    together);
 2. holds each forward kernel (lut_matmul, fused_lut_dense, fused_lut_conv)
@@ -91,7 +91,29 @@
    against 257 dense, 257 quantize and 32 wkv launches per model call;
    checks a short request's tokens against the CPU on the model cut to 2
    layers; profiles one decode step;
-11. prints one ``{"kernels": [...]}`` line, then the result line.
+11. scores gemma2-27b (46 layers, d 4608, 32 heads over 16 KV heads,
+   head_dim 128, d_ff 36864, vocab 256000, local layers with a 4096-key
+   window, softcaps 50 and 30, bf16, random weights from a seed) through
+   ``loss_fn`` with ``attn_impl="flash"`` and the fused ACU: first holds
+   the exact flash attention kernel (flash_attention, kernel 11) against
+   its plain version on the card, every element within
+   ``flash_tolerance``, at the model's local and global layers (and
+   against ``gqa_attention(impl="chunked")`` there), at a local layer
+   with q scaled 10x (scores where the softcap bites), at a ragged S, at
+   Sq < Sk and at SmolLM-135M's heads in float32, and shows that planted
+   faults of the plain version (window off by one, softcap dropped, first
+   KV tile dropped) lie beyond that tolerance; times kernel, plain
+   version and SDPA (which has no softcap) at the model's shapes; holds
+   quantize and fused_lut_dense bitwise at every GEMM shape of the
+   forward (M = 4352, full K and N; the plain GEMM on the first and last
+   columns); then scores one sequence of 4352 MarkovLM tokens under
+   ``torch.no_grad()`` with the counters checked against 46
+   flash_attention, 323 dense and 323 quantize launches per forward,
+   profiled, and prints the loss, scored tokens/s and peak memory; then
+   holds the card against the CPU on the model cut to one local and one
+   global layer (float32, no ACU, q projections scaled 10x: logits within
+   ``SCORE_CPU_TOL``, and planted faults on the CPU side beyond it);
+12. prints one ``{"kernels": [...]}`` line, then the result line.
 
 Every weight of every approximate GEMM is quantized on every call through
 the quantize kernel, so each phase's exact launch counts include it.
@@ -155,6 +177,8 @@ KERNELS = {
                  "src/repro/kernels/quantize/kernel.py:27"),
     "wkv": ("src/repro_torch/csrc/wkv.cu",
             "src/repro/kernels/wkv/kernel.py:53"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:76"),
 }
 RANK = 8                   # the LOWRANK rung's factorisation rank
 FP32_LANES = 128           # FP32 FMA lanes per SM (Hopper)
@@ -194,6 +218,24 @@ MOE_CPU_LAYERS = 2       # depth of the card-against-CPU check
 RWKV_ARCH = "rwkv6-3b"
 RWKV_REQUESTS, RWKV_NEW = 32, 32
 RWKV_CPU_LAYERS = 2
+# the scoring phase: gemma2-27b at full width and depth, bf16, through
+# loss_fn with attn_impl="flash" (kernel 11): one sequence of 17 x 256
+# tokens, so that 256 query rows lie past the 4096-key window
+SCORE_ARCH = "gemma2-27b"
+SCORE_TOKENS = 17 * 256
+SCORE_CPU_LAYERS = 2     # one local and one global layer
+SCORE_CPU_TOKENS = 64
+SCORE_CPU_QMUL = 10.0    # q projections scaled: scores reach the softcap
+SCORE_COLS = 64          # kernel 3's plain check: first and last columns
+# card vs CPU on the 2-layer cut, float32 and no ACU: logits within this
+# fraction of the largest |logit|. Every GEMM sums up to 36,864 float32
+# products in another order (cuBLAS against the CPU's); such rounding
+# errors add like a random walk, a few ulp of the outputs (the sound
+# comparison read 2.9e-6 at unit scores and 16 tokens). Planted faults on
+# the CPU side (the attention softcap dropped, a window that binds) are
+# read on every run, and the script fails unless they lie beyond it.
+SCORE_CPU_TOL = 1e-4
+TF32_FLOPS = 495e12      # H100 SXM data sheet, dense TF32 tensor cores
 # card vs CPU, one 4-image step: largest gradient difference allowed, as a
 # fraction of the tensor's largest entry. exact: float32 sums in another
 # order (cuBLAS, cuDNN-free col2im) move entries near cancellation by a
@@ -257,18 +299,23 @@ def cuda_ms(torch, fn, reps: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profile(torch, name: str, fn, wall_ms: float) -> None:
+def profile(torch, name: str, fn, wall_ms=None):
     """Where one call of ``fn`` (a wave, a training step) spends its time:
     device time by kernel (torch.profiler, device-side events only)
-    against ``wall_ms``, its wall time measured without the profiler; the
-    rest is the device's idle share."""
+    against ``wall_ms``, its wall time measured without the profiler, or,
+    when None, the traced call's own wall (the profiler's cost is then in
+    it, which a long call of few kernels hides); the rest is the device's
+    idle share. Returns ``fn``'s result and the traced wall in ms."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        out = fn()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
+    how = "untraced" if wall_ms is not None else "traced"
+    if wall_ms is None:
+        wall_ms = traced_ms
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
@@ -277,14 +324,15 @@ def profile(torch, name: str, fn, wall_ms: float) -> None:
     rows.sort(key=lambda r: -r[1])
     if not rows:
         print(f"  profile {name}: no device time in the trace (not measured)")
-        return
+        return out, traced_ms
     busy = sum(r[1] for r in rows)
     print(f"  profile {name}: device busy {busy:.3f} ms of {wall_ms:.3f} "
-          f"ms wall (untraced), idle share {1 - busy / wall_ms:.3f}; "
+          f"ms wall ({how}), idle share {1 - busy / wall_ms:.3f}; "
           f"traced wall {traced_ms:.3f} ms")
     for key, ms, count in rows[:10] + [r for r in rows[10:]
                                        if r[0].startswith("Memcpy")]:
         print(f"    {ms:9.3f} ms  {count:4d}x  {key[:90]}")
+    return out, traced_ms
 
 
 class Check:
@@ -1142,6 +1190,310 @@ def rwkv_phase(torch, np, dev, check, acu, ops, launches, account,
     return rates
 
 
+def attn_pairs(sq: int, sk: int, window) -> int:
+    """Visible (query, key) pairs of a causal call with queries aligned
+    to key 0 and an optional window."""
+    i = sum(min(q + 1, sk) for q in range(sq))
+    if window is None:
+        return i
+    return i - sum(max(0, min(q + 1, sk) - window) for q in range(sq))
+
+
+def score_phase(torch, np, dev, check, acu, ops, launches,
+                account) -> dict:
+    """gemma2-27b through ``loss_fn``: kernel 11 against its plain version
+    (and the chunked path, and SDPA's time) at the model's shapes, then one
+    scored sequence at full width and depth on the fused ACU with exact
+    launch counts, a profile of one forward, and the card against the CPU
+    on a two-layer cut. Returns the scoring's numbers."""
+    import dataclasses
+    import gc
+
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.core import (ApproxConfig, acu_operand, quantize,
+                                  symmetric_qparams)
+    from repro_torch.core.approx_ops import approx_dense
+    from repro_torch.data.pipeline import MarkovLM
+    from repro_torch.kernels.flash_attention.ref import (
+        FLASH_BK, flash_attention_ref, flash_tolerance)
+    from repro_torch.kernels.fused_lut_dense.ref import fused_lut_dense_ref
+    from repro_torch.kernels.quantize.ref import quantize_ref
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import gqa_attention
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(SCORE_ARCH), attn_impl="flash")
+    hq, hkv, d, w = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.window_size
+    cap = cfg.softcap_attn
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    print(f"gemma2-27b ({cfg.n_layers} layers, d {cfg.d_model}, {hq} heads "
+          f"over {hkv} KV heads, head_dim {d}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_padded}, window {w}, softcaps {cap} / "
+          f"{cfg.softcap_final}, bf16), attn_impl=flash, {MULT} fused ACU:")
+
+    # -- kernel 11 against its plain version -------------------------------
+    print("  flash_attention against its plain version on the card, every "
+          "element within flash_tolerance (4 x (sqrt(n) + |q_row * scale| "
+          "* max|k|) ulp of max|v| for n visible keys, + 1 ulp of the "
+          "output), and planted faults of the plain version beyond it:")
+    cases = [  # label, Hq, Hkv, D, Sq, Sk, window, softcap, dtype, q times,
+        #        planted faults, calls per forward
+        ("gemma2 local", hq, hkv, d, SCORE_TOKENS, SCORE_TOKENS, w, cap,
+         torch.bfloat16, 1, ("window off by one", "softcap dropped"),
+         cfg.n_groups),
+        ("gemma2 global", hq, hkv, d, SCORE_TOKENS, SCORE_TOKENS, None, cap,
+         torch.bfloat16, 1, ("first KV tile dropped",), cfg.n_groups),
+        ("gemma2 local, q x10", hq, hkv, d, SCORE_TOKENS, SCORE_TOKENS, w,
+         cap, torch.bfloat16, 10, ("softcap dropped",), 0),
+        ("ragged local", hq, hkv, d, 4000, 4000, 1000, cap, torch.bfloat16,
+         1, (), 0),
+        ("Sq < Sk local", hq, hkv, d, 1000, SCORE_TOKENS, w, cap,
+         torch.bfloat16, 1, (), 0),
+        ("SmolLM-135M", 9, 3, 64, 600, 600, None, None, torch.float32, 1,
+         (), 0),
+    ]
+    for (label, nq, nkv, hd, sq, sk, win, sc, dt, qmul, faults,
+         per_fwd) in cases:
+        q = (torch.randn((1, sq, nq, hd), generator=gen, device=dev)
+             * qmul).to(dt)
+        k, v = (torch.randn((1, sk, nkv, hd), generator=gen,
+                            device=dev).to(dt) for _ in range(2))
+        kw = dict(causal=True, window=win, softcap=sc)
+        views = [t.transpose(1, 2) for t in (q, k, v)]   # (B, H, S, D)
+        fold = [t.reshape(-1, t.shape[-2], hd) for t in views]
+        kern = lambda: ops["flash_attention"](*views, **kw)
+        plain = lambda: flash_attention_ref(*fold, rep=nq // nkv, **kw)
+        yk, yp = kern(), plain()
+        tol = flash_tolerance(*fold, yp, rep=nq // nkv, **kw)
+        err = (yk.reshape(yp.shape).double() - yp.double()).abs()
+        check(bool(torch.isfinite(yk).all()) and yk.dtype == dt
+              and bool((err <= tol).all()),
+              f"flash_attention {label} (Hq {nq}/Hkv {nkv}, D {hd}, Sq {sq},"
+              f" Sk {sk}, window {win}, softcap {sc}, {str(dt)[6:]}): max "
+              f"|diff| {float(err.max()):.3e}, largest |diff| / tolerance "
+              f"{float((err / tol).max()):.3f}")
+        for fault in faults:
+            # what a kernel with this fault would give, and the rows it
+            # moves: past the window, or past the first tile
+            fkw, rows, frows = dict(kw), slice(0, sq), slice(0, sq)
+            if fault == "window off by one":
+                fkw["window"] = win - 1
+                rows = frows = slice(win, sq)
+            if fault == "softcap dropped":
+                fkw["softcap"] = None
+            bad_in = fold
+            if fault == "first KV tile dropped":
+                bad_in = [t[:, FLASH_BK:] for t in fold]
+                rows, frows = slice(FLASH_BK, sq), slice(0, sq - FLASH_BK)
+            bad = flash_attention_ref(*bad_in, rep=nq // nkv, **fkw)[:, frows]
+            fe = (bad.double() - yp[:, rows].double()).abs() / tol[:, rows]
+            check(bool((fe > 1).any()),
+                  f"flash_attention {label}: the plain version with the "
+                  f"{fault} lies beyond the tolerance (largest |diff| / "
+                  f"tolerance {float(fe.max()):.1f}, "
+                  f"{float((fe > 1).any(-1).double().mean()):.3f} of its "
+                  f"rows beyond)")
+            del bad, fe
+        if per_fwd:
+            yc = gqa_attention(q, k, v, impl="chunked", **kw)
+            ec = (yk.transpose(1, 2).double() - yc.double()).abs()
+            ec = ec.transpose(1, 2).reshape(err.shape)
+            check(bool((ec <= tol).all()),
+                  f"flash_attention {label} against gqa_attention(impl="
+                  f"\"chunked\") within the same tolerance (max |diff| "
+                  f"{float(ec.max()):.3e}, largest |diff| / tolerance "
+                  f"{float((ec / tol).max()):.3f})")
+            del yc, ec
+            mask = None
+            if win is not None:
+                i = torch.arange(sq, device=dev)[:, None]
+                j = torch.arange(sk, device=dev)[None, :]
+                mask = (j <= i) & (j > i - win)
+            qd, kd, vd = (t.contiguous() for t in views)
+            lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qd, kd, vd, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True), 5)
+            ms = cuda_ms(torch, kern, 5)
+            pms = cuda_ms(torch, plain, 1, warm=0)
+            pairs = attn_pairs(sq, sk, win)
+            flops = 4 * nq * hd * pairs
+            bytes_ = (2 * sq * nq + 2 * sk * nkv) * hd * yk.element_size()
+            bound = max(bytes_ / HBM_BYTES_PER_S, flops / TF32_FLOPS) * 1e3
+            account("flash_attention", per_fwd, ms, pms, lib, bytes_, flops,
+                    float(err.max()), ops_per_s=TF32_FLOPS)
+            print(f"    {label}: {ms:.4f} ms (plain {pms:.2f}, "
+                  f"scaled_dot_product_attention without softcap {lib:.4f}),"
+                  f" bound {bound:.4f} ms (operations: {flops / 1e9:.1f} "
+                  f"GFLOP at the TF32 rate; {bytes_ / 1e6:.1f} MB), "
+                  f"x{per_fwd} per forward", flush=True)
+            del qd, kd, vd, mask
+        del q, k, v, views, fold, yk, yp, tol, err
+    torch.cuda.empty_cache()
+
+    # -- kernels 2 and 3 at the model's GEMM shapes -------------------------
+    print(f"  quantize and fused_lut_dense at gemma2-27b's GEMM shapes, "
+          f"M = {SCORE_TOKENS} rows: quantize bitwise in float32 and "
+          f"bfloat16 per output channel (a third of the values on half-code "
+          f"boundaries, 3 % past the clip); then a bfloat16 weight through "
+          f"quantize and fused_lut_dense over every column, as loss_fn "
+          f"runs them, bitwise on the plain versions (fused_lut_dense on "
+          f"its first and last {SCORE_COLS} columns, whose plain gather "
+          f"alone is affordable):")
+    lut16 = acu.device_lut(dev)
+    lut32 = torch.from_numpy(acu.lut.reshape(-1)).to(dev)
+    off, n_codes = acu.offset, acu.multiplier.n_codes
+    dm, qd, kvd = cfg.d_model, hq * d, hkv * d
+    gemms = [("q", dm, qd), ("k/v", dm, kvd), ("o", qd, dm),
+             ("gate/up", dm, cfg.d_ff), ("down", cfg.d_ff, dm),
+             ("head", dm, cfg.vocab_padded)]
+    for label, kk, nn in gemms:
+        same = []
+        for dtype in (torch.float32, torch.bfloat16):
+            x, s, z = quantize_operands(torch, gen, dev, (kk, nn), 1, dtype)
+            qk, qp = ops["quantize"](x, s, z), quantize_ref(x, s, z)
+            same.append(torch.equal(qk, qp) and int(qk.min()) == -128
+                        and int(qk.max()) == 127)
+            del x, s, z, qk, qp
+        check(all(same), f"quantize {label} ({kk}, {nn}), per channel: "
+                         f"bitwise equal in float32 and bfloat16, both clip "
+                         f"edges reached")
+        w = (torch.randn((kk, nn), generator=gen, device=dev)
+             * kk ** -0.5).to(torch.bfloat16)
+        x = torch.randn((SCORE_TOKENS, kk), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        # the qparams as approx_dense makes them
+        xqp = symmetric_qparams(torch.clamp_min(x.abs().amax(), 1e-6), 8)
+        wqp = symmetric_qparams(torch.clamp_min(w.abs().amax(dim=0), 1e-9),
+                                8, axis=1)
+        codes = quantize(w, wqp)                     # kernel 2
+        same_codes = torch.equal(codes, quantize_ref(
+            w, wqp.scale.reshape(1, -1), wqp.zero_point.reshape(1, -1)))
+        wq = acu_operand(codes, wqp)
+        del codes
+        yk = ops["fused_lut_dense"](x, wq, lut16, off, xqp.scale,
+                                    xqp.zero_point, wqp.scale)
+        same = [same_codes]
+        for cols in (slice(0, SCORE_COLS), slice(nn - SCORE_COLS, nn)):
+            yp = fused_lut_dense_ref(x, wq[:, cols].contiguous(), lut32, off,
+                                     n_codes, xqp.scale, xqp.zero_point,
+                                     wqp.scale[cols])
+            same.append(torch.equal(yk[:, cols], yp))
+            del yp
+        check(all(same), f"{label}: quantize ({kk}, {nn}) bfloat16 weight "
+                         f"codes and fused_lut_dense {SCORE_TOKENS}x{kk}x{nn}"
+                         f" bitwise equal to the plain versions")
+        del w, x, wq, yk
+        torch.cuda.empty_cache()
+
+    # -- score one sequence at full width and depth ------------------------
+    t0 = time.perf_counter()
+    params = T.init_params(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    print(f"  random weights from seed 0 in {time.perf_counter() - t0:.1f} s,"
+          f" {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card "
+          f"({cfg.n_params() / 1e9:.2f} B parameters)")
+    batch = next(MarkovLM(cfg.vocab_size, seed=0).batches(1, SCORE_TOKENS))
+    toks, labels = (torch.from_numpy(batch[k]).long().to(dev)
+                    for k in ("tokens", "labels"))
+    acfg = ApproxConfig(acu=acu)
+    n_gemm = 7 * cfg.n_layers + 1
+    want = {k: 0 for k in ops}
+    want.update(flash_attention=cfg.n_layers, fused_lut_dense=n_gemm,
+                quantize=n_gemm)
+    score = lambda: float(T.loss_fn(params, toks, labels, cfg, acfg=acfg))
+    torch.cuda.reset_peak_memory_stats()
+    for op in ops.values():
+        op.launches = 0
+    # one forward, profiled: its host-clock wall (ending in the loss's
+    # device-to-host read) gives the scored tokens/s
+    with torch.no_grad():
+        loss, wall_ms = profile(torch, "gemma2-27b loss_fn forward", score)
+    dt = wall_ms / 1e3
+    counts = {k: op.launches for k, op in ops.items()}
+    for k in ops:
+        launches[k] += counts[k]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rate = SCORE_TOKENS / dt
+    print(f"  scored {SCORE_TOKENS} tokens of MarkovLM(vocab="
+          f"{cfg.vocab_size}, seed=0) through loss_fn: loss {loss:.4f} "
+          f"(ln vocab {np.log(cfg.vocab_size):.4f}), {dt:.1f} s, {rate:.1f} "
+          f"scored tokens/s, peak memory {peak:.2f} GiB; launches {counts}",
+          flush=True)
+    check(np.isfinite(loss) and 0 < loss < 3 * np.log(cfg.vocab_size),
+          f"gemma2-27b loss finite and positive ({loss:.4f})")
+    check(counts == want, f"one loss_fn forward launches "
+                          f"{ {k: v for k, v in want.items() if v} } "
+                          f"(kernel 11 per layer, kernels 3 and 2 per GEMM: "
+                          f"7 per layer + the head) and nothing else")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the card against the CPU, two layers, float32 ---------------------
+    cut = dataclasses.replace(cfg, n_layers=SCORE_CPU_LAYERS,
+                              dtype="float32")
+    small = T.init_params(1, cut, device=dev)
+    for blk in small["groups"].values():     # scores where softcap 50 bites
+        blk["attn"]["wq"].mul_(SCORE_CPU_QMUL)
+    tk, lb = toks[:, :SCORE_CPU_TOKENS], labels[:, :SCORE_CPU_TOKENS]
+    # what the LUT ACU would cost the CPU here: one q projection timed
+    x = torch.randn((SCORE_CPU_TOKENS, cut.d_model))
+    t0 = time.perf_counter()
+    approx_dense(x, small["groups"]["b0"]["attn"]["wq"][0].cpu(), None, acfg)
+    per_lookup = (time.perf_counter() - t0) / (x.numel() * hq * d)
+    # every GEMM weight is one lookup per token (the embedding is none)
+    lookups = SCORE_CPU_TOKENS * (cut.n_params()
+                                  - cut.vocab_padded * cut.d_model)
+    print(f"  card against CPU on {SCORE_CPU_LAYERS} layers (local + global) "
+          f"at full width, {SCORE_CPU_TOKENS} tokens, float32, q projections "
+          f"x{SCORE_CPU_QMUL:g} (attention scores of tens: the softcap "
+          f"bites), no ACU (the LUT ACU's {lookups / 1e9:.1f} G lookups "
+          f"would take ~{lookups * per_lookup:.0f} s on the CPU at the "
+          f"measured {1e-9 / per_lookup:.2f} G lookups/s):")
+    with torch.no_grad():
+        n0 = ops["flash_attention"].launches
+        lg_gpu = T.apply_model(small, tk, cut)[0].cpu()
+        loss_gpu = float(T.loss_fn(small, tk, lb, cut))
+        check(ops["flash_attention"].launches - n0 == 2 * cut.n_layers,
+              "the card's two forwards ran kernel 11 in every layer")
+        cpu_small = T.map_cache(lambda t: t.cpu(), small)
+        del small
+        t0 = time.perf_counter()
+        lg_cpu = T.apply_model(cpu_small, tk.cpu(), cut)[0]
+        loss_cpu = float(T.loss_fn(cpu_small, tk.cpu(), lb.cpu(), cut))
+        cpu_s = time.perf_counter() - t0
+        # planted faults on the CPU: what a wrong softcap or mask would read
+        faults = {"attention softcap dropped": dict(softcap_attn=None),
+                  f"window {SCORE_CPU_TOKENS // 2} on the local layer":
+                  dict(window_size=SCORE_CPU_TOKENS // 2)}
+        fault_lg = {name: T.apply_model(
+            cpu_small, tk.cpu(), dataclasses.replace(cut, **kw))[0]
+            for name, kw in faults.items()}
+    scale = float(lg_cpu.abs().max())
+    rel = float((lg_gpu - lg_cpu).abs().max()) / scale
+    fault_rel = {name: float((f - lg_cpu).abs().max()) / scale
+                 for name, f in fault_lg.items()}
+    print(f"    logits max |diff| / max |logit| {rel:.3e} (max |logit| "
+          f"{scale:.3f}); loss card {loss_gpu:.6f}, CPU {loss_cpu:.6f} "
+          f"({cpu_s:.1f} s on the CPU); planted faults on the CPU read "
+          + ", ".join(f"{k} {v:.3e}" for k, v in fault_rel.items()))
+    check(rel <= SCORE_CPU_TOL
+          and abs(loss_gpu - loss_cpu) <= 2 * rel * scale
+          + 1e-6 * abs(loss_cpu),
+          f"gemma2-27b cut to {SCORE_CPU_LAYERS} layers: logits within "
+          f"{SCORE_CPU_TOL:.0e} of the largest, loss within twice the "
+          f"largest logit difference, card against CPU")
+    check(min(fault_rel.values()) > SCORE_CPU_TOL,
+          f"every planted fault lies beyond {SCORE_CPU_TOL:.0e}")
+    del cpu_small
+    return {"loss": loss, "tokens_per_s": rate, "seconds": dt,
+            "peak_gib": peak}
+
+
 def hold_err_matmul(torch, check, label, a, w, yk, yp, lut_int, acu):
     """Kernel 13 against its plain version: every element within the
     summation bound; ``round(y)`` equal to lut_matmul's integer wherever
@@ -1443,7 +1795,8 @@ def main() -> int:
         from repro_torch.kernels.fused_lut_dense.ref import (
             fused_lut_bwd_ref, fused_lut_dense_ref)
         from repro_torch.kernels.flash_attention.ops import (
-            approx_flash_attention, approx_flash_attention_paged)
+            approx_flash_attention, approx_flash_attention_paged,
+            flash_attention)
         from repro_torch.kernels.err_matmul.ops import err_matmul
         from repro_torch.kernels.err_matmul.ref import err_matmul_ref
         from repro_torch.kernels.fused_lut_grouped.ops import (
@@ -1751,7 +2104,8 @@ def main() -> int:
            "approx_flash_attention": approx_flash_attention,
            "approx_flash_attention_paged": approx_flash_attention_paged,
            "err_matmul": err_matmul, "fused_lut_grouped": fused_lut_grouped,
-           "quantize": quantize_kernel, "wkv": wkv}
+           "quantize": quantize_kernel, "wkv": wkv,
+           "flash_attention": flash_attention}
     path_kernels = {"fused": ("fused_lut_conv", "fused_lut_dense",
                               "quantize"),
                     "unfused": ("lut_matmul", "quantize")}
@@ -1911,7 +2265,12 @@ def main() -> int:
                             account, fma_per_s)
     print(f"RWKV phase: {time.perf_counter() - t0:.1f} s")
 
-    # -- 11. report --------------------------------------------------------
+    # -- 11. score gemma2-27b through loss_fn --------------------------------
+    t0 = time.perf_counter()
+    scored = score_phase(torch, np, dev, check, acu, ops, launches, account)
+    print(f"scoring phase: {time.perf_counter() - t0:.1f} s")
+
+    # -- 12. report --------------------------------------------------------
     rows = []
     for name, (source, replaces) in KERNELS.items():
         s = stats[name]
@@ -1928,8 +2287,9 @@ def main() -> int:
           f"decode step's "
           f"211 GEMMs), one training step at batch {tb} (backward kernels), "
           f"one SmolLM decode step of {LM_SLOTS} rows (attention), one "
-          f"granite-moe-3b-a800m decode step (fused_lut_grouped) or one "
-          f"rwkv6-3b decode step (quantize, wkv): "
+          f"granite-moe-3b-a800m decode step (fused_lut_grouped), one "
+          f"rwkv6-3b decode step (quantize, wkv) or one gemma2-27b forward "
+          f"of {SCORE_TOKENS} tokens (flash_attention): "
           + ", ".join(f"{r['name']} {r['ms']:.3f} ms vs bound "
                       f"{r['bound_ms']:.3f}" for r in rows))
     print("SmolLM-135M tokens/s: " + ", ".join(
@@ -1938,6 +2298,9 @@ def main() -> int:
         f"{k} {v:.1f}" for k, v in moe_rates.items()))
     print("rwkv6-3b tokens/s: " + ", ".join(
         f"{k} {v:.1f}" for k, v in rwkv_rates.items()))
+    print(f"gemma2-27b scoring: {scored['tokens_per_s']:.1f} scored tokens/s "
+          f"({SCORE_TOKENS} tokens in {scored['seconds']:.1f} s), loss "
+          f"{scored['loss']:.4f}, peak memory {scored['peak_gib']:.2f} GiB")
     print(f"images/s: fused {rates['fused']:.1f}, "
           f"unfused {rates['unfused']:.1f}; training steps/s: "
           + ", ".join(f"{k} {v[-1]:.3f}" for k, v in train.items()))

@@ -1,11 +1,41 @@
 """Synthetic deterministic data (port of ``repro.data.pipeline``: the
-vision, text-classification and blob tasks). Pure numpy, so the same seeds
-give the reference's batches exactly."""
+Markov LM token stream, the vision, text-classification and blob tasks).
+Pure numpy, so the same seeds give the reference's batches exactly."""
 from __future__ import annotations
 
 from typing import Iterator
 
 import numpy as np
+
+
+class MarkovLM:
+    """Token streams from a fixed random order-1 Markov chain with
+    heavy-tailed transitions: each token has ``branching`` successors,
+    the k-th drawn with weight 1/k."""
+
+    def __init__(self, vocab: int, seed: int = 0, branching: int = 8):
+        rng = np.random.default_rng(seed)
+        self.vocab = vocab
+        self.succ = rng.integers(0, vocab, (vocab, branching))
+        w = 1.0 / np.arange(1, branching + 1)
+        self.probs = w / w.sum()
+
+    def sample(self, rng: np.random.Generator, batch: int,
+               seq: int) -> np.ndarray:
+        out = np.empty((batch, seq + 1), np.int32)
+        out[:, 0] = rng.integers(0, self.vocab, batch)
+        for t in range(seq):
+            choice = rng.choice(self.succ.shape[1], size=batch, p=self.probs)
+            out[:, t + 1] = self.succ[out[:, t], choice]
+        return out
+
+    def batches(self, batch: int, seq: int, seed: int = 1) -> Iterator[dict]:
+        """Endless ``{"tokens", "labels"}`` batches of (batch, seq) int32,
+        the labels the tokens shifted by one."""
+        rng = np.random.default_rng(seed)
+        while True:
+            chunk = self.sample(rng, batch, seq)
+            yield {"tokens": chunk[:, :-1], "labels": chunk[:, 1:]}
 
 
 def image_task(n_classes: int = 10, size: int = 32, channels: int = 3,

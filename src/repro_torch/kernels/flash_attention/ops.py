@@ -1,9 +1,13 @@
-"""Public wrappers of the approximate flash attention kernel
-(``csrc/approx_flash_attention.cu``): contiguous KV (kernel 8) and
+"""Public wrappers of the flash attention kernels: the exact one
+(``csrc/flash_attention.cu``, kernel 11) and the approximate one
+(``csrc/approx_flash_attention.cu``) over contiguous KV (kernel 8) and
 block-paged KV (kernel 9).
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
-version in ``ref.py``. Both read the same geometry, default ``rowinfo`` and
+version in ``ref.py``. Kernel 11 reads q, k and v through their strides
+and writes its output in q's layout, so attention over (B, S, H, D)
+tensors passes ``transpose(1, 2)`` views and copies nothing. The
+approximate wrappers read the same geometry, default ``rowinfo`` and
 pinned scales from ``prepare_approx_attention`` / ``_paged``. The kernel
 pads nothing: it reads Q, K and V where they lie, through their strides, in
 their own dtype (float32 or bfloat16, converted to float32 on staging), so
@@ -22,10 +26,12 @@ import torch
 
 from repro_torch.kernels import runtime
 from .ref import (_rows, approx_attention_paged_ref, approx_attention_ref,
-                  prepare_approx_attention, prepare_approx_attention_paged)
+                  flash_attention_ref, flash_scale, prepare_approx_attention,
+                  prepare_approx_attention_paged)
 
 BQ = 128
 BK = 128
+FLASH_HEAD_DIMS = (64, 128)   # kernel 11's instantiations (every config's)
 
 
 def _folded(t: torch.Tensor) -> torch.Tensor:
@@ -176,3 +182,58 @@ def approx_flash_attention_paged(q, k_pool, v_pool, lut, offset: int,
 
 
 approx_flash_attention_paged.launches = 0
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """Exact GQA flash attention (kernel 11), float32 inside.
+
+    ``q``: (B*Hq, Sq, D) or (B, Hq, Sq, D); ``k``/``v``: (B*Hkv, Sk, D) or
+    (B, Hkv, Sk, D), ``Hq % Hkv == 0`` (query row ``b`` of the folded
+    layout reads KV row ``b // rep``), any strides with a dense last dim.
+    Queries are aligned to key 0: query row ``i`` sits at position ``i``.
+    Returns q's shape and dtype, laid out as q (``torch.empty_like``)."""
+    rows_q = q.shape[0] * (q.shape[1] if q.dim() == 4 else 1)
+    rows_k = k.shape[0] * (k.shape[1] if k.dim() == 4 else 1)
+    if v.shape != k.shape or rows_k == 0 or rows_q % rows_k:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}: not a GQA grouping")
+    rep = rows_q // rows_k
+    if q.device.type == "cpu":
+        return flash_attention_ref(
+            _folded(q), _folded(k), _folded(v), causal=causal, window=window,
+            softcap=softcap, rep=rep).reshape(q.shape)
+    dtype = q.dtype
+    if not q.dtype == k.dtype == v.dtype or dtype not in (torch.float32,
+                                                           torch.bfloat16):
+        q, k, v = (t.to(torch.float32) for t in (q, k, v))   # exact
+    d = q.shape[-1]
+    if d not in FLASH_HEAD_DIMS or k.shape[-1] != d:
+        raise ValueError(f"the flash attention kernel takes head dims "
+                         f"{FLASH_HEAD_DIMS}, got q {d}, k {k.shape[-1]}")
+    for t, name in ((k, "k"), (v, "v")):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, expected {q.device}")
+    out = torch.empty_like(q)
+    qh, *q_addr = _addressing(q, "q")
+    kh, *k_addr = _addressing(k, "k")
+    _, *v_addr = _addressing(v, "v")
+    _, *o_addr = _addressing(out, "out")
+    sq, sk = q.shape[-2], k.shape[-2]
+    if out.numel() == 0:
+        return out.to(dtype)
+    lib = runtime.kernel_library("flash_attention")
+    _, stream = runtime.launch_config(q)
+    lib.check(lib.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        int(q.dtype == torch.bfloat16), rows_q, sq, sk, d, rep, qh, kh,
+        *q_addr, *k_addr, *v_addr, *o_addr, int(causal),
+        -1 if window is None else int(window), int(softcap is not None),
+        0.0 if softcap is None else float(softcap), float(flash_scale(d)),
+        stream))
+    flash_attention.launches += 1
+    return out.to(dtype)
+
+
+flash_attention.launches = 0

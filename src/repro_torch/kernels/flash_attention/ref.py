@@ -1,7 +1,17 @@
-"""Plain PyTorch versions of the attention kernels: the exact oracle, and
-the approximate flash attention over contiguous and paged KV (kernels 8
-and 9), which the CUDA kernel in ``csrc/approx_flash_attention.cu`` is
-held against.
+"""Plain PyTorch versions of the attention kernels: the exact oracle, the
+exact flash attention (kernel 11, ``csrc/flash_attention.cu``), and the
+approximate flash attention over contiguous and paged KV (kernels 8 and 9),
+which the CUDA kernel in ``csrc/approx_flash_attention.cu`` is held
+against.
+
+The exact flash attention (:func:`flash_attention_ref`) follows the
+reference's ``repro.kernels.flash_attention.kernel``: float32 throughout,
+``q * (1 / sqrt(D))`` before ``q @ k.T``, the softcap ``c * tanh(s / c)``,
+the causal and window masks with queries aligned to key 0 (query row ``i``
+sits at position ``i``), masked scores the finite ``NEG_INF``, an online
+softmax over KV tiles and ``acc / max(l, 1e-30)`` in q's dtype. Where the
+reference asserts whole tiles, a ragged edge is masked: query rows past
+``Sq`` are dropped, keys past ``Sk`` get ``-inf`` (``p = 0``, as if absent).
 
 The approximate versions follow the reference's semantics
 (``repro.kernels.flash_attention.approx``) operation for operation:
@@ -75,6 +85,131 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p,
                         v.to(torch.float32)).to(q.dtype)
+
+
+# the CUDA kernel's q and KV tiles (csrc/flash_attention.cu)
+FLASH_BQ = 64
+FLASH_BK = 64
+
+
+def flash_scale(d: int) -> torch.Tensor:
+    """``float32(1 / sqrt(d))``: the reference multiplies float32 q by the
+    Python float, which rounds it to float32 once."""
+    return torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None, rep: int = 1,
+                        bq: int = FLASH_BQ,
+                        bk: int = FLASH_BK) -> torch.Tensor:
+    """Exact flash attention (kernel 11). q: (BH, Sq, D); k/v: (BH / rep,
+    Sk, D); query row ``b`` reads KV row ``b // rep``. Returns (BH, Sq, D)
+    in q's dtype.
+
+    Every q tile runs at once; KV tiles of ``bk`` keys are walked to the
+    largest causal block bound, ``min(n_kv, (qi + 1) * bq // bk + 1)`` as
+    the reference computes it, and a tile's state is frozen past its own.
+    (A causal row has seen its own key by its bound, so the blocks past it
+    would add exactly nothing; the freeze mirrors the reference's loop.)"""
+    from repro_torch.core.approx_ops import exact_f32
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    if bh != k.shape[0] * rep or v.shape != k.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} do not fit rep={rep}")
+    dev = q.device
+    sq_p, sk_p = _round_up(max(sq, 1), bq), _round_up(max(sk, 1), bk)
+    qf = torch.zeros((bh, sq_p, d), dtype=torch.float32, device=dev)
+    qf[:, :sq] = q.to(torch.float32) * flash_scale(d).to(dev)
+    rows = torch.arange(bh, device=dev) // rep
+    kf = torch.zeros((bh, sk_p, d), dtype=torch.float32, device=dev)
+    vf = torch.zeros((bh, sk_p, d), dtype=torch.float32, device=dev)
+    kf[:, :sk] = k.to(torch.float32)[rows]
+    vf[:, :sk] = v.to(torch.float32)[rows]
+    n_q, n_kv = sq_p // bq, sk_p // bk
+    tiles = torch.arange(n_q, device=dev)
+    bound = (torch.clamp_max((tiles + 1) * bq // bk + 1, n_kv) if causal
+             else torch.full((n_q,), n_kv, device=dev))
+    q_pos = torch.arange(sq_p, device=dev)[:, None]
+    m = torch.full((bh, sq_p), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((bh, sq_p), dtype=torch.float32, device=dev)
+    acc = torch.zeros((bh, sq_p, d), dtype=torch.float32, device=dev)
+    with exact_f32():
+        for ki in range(int(bound.max()) if n_kv else 0):
+            k_pos = ki * bk + torch.arange(bk, device=dev)[None, :]
+            s = qf @ kf[:, ki * bk:(ki + 1) * bk].transpose(1, 2)
+            if softcap is not None:
+                s = softcap * torch.tanh(s / softcap)
+            mask = torch.ones((sq_p, bk), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= k_pos <= q_pos
+            if window is not None:
+                mask &= k_pos > q_pos - window
+            s = torch.where(mask, s, NEG_INF)
+            s = torch.where(k_pos < sk, s, -math.inf)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l_new = alpha * l + p.sum(-1)
+            acc_new = acc * alpha[..., None] + p @ vf[:, ki * bk:(ki + 1) * bk]
+            live = (ki < bound).repeat_interleave(bq)          # (sq_p,)
+            m = torch.where(live, m_new, m)
+            l = torch.where(live, l_new, l)
+            acc = torch.where(live[:, None], acc_new, acc)
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out[:, :sq].to(q.dtype)
+
+
+def flash_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    want: torch.Tensor, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    rep: int = 1) -> torch.Tensor:
+    """How far two float32 implementations of :func:`flash_attention_ref`
+    may disagree, per output element ((BH, Sq, D), shapes as there), once
+    each rounds its output to ``want``'s dtype.
+
+    Both scale q the same way and walk the same key tiles; they differ in
+    the order of each tile's sums and in the last ulp of ``exp`` and
+    ``tanh``. Those rounding errors are independent, so they add like a
+    random walk (the worst case, every error of one sign, is linear in
+    the count and lies orders of magnitude above what occurs):
+
+    * the scores: a D-term dot product in another order moves a score by
+      about ``eps * |q_row * scale| * max|k|``, the softcap's ``tanh`` by
+      a few ulp of ``|s|`` (its slope is at most 1); a score error ``e``
+      moves the output by at most ``e * max|v|``;
+    * the softmax: the numerator ``sum p v`` and the normalizer ``l`` over
+      the row's ``n`` visible keys, about ``sqrt(n)`` ulp of ``max|v|``;
+    * the output: one ulp of its dtype at the element.
+
+    So ``eps * max|v| * 4 * (sqrt(n) + |q_row * scale| * max|k|) +
+    eps_out * |want|``. The factor 4 is a margin: float32 against float64
+    stays within a tenth of it, and one key less in a row's window, the
+    first KV tile dropped or the softcap dropped each lie beyond it
+    (``tests/test_torch_flash.py``, 512 keys, unit and 10x scores, softcap
+    50; ``chip_smoke.py`` reads the same at gemma2-27b's 4352 keys). A row
+    whose keys are all masked averages every key (``n = Sk``)."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    dev = q.device
+    eps = float(torch.finfo(torch.float32).eps)
+    rows = torch.arange(bh, device=dev) // rep
+    i = torch.arange(sq, device=dev)
+    hi = torch.clamp_max(i + 1, sk) if causal else torch.full_like(i, sk)
+    lo = torch.clamp_min(i - window + 1, 0) if window is not None \
+        else torch.zeros_like(i)
+    n = torch.clamp_min(hi - lo, 0)
+    n = torch.where(n > 0, n, sk).to(torch.float64)
+    qn = torch.linalg.vector_norm(q.double(), dim=-1) \
+        * float(flash_scale(d))                                       # (BH, Sq)
+    kmax = torch.linalg.vector_norm(k.double(), dim=-1).amax(-1)[rows]
+    vmax = v.double().abs().amax((-2, -1))[rows]
+    f32 = 4 * eps * vmax[:, None] * (n.sqrt() + qn * kmax[:, None])
+    eps_out = float(torch.finfo(want.dtype).eps)
+    return f32[..., None] + eps_out * want.double().abs()
 
 
 def quantize_sym(x: torch.Tensor, scale: torch.Tensor, lo: int,

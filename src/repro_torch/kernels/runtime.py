@@ -64,6 +64,9 @@ SIGNATURES = {
                  [_P, _I, _P, _P, _P, _I] + [_L] * 16 + [_L, _I, _I, _I,
                                                          _P]),
     "wkv": ("wkv_launch", [_P] * 8 + [_I] * 4 + [_L] * 12 + [_P]),
+    "flash_attention": ("flash_attention_launch",
+                        [_P] * 4 + [_I] * 8 + [_L] * 12 + [_I] * 3
+                        + [ctypes.c_float] * 2 + [_P]),
 }
 
 

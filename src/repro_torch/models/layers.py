@@ -3,13 +3,16 @@
 Every GEMM goes through :func:`repro_torch.core.approx_ops.approx_dense`
 (``acfg=None`` is the exact float path), and attention over a KV cache goes
 through :func:`~repro_torch.core.approx_ops.approx_attention` /
-``approx_attention_paged`` when the ACU plan resolves to a kernel. Norms,
-RoPE and the softmax keep the reference's float32 upcasts.
+``approx_attention_paged`` when the ACU plan resolves to a kernel. Exact
+attention with ``impl="flash"`` runs the exact flash attention kernel
+(kernel 11) where its semantics hold (:func:`gqa_attention`). Norms, RoPE
+(and Qwen2-VL's M-RoPE) and the softmax keep the reference's float32
+upcasts.
 
 Unlike the reference's pure functions, the attention block writes new K/V
 into the cache tensors it is given, in place, and returns the same
-tensors: a cache of 30 layers is never copied to append one token. The
-multimodal RoPE of Qwen2-VL and cross-attention caches are not ported.
+tensors: a cache of 30 layers is never copied to append one token.
+Cross-attention caches are not ported.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from repro_torch.core.acu import not_ported
 from repro_torch.core.approx_ops import (ApproxConfig, approx_attention,
                                          approx_attention_paged,
                                          approx_dense, conv2d, exact_f32)
+from repro_torch.kernels.flash_attention.ops import flash_attention
 
 NEG_INF = -1e30
 
@@ -80,12 +84,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x: (B, S, H, D); positions: (B, S) int. Rotates the two halves of
     the head dim, in float32."""
     freqs = rope_freqs(x.shape[-1], theta, device=x.device)
-    angles = positions[..., None].to(torch.float32) * freqs   # (B, S, D/2)
+    return _rotate(x, positions[..., None].to(torch.float32) * freqs)
+
+
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Rotates the two halves of x's head dim by (B, S, D/2) ``angles``,
+    in float32."""
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                sections=(16, 24, 24), theta: float = 10000.0) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE. x: (B, S, H, D); positions: (3, B, S),
+    the (temporal, height, width) ids. The D/2 rotary channels are split
+    into ``sections``, each rotated by its own position stream; for text
+    all three streams are equal and M-RoPE is RoPE."""
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)
+    sec = torch.cat([torch.full((n,), i, dtype=torch.long, device=x.device)
+                     for i, n in enumerate(sections)])            # (D/2,)
+    pos = positions.to(torch.float32).permute(1, 2, 0)[..., sec]  # (B, S, D/2)
+    return _rotate(x, pos * freqs)
 
 
 # ---------------------------------------------------------------------------
@@ -119,6 +141,18 @@ def _mask_scores(s: torch.Tensor, q_pos: torch.Tensor, k_pos: torch.Tensor,
     return torch.where(mask, s, NEG_INF)
 
 
+def _flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset,
+                pad_mask: Optional[torch.Tensor]) -> bool:
+    """Whether an ``impl="flash"`` call has kernel 11's semantics: queries
+    at key 0 (``q_offset`` the int 0), no padded keys, and no gradient
+    wanted (the reference's kernel has no backward). Decided from the
+    arguments alone."""
+    wants_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    return (isinstance(q_offset, int) and q_offset == 0 and pad_mask is None
+            and not wants_grad)
+
+
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: Optional[int] = None,
                   softcap: Optional[float] = None, q_offset=0,
@@ -130,7 +164,15 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: (B, S, Hq, D); k/v: (B, T, Hkv, D); returns (B, S, Hq, D).
     ``q_offset``: absolute position of q[0] (an int, or a (B,) tensor when
     every row sits at its own cache position). ``chunked`` processes q in
-    blocks of ``chunk``; ``pad_mask`` (B, T) bool marks valid keys."""
+    blocks of ``chunk``; ``pad_mask`` (B, T) bool marks valid keys.
+    ``flash`` runs the exact flash attention kernel (kernel 11) on the
+    (B, S, H, D) tensors as they lie where :func:`_flash_route` allows, and
+    is ``chunked`` otherwise, as the reference's ``flash`` is."""
+    if impl == "flash" and _flash_route(q, k, v, q_offset, pad_mask):
+        return flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=causal,
+                               window=window,
+                               softcap=softcap).transpose(1, 2)
     b, s_len, hq, d = q.shape
     t_len, hkv = k.shape[1], k.shape[2]
     rep = hq // hkv
@@ -220,9 +262,10 @@ def attention_block(x: torch.Tensor, p: dict, cfg,
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
     if cfg.rope == "mrope":
-        raise not_ported("multimodal RoPE (qwen2-vl)",
-                         "queue 1, item 9 (LM substrate)")
-    if cfg.rope != "none":
+        mpos = positions[None].expand(3, *positions.shape)
+        q = apply_mrope(q, mpos, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, mpos, cfg.mrope_sections, cfg.rope_theta)
+    elif cfg.rope != "none":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     use_acu = acfg is not None and not acfg.fake_quant_only
@@ -357,3 +400,18 @@ def lm_head(x: torch.Tensor, w: torch.Tensor, acfg: Optional[ApproxConfig],
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     return logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  n_valid_vocab: int) -> torch.Tensor:
+    """Mean next-token cross entropy, ``logsumexp - gold`` in float32; the
+    padded vocab columns get ``NEG_INF`` in the logits' dtype first, as in
+    the reference."""
+    v = logits.shape[-1]
+    if n_valid_vocab < v:
+        pad = torch.arange(v, device=logits.device) >= n_valid_vocab
+        logits = logits.masked_fill(pad, NEG_INF)
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (logz - gold).mean()

@@ -59,8 +59,8 @@ def init_params(seed: int, cfg: ModelConfig, device=None) -> dict:
     def dense(*shape, scale=None, dtype=pd):
         scale = scale or shape[-2] ** -0.5
         w = torch.randn(shape, generator=gen, device=dev,
-                        dtype=torch.float32) * scale
-        return w.to(dtype)
+                        dtype=torch.float32)
+        return w.mul_(scale).to(dtype)     # in place: one float32 copy
 
     def norm(width, n):
         if cfg.norm == "ln":
@@ -268,6 +268,16 @@ def apply_model(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     x = _norm(x, _at(params["final_norm"], 0), cfg)
     head = params["embed"].t() if cfg.tie_embed else params["lm_head"]
     return L.lm_head(x, head, acfg, softcap=cfg.softcap_final), cache
+
+
+def loss_fn(params: dict, tokens: torch.Tensor, labels: torch.Tensor,
+            cfg: ModelConfig,
+            acfg: Optional[ApproxConfig] = None) -> torch.Tensor:
+    """Mean next-token cross entropy of the cache-less forward: with
+    ``cfg.attn_impl == "flash"`` and no gradient wanted, every attention
+    layer runs kernel 11."""
+    logits, _ = apply_model(params, tokens, cfg, acfg=acfg)
+    return L.cross_entropy(logits, labels, cfg.vocab_size)
 
 
 # ---------------------------------------------------------------------------

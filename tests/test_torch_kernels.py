@@ -240,7 +240,7 @@ def test_every_kernel_source_has_a_signature():
     assert names == set(runtime.SIGNATURES) == {
         "lut_matmul", "fused_lut_dense", "fused_lut_conv", "fused_lut_bwd",
         "fused_lut_conv_bwd_w", "approx_flash_attention", "err_matmul",
-        "fused_lut_grouped", "quantize", "wkv"}
+        "fused_lut_grouped", "quantize", "wkv", "flash_attention"}
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
