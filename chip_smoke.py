@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-1. builds the twelve hand-written CUDA kernels from the eleven sources in
-   ``src/repro_torch/csrc`` (one ``nvcc`` per source, all started
+1. builds the thirteen hand-written CUDA kernels from the twelve sources
+   in ``src/repro_torch/csrc`` (one ``nvcc`` per source, all started
    together);
 2. holds each forward kernel (lut_matmul, fused_lut_dense, fused_lut_conv)
    against its plain PyTorch version on the card, bitwise, at every GEMM
@@ -113,7 +113,27 @@
    holds the card against the CPU on the model cut to one local and one
    global layer (float32, no ACU, q projections scaled 10x: logits within
    ``SCORE_CPU_TOL``, and planted faults on the CPU side beyond it);
-12. prints one ``{"kernels": [...]}`` line, then the result line.
+12. runs ImageNet-scale convs: first holds the banded fused conv kernel
+   (fused_lut_conv_tiled, kernel 6) against its plain version and against
+   the whole-image kernel (fused_lut_conv), bitwise, f32 and int32, at
+   VGG-16's conv1_2 (8x64x224^2 -> 64) and conv2_2 (8x128x112^2 -> 128),
+   the CNN's c2 (32x64x112^2 -> 128), stride 2, dilation 2, a band height
+   that does not divide Ho and a biased table at odd C, and times kernel 6,
+   kernel 5, the plain version and ``F.conv2d`` (f32, TF32 off) at the
+   first three against the gather bound, with each one's banding, grid and
+   blocks per SM; then serves 128 images of ``image_task(n_classes=1000,
+   size=224)`` through ``VisionServeEngine(slots=32)`` with the CNN at
+   VGG-16's stage widths (``init_cnn(width=64, img=224)``) on the fused
+   ACU: each conv's route from ``plan_report`` (c2 tiled, as the reference
+   routes it), exact launch counts (per wave 2 fused_lut_conv, 1
+   fused_lut_conv_tiled, 2 fused_lut_dense, 5 quantize), one wave's
+   logits bitwise equal to the unfused ACU's (im2col + lut_matmul), a
+   profile of one wave; one ``approx_bwd`` step of conv2d at 2x64x224^2
+   -> 64 on the tiled and the whole-image route (gradients bitwise equal,
+   launch counts checked); a separable block (depthwise 3x3 on
+   8x32x112^2, then 1x1 -> 64) and a groups=4 conv on the fused ACU,
+   bitwise equal to the CPU's, launch counts checked;
+13. prints one ``{"kernels": [...]}`` line, then the result line.
 
 Every weight of every approximate GEMM is quantized on every call through
 the quantize kernel, so each phase's exact launch counts include it.
@@ -179,6 +199,9 @@ KERNELS = {
             "src/repro/kernels/wkv/kernel.py:53"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:76"),
+    "fused_lut_conv_tiled": (
+        "src/repro_torch/csrc/fused_lut_conv_tiled.cu",
+        "src/repro/kernels/fused_lut_conv/kernel.py:387"),
 }
 RANK = 8                   # the LOWRANK rung's factorisation rank
 FP32_LANES = 128           # FP32 FMA lanes per SM (Hopper)
@@ -235,6 +258,39 @@ SCORE_COLS = 64          # kernel 3's plain check: first and last columns
 # the CPU side (the attention softcap dropped, a window that binds) are
 # read on every run, and the script fails unless they lie beyond it.
 SCORE_CPU_TOL = 1e-4
+# the ImageNet-scale conv phase: kernel 6 (fused_lut_conv_tiled) against
+# its plain version and kernel 5 at (label, x shape, w shape, stride,
+# dilation, pinned band height, table, timed); SAME padding throughout
+TILED_CASES = [
+    ("VGG-16 conv1_2", (8, 64, 224, 224), (64, 64, 3, 3), 1, 1, 0, "std",
+     True),
+    ("VGG-16 conv2_2", (8, 128, 112, 112), (128, 128, 3, 3), 1, 1, 0, "std",
+     True),
+    ("CNN-224 c2", (32, 64, 112, 112), (128, 64, 3, 3), 1, 1, 0, "std",
+     True),
+    ("stride 2", (8, 64, 112, 112), (128, 64, 3, 3), 2, 1, 0, "std", False),
+    ("dilation 2", (8, 64, 56, 56), (64, 64, 3, 3), 1, 2, 0, "std", False),
+    ("bh 5 on Ho 56", (8, 64, 56, 56), (64, 64, 3, 3), 1, 1, 5, "std",
+     False),
+    ("biased, C 37", (4, 37, 56, 56), (48, 37, 3, 3), 1, 1, 0, "biased",
+     False),
+]
+# the VGG-style CNN at VGG-16's stage widths and ImageNet's input, served
+# in waves of CNN_SLOTS: per wave c1 and c3 on kernel 5, c2 on kernel 6,
+# f1 and f2 on kernel 3, each weight through kernel 2 (unfused: im2col +
+# kernel 1 for all five, kernel 2 on weights and activations)
+CNN_IMAGES, CNN_SLOTS, CNN_CLASSES = 128, 32, 1000
+CNN_WAVE_LAUNCHES = {"fused_lut_conv": 2, "fused_lut_conv_tiled": 1,
+                     "fused_lut_dense": 2, "quantize": 5}
+CNN_UNFUSED_LAUNCHES = {"lut_matmul": 5, "quantize": 10}
+CNN_WIDTH, CNN_IMG = 64, 224
+# one approx_bwd conv step (x shape, w shape), banded against whole-image;
+# a separable block (x, depthwise w, pointwise w, bias) and a groups=4 conv
+# (x, w, bias) on the fused ACU, card against the CPU
+CONV_BWD = ((2, 64, 224, 224), (64, 64, 3, 3))
+SEPARABLE = [(8, 32, 112, 112), (32, 1, 3, 3), (64, 32, 1, 1), (64,)]
+GROUPED = [(8, 64, 56, 56), (64, 16, 3, 3), (64,)]
+SMEM_PER_SM = 233_472    # H100: 228 KB per SM, 1 KB of it kept per block
 TF32_FLOPS = 495e12      # H100 SXM data sheet, dense TF32 tensor cores
 # card vs CPU, one 4-image step: largest gradient difference allowed, as a
 # fraction of the tensor's largest entry. exact: float32 sums in another
@@ -299,16 +355,25 @@ def cuda_ms(torch, fn, reps: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profile(torch, name: str, fn, wall_ms=None):
+def profile(torch, name: str, fn, wall_ms=None, lead: int = 0):
     """Where one call of ``fn`` (a wave, a training step) spends its time:
     device time by kernel (torch.profiler, device-side events only)
     against ``wall_ms``, its wall time measured without the profiler, or,
     when None, the traced call's own wall (the profiler's cost is then in
     it, which a long call of few kernels hides); the rest is the device's
-    idle share. Returns ``fn``'s result and the traced wall in ms."""
+    idle share. ``lead`` launches that many empty spins inside the trace
+    before ``fn`` and leaves them out of the rows: late in this script's
+    process the CNN-224 wave's trace has lost its first few dozen device
+    records (the input copy and the first two convs; one spin ahead of
+    them moved that edge by one record). Returns ``fn``'s result and the
+    traced wall in ms."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
+        if lead:
+            for _ in range(lead):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -320,7 +385,8 @@ def profile(torch, name: str, fn, wall_ms=None):
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0
-            and not e.key.startswith("Activity Buffer")]
+            and not e.key.startswith("Activity Buffer")
+            and not (lead and "spin_kernel" in e.key)]
     rows.sort(key=lambda r: -r[1])
     if not rows:
         print(f"  profile {name}: no device time in the trace (not measured)")
@@ -1494,6 +1560,252 @@ def score_phase(torch, np, dev, check, acu, ops, launches,
             "peak_gib": peak}
 
 
+def conv_phase(torch, np, dev, check, acu, ops, launches, account,
+               lookups_per_s, lut_bytes, n_sm) -> dict:
+    """ImageNet-scale convs: kernel 6 against its plain version and kernel
+    5, bitwise, with times at the VGG-16 and CNN-224 shapes; the CNN at
+    width 64 and 224^2 served through ``VisionServeEngine`` with c2 on the
+    banded route, exact launch counts and fused logits bitwise equal to
+    the unfused ones; one ``approx_bwd`` step banded against whole-image;
+    a separable block and a grouped conv against the CPU. Returns the
+    serve numbers."""
+    import torch.nn.functional as F
+    from repro_torch.core import (ApproxConfig, acu_operand, make_acu,
+                                  quantize, separable_conv2d)
+    from repro_torch.core.acu import ConvSpec, conv_plan, resolve_conv_padding
+    from repro_torch.core.approx_ops import (_conv_qparams, _fused_conv,
+                                             conv2d)
+    from repro_torch.data.pipeline import image_task
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.fused_lut_conv.ops import (
+        conv_out_size, fused_lut_conv, fused_lut_conv_tiled,
+        pick_tiled_kernel_tiling)
+    from repro_torch.kernels.fused_lut_conv.ref import (
+        fused_lut_conv_tiled_ref)
+    from repro_torch.models.vision import cnn_forward, init_cnn
+    from repro_torch.serve.engine import VisionServeEngine
+
+    t_phase = time.perf_counter()
+    off, n_codes = acu.offset, acu.multiplier.n_codes
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    v = np.arange(-128, 128, dtype=np.int32)
+    tables = {"std": acu.lut, "biased": v[:, None] * v[None, :] + 7}
+    luts = {k: (runtime.lut_to_int16(torch.from_numpy(t)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(t, np.int32))
+                .reshape(-1).to(dev)) for k, t in tables.items()}
+    cfg = ApproxConfig(acu=acu)
+
+    def max_err(a, b):
+        return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+
+    print("ImageNet-scale convs: fused_lut_conv_tiled (kernel 6) against its "
+          "plain version and fused_lut_conv (kernel 5), f32 and int32, "
+          "bitwise:")
+    for (label, xs_, ws_, s, d, bh, table, timed) in TILED_CASES:
+        x = torch.relu(torch.randn(xs_, generator=gen, device=dev))
+        w = torch.randn(ws_, generator=gen, device=dev)
+        xqp, wqp = _conv_qparams(x, w, cfg, None, None)
+        wq = acu_operand(quantize(w, wqp), wqp)
+        st, dl = (s, s), (d, d)
+        pad = resolve_conv_padding("SAME", xs_, ws_, st, dl)
+        (n, c, hw, _), (cout, _, k, _) = xs_, ws_
+        ho = conv_out_size(hw, k, s, d, pad[0])
+        tiling = pick_tiled_kernel_tiling(c, ho, ho, cout, k, k, s, s, d, d,
+                                          n_codes, bh=bh)
+        l16, l32 = luts[table]
+        args = (xqp.scale, xqp.zero_point, wqp.scale)
+        geo = dict(stride=st, padding=pad, dilation=dl)
+        k6 = lambda emit=False: fused_lut_conv_tiled(
+            x, wq, l16, off, *args, bh=bh, emit_acc=emit, **geo)
+        k5 = lambda emit=False: fused_lut_conv(x, wq, l16, off, *args,
+                                               emit_acc=emit, **geo)
+        plain = lambda emit=False: fused_lut_conv_tiled_ref(
+            x, wq, l32, off, n_codes, *args, bh=tiling.bh, emit_acc=emit,
+            **geo)
+        y6, a6 = k6(), k6(True)
+        yp, ap = plain(), plain(True)
+        ok = (torch.equal(y6, yp) and torch.equal(a6, ap)
+              and torch.equal(y6, k5()) and torch.equal(a6, k5(True)))
+        err = max(max_err(y6, yp), max_err(a6, ap))
+        items = n * tiling.tiles
+        grid, per_sm = min(items, n_sm), SMEM_PER_SM // (tiling.smem_bytes
+                                                          + 1024)
+        check(ok, f"fused_lut_conv_tiled {label} {xs_} -> {cout}, stride "
+                  f"{s}, dilation {d}, {table} table: equal to its plain "
+                  f"version and to fused_lut_conv ({tiling.describe(ho)}; "
+                  f"{items} tiles on a grid of {grid} persistent blocks, "
+                  f"{per_sm} block(s) per SM by shared memory)")
+        del yp, ap
+        if not timed:
+            account("fused_lut_conv_tiled", 0, 0.0, 0.0, 0.0, 0.0, 0.0, err)
+            continue
+        lookups = n * ho * ho * c * k * k * cout
+        wf = wq.float()
+        lib = cuda_ms(torch, lambda: F.conv2d(x, wf, stride=st,
+                                              padding=(pad[0][0], pad[1][0]),
+                                              dilation=dl), 10)
+        ms6 = cuda_ms(torch, k6, 10)
+        ms5 = cuda_ms(torch, k5, 10)
+        msp = cuda_ms(torch, plain, 2, warm=1)
+        nbytes = ((x.numel() + wq.numel() + n * ho * ho * cout) * 4
+                  + lut_bytes + cout * 4 + 8)
+        bound = max(nbytes / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
+        # the kernels line: kernel 6's row is one CNN-224 wave (its c2)
+        account("fused_lut_conv_tiled", int(label == "CNN-224 c2"), ms6,
+                msp, lib, nbytes, lookups, err)
+        print(f"  {label}: {lookups / 1e9:.2f} G lookups, bound {bound:.3f} "
+              f"ms; kernel 6 {ms6:.3f} ms ({lookups / ms6 / 1e9:.3f} T "
+              f"lookups/s), kernel 5 {ms5:.3f} ms ({lookups / ms5 / 1e9:.3f}"
+              f" T lookups/s), plain {msp:.1f} ms, F.conv2d f32 {lib:.3f} "
+              f"ms; band {tiling.bh} rows x {tiling.bw} columns, grid "
+              f"{grid} of {items} tiles", flush=True)
+        del wf
+    torch.cuda.empty_cache()
+
+    # -- the CNN at VGG-16's widths on 224^2 images --------------------------
+    S, W, I = CNN_SLOTS, CNN_WIDTH, CNN_IMG
+    print(f"serving {CNN_IMAGES} images of image_task(n_classes="
+          f"{CNN_CLASSES}, size={I}), CNN width {W} (c1 3->{W}, c2 "
+          f"{W}->{2 * W}, c3 {2 * W}->{4 * W}, f1 {4 * W * (I // 8) ** 2}->"
+          f"{8 * W}, f2 {8 * W}->{CNN_CLASSES}), {MULT}, slots={S}:")
+    params = init_cnn(seed=0, n_classes=CNN_CLASSES, width=W, img=I,
+                      device=dev)
+    images = next(image_task(n_classes=CNN_CLASSES, size=I)(CNN_IMAGES))[
+        "image"]
+    eng = VisionServeEngine(params, cnn_forward, slots=S, acfg=cfg,
+                            device=dev)
+    routes = []
+    for name, xs_, ws_ in (("c1", (S, 3, I, I), (W, 3, 3, 3)),
+                           ("c2", (S, W, I // 2, I // 2), (2 * W, W, 3, 3)),
+                           ("c3", (S, 2 * W, I // 4, I // 4),
+                            (4 * W, 2 * W, 3, 3))):
+        rep = eng.plan_report(xs_, ws_, cfg)
+        routes.append(rep["route"])
+        print(f"  {name} {xs_} -> {ws_[0]}: route {rep['route']}, "
+              f"{rep['gemm']}, tiling {rep['tiling']}")
+    check(routes == ["fused_conv", "tiled", "fused_conv"],
+          "CNN-224 plan: c1 and c3 fused_conv, c2 tiled, as the reference "
+          "routes them")
+    eng.run(images[:S])                              # warm-up wave
+    torch.cuda.synchronize()
+    for op in ops.values():
+        op.launches = 0
+    t0 = time.perf_counter()
+    logits = eng.run(images)
+    dt = time.perf_counter() - t0
+    counts = {k: op.launches for k, op in ops.items()}
+    waves = CNN_IMAGES // S
+    rate = CNN_IMAGES / dt
+    print(f"  fused: {rate:.1f} images/s ({dt:.3f} s for {CNN_IMAGES}, "
+          f"{dt / waves * 1e3:.1f} ms per wave), launches {counts}")
+    check(counts == {k: CNN_WAVE_LAUNCHES.get(k, 0) * waves for k in ops},
+          f"CNN-224 fused: launch counts are {waves} x {CNN_WAVE_LAUNCHES}")
+    for k in ops:
+        launches[k] += counts[k]
+    check(logits.shape == (CNN_IMAGES, CNN_CLASSES)
+          and bool(np.isfinite(logits).all()),
+          f"CNN-224 logits finite, shape {logits.shape}")
+    unfused = VisionServeEngine(
+        params, cnn_forward, slots=S, device=dev,
+        acfg=ApproxConfig(acu=make_acu(MULT, "lut", use_kernels=True)))
+    for op in ops.values():
+        op.launches = 0
+    t0 = time.perf_counter()
+    lu = unfused.run(images[:S])
+    ms_u = (time.perf_counter() - t0) * 1e3
+    counts = {k: op.launches for k, op in ops.items()}
+    check(counts == {k: CNN_UNFUSED_LAUNCHES.get(k, 0) for k in ops}
+          and np.array_equal(lu, logits[:S]),
+          f"CNN-224 unfused (im2col + lut_matmul) wave: launch counts "
+          f"{CNN_UNFUSED_LAUNCHES}, logits bitwise equal to the fused "
+          f"wave's ({ms_u:.1f} ms, first wave, untimed warm-up)")
+    for k in ops:
+        launches[k] += counts[k]
+    del unfused, lu
+    profile(torch, "CNN-224 fused wave", lambda: eng.run(images[:S]),
+            dt / waves * 1e3, lead=2000)
+    del eng, params, images
+    torch.cuda.empty_cache()
+
+    # -- one approx_bwd step, banded against whole-image --------------------
+    bshape, wshape = CONV_BWD
+    x0 = torch.relu(torch.randn(bshape, generator=gen, device=dev))
+    w0 = torch.randn(wshape, generator=gen, device=dev) * 0.1
+    r = torch.randn(bshape, generator=gen, device=dev)
+    bcfg = ApproxConfig(acu=acu, approx_bwd=True)
+    spec = ConvSpec(bshape, wshape, padding=((1, 1), (1, 1)))
+    # the whole-image plan only under a budget the reference's VMEM model
+    # would allow: a 224^2 map is over its 12 MiB
+    plans = {"tiled": conv_plan(acu, spec),
+             "fused_conv": conv_plan(acu, spec, route="fused_conv",
+                                     vmem_budget=1 << 40)}
+    grads = {}
+    for name, plan in plans.items():
+        xg = x0.clone().requires_grad_(True)
+        wg = w0.clone().requires_grad_(True)
+        for op in ops.values():
+            op.launches = 0
+        t0 = time.perf_counter()
+        if name == "tiled":          # conv2d's own route
+            y = conv2d(xg, wg, cfg=bcfg)
+        else:
+            xqp, wqp = _conv_qparams(xg, wg, bcfg, None, None)
+            y = _fused_conv(xg, wg, bcfg, plan, xqp, wqp)
+        (y * r).sum().backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: op.launches for k, op in ops.items()}
+        fwd = "fused_lut_conv_tiled" if name == "tiled" else "fused_lut_conv"
+        want = {fwd: 1, "quantize": 1, "fused_lut_conv_bwd_w": 1,
+                "fused_lut_bwd": 1}
+        check(plan.route == name and counts == {k: want.get(k, 0)
+                                                for k in ops},
+              f"approx_bwd step of conv2d {bshape} -> {wshape[0]} on the "
+              f"{name} "
+              f"route: launch counts {want} ({ms:.1f} ms)")
+        for k in ops:
+            launches[k] += counts[k]
+        grads[name] = (xg.grad, wg.grad)
+        del y
+    check(all(torch.equal(a, b) for a, b in zip(grads["tiled"],
+                                                grads["fused_conv"])),
+          "approx_bwd gradients of x and w bitwise equal between the tiled "
+          "and fused_conv routes")
+    del grads, x0, r
+    torch.cuda.empty_cache()
+
+    # -- a separable block and a grouped conv, card against the CPU ---------
+    blocks = [
+        (f"separable {SEPARABLE[0]}: depthwise 3x3, then 1x1 -> "
+         f"{SEPARABLE[2][0]}", SEPARABLE,
+         lambda x, wd, wp, b: separable_conv2d(x, wd, wp, b, cfg=cfg),
+         {"fused_lut_dense": 1, "fused_lut_conv": 1, "quantize": 2}),
+        (f"groups=4 {GROUPED[0]} -> {GROUPED[1][0]}, 3x3", GROUPED,
+         lambda x, w, b: conv2d(x, w, b, groups=4, cfg=cfg),
+         {"fused_lut_dense": 4, "quantize": 4}),
+    ]
+    for label, shapes, fn, want in blocks:
+        ts = [torch.randn(sh, generator=gen, device=dev) for sh in shapes]
+        for op in ops.values():
+            op.launches = 0
+        with torch.inference_mode():
+            y = fn(*ts)
+            torch.cuda.synchronize()
+            counts = {k: op.launches for k, op in ops.items()}
+            y_cpu = fn(*[t.cpu() for t in ts])
+        check(counts == {k: want.get(k, 0) for k in ops}
+              and torch.equal(y.cpu(), y_cpu),
+              f"{label}: launch counts {want}, output {tuple(y.shape)} "
+              f"bitwise equal to the CPU's")
+        for k in ops:
+            launches[k] += counts[k]
+    took = time.perf_counter() - t_phase
+    print(f"ImageNet-scale conv phase: {took:.1f} s")
+    return {"images_per_s": rate, "wave_ms": dt / waves * 1e3,
+            "seconds": took}
+
+
 def hold_err_matmul(torch, check, label, a, w, yk, yp, lut_int, acu):
     """Kernel 13 against its plain version: every element within the
     summation bound; ``round(y)`` equal to lut_matmul's integer wherever
@@ -1787,7 +2099,8 @@ def main() -> int:
         from repro_torch.data.pipeline import image_task
         from repro_torch.kernels import runtime
         from repro_torch.kernels.fused_lut_conv.ops import (
-            conv_out_size, fused_lut_conv, fused_lut_conv_bwd_w)
+            conv_out_size, fused_lut_conv, fused_lut_conv_bwd_w,
+            fused_lut_conv_tiled)
         from repro_torch.kernels.fused_lut_conv.ref import (
             fused_lut_conv_bwd_w_ref, fused_lut_conv_ref)
         from repro_torch.kernels.fused_lut_dense.ops import (fused_lut_bwd,
@@ -2105,7 +2418,8 @@ def main() -> int:
            "approx_flash_attention_paged": approx_flash_attention_paged,
            "err_matmul": err_matmul, "fused_lut_grouped": fused_lut_grouped,
            "quantize": quantize_kernel, "wkv": wkv,
-           "flash_attention": flash_attention}
+           "flash_attention": flash_attention,
+           "fused_lut_conv_tiled": fused_lut_conv_tiled}
     path_kernels = {"fused": ("fused_lut_conv", "fused_lut_dense",
                               "quantize"),
                     "unfused": ("lut_matmul", "quantize")}
@@ -2270,7 +2584,11 @@ def main() -> int:
     scored = score_phase(torch, np, dev, check, acu, ops, launches, account)
     print(f"scoring phase: {time.perf_counter() - t0:.1f} s")
 
-    # -- 12. report --------------------------------------------------------
+    # -- 12. ImageNet-scale convs: kernel 6 on the CNN at 224^2 ----------
+    convs = conv_phase(torch, np, dev, check, acu, ops, launches, account,
+                       lookups_per_s, lut_bytes, n_sm)
+
+    # -- 13. report --------------------------------------------------------
     rows = []
     for name, (source, replaces) in KERNELS.items():
         s = stats[name]
@@ -2288,8 +2606,9 @@ def main() -> int:
           f"211 GEMMs), one training step at batch {tb} (backward kernels), "
           f"one SmolLM decode step of {LM_SLOTS} rows (attention), one "
           f"granite-moe-3b-a800m decode step (fused_lut_grouped), one "
-          f"rwkv6-3b decode step (quantize, wkv) or one gemma2-27b forward "
-          f"of {SCORE_TOKENS} tokens (flash_attention): "
+          f"rwkv6-3b decode step (quantize, wkv), one gemma2-27b forward "
+          f"of {SCORE_TOKENS} tokens (flash_attention) or one CNN-224 wave "
+          f"of {CNN_SLOTS} images (fused_lut_conv_tiled): "
           + ", ".join(f"{r['name']} {r['ms']:.3f} ms vs bound "
                       f"{r['bound_ms']:.3f}" for r in rows))
     print("SmolLM-135M tokens/s: " + ", ".join(
@@ -2301,6 +2620,9 @@ def main() -> int:
     print(f"gemma2-27b scoring: {scored['tokens_per_s']:.1f} scored tokens/s "
           f"({SCORE_TOKENS} tokens in {scored['seconds']:.1f} s), loss "
           f"{scored['loss']:.4f}, peak memory {scored['peak_gib']:.2f} GiB")
+    print(f"CNN-224 (width 64, 224^2, {CNN_CLASSES} classes): "
+          f"{convs['images_per_s']:.1f} images/s, {convs['wave_ms']:.1f} ms "
+          f"per wave of {CNN_SLOTS}; conv phase {convs['seconds']:.1f} s")
     print(f"images/s: fused {rates['fused']:.1f}, "
           f"unfused {rates['unfused']:.1f}; training steps/s: "
           + ", ".join(f"{k} {v[-1]:.3f}" for k, v in train.items()))

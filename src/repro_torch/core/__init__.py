@@ -5,7 +5,7 @@ from .acu import (Acu, AcuMode, AttnPlan, AttnSpec, ConvPlan, ConvSpec,
 from .approx_ops import (ApproxConfig, approx_attention,
                          approx_attention_paged, approx_dense,
                          approx_grouped_dense, approx_matmul, conv2d,
-                         conv_plan_report)
+                         conv_plan_report, separable_conv2d)
 from .lut import (LowRankError, build_error_table, build_lut,
                   factorize_error, rank_for_fidelity, trunc_masks)
 from .multipliers import REGISTRY, Multiplier, error_stats, get_multiplier
@@ -23,6 +23,6 @@ __all__ = [
     "conv_plan_report", "dequantize", "error_stats", "factorize_error",
     "fake_quantize", "get_multiplier", "grouped_plan",
     "inline_symmetric_scale", "make_acu", "matmul_plan", "quantize",
-    "rank_for_fidelity", "resolve_conv_padding", "symmetric_qparams",
-    "trunc_masks",
+    "rank_for_fidelity", "resolve_conv_padding", "separable_conv2d",
+    "symmetric_qparams", "trunc_masks",
 ]

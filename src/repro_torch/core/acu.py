@@ -30,10 +30,11 @@ GEMMs), :func:`matmul_bwd_plan` (the approximate STE gradient GEMMs),
 :func:`grouped_plan` (an MoE layer's expert GEMMs) resolve (mode, bits,
 use_kernels, fused) to a route; a fused request on a non-LUT ACU resolves
 unfused, a conv to ``im2col``, attention to ``dense`` and the expert GEMMs
-to ``vmap``, each audited as in the reference. The spatially tiled conv
-route, grouped convs and mesh partitions are not ported yet: asking for one
-raises ``NotImplementedError`` naming the ROADMAP queue that holds it, never
-a different answer.
+to ``vmap``, each audited as in the reference. A conv takes the route the
+reference's planner gives it, the whole-image or the banded fused kernel
+by the reference's VMEM budget. Mesh partitions are not ported yet: asking
+for one raises ``NotImplementedError`` naming the ROADMAP queue that holds
+it, never a different answer.
 """
 from __future__ import annotations
 
@@ -443,23 +444,45 @@ class ConvSpec:
         return (self.x_shape[0] * ho * wo, cg * kh * kw, cout)
 
 
+def _conv_geometry_args(spec: ConvSpec) -> tuple:
+    _, c, h, w = spec.x_shape
+    cout, _, kh, kw = spec.w_shape
+    return (c, h, w, cout, kh, kw, spec.stride[0], spec.stride[1],
+            spec.dilation[0], spec.dilation[1], spec.padding)
+
+
+def _fmt_vmem(nbytes: int) -> str:
+    """Byte counts in the audit lines, as the reference prints them."""
+    if nbytes >= (1 << 20):
+        return f"{nbytes >> 20} MiB"
+    return f"{nbytes >> 10} KiB"
+
+
 @dataclasses.dataclass(frozen=True)
 class ConvPlan:
     """A resolved conv2d route for one ACU at one static geometry.
 
-    ``route`` is ``"fused_conv"`` (the fused CUDA conv kernel:
-    ``fn(x, wq, xs, xz, ws) -> (N, Ho, Wo, Cout) f32``) or ``"im2col"``
-    (eager patch extraction + the dense :func:`matmul_plan` route; ``fn``
-    is None). ``bwd_route`` is where the approximate STE backward runs when
-    ``ApproxConfig.approx_bwd`` asks for it: ``"banded"`` for every fused
-    plan (the weight gradient on ``fused_lut_conv_bwd_w``, the input
-    gradient on ``fused_lut_bwd`` with an integer col2im), None for im2col
-    plans, whose backward is the dense STE's. ``bwd_tiling`` is the
-    reference's VMEM banding ``(bh, bn, mc, n_copies)``; the port's
-    backward runs one band with no VMEM model, so it is always None.
+    ``route`` is one of
+    * ``"fused_conv"``: the whole-image fused conv kernel (kernel 5),
+      ``fn(x, wq, xs, xz, ws) -> (N, Ho, Wo, Cout) f32``;
+    * ``"tiled"``: the banded fused conv kernel (kernel 6), the same ``fn``
+      signature and bits; ``tiling`` is its banding on this card
+      (:class:`~repro_torch.kernels.fused_lut_conv.ops.TiledKernelTiling`);
+    * ``"im2col"``: eager patch extraction + the dense
+      :func:`matmul_plan` route (``fn`` is None);
+    * ``"im2col_depthwise"`` / ``"im2col_grouped"``: ``groups > 1``, one
+      dense GEMM against the block-diagonal weight, or one per group.
+
+    ``bwd_route`` is where the approximate STE backward runs when
+    ``ApproxConfig.approx_bwd`` asks for it: ``"banded"`` for both fused
+    routes (the weight gradient on ``fused_lut_conv_bwd_w``, the input
+    gradient on ``fused_lut_bwd`` with an integer col2im), None for the
+    im2col routes, whose backward is the dense STE's. The port's kernel 7
+    has no VMEM budget, so it is ``"banded"`` where the reference might
+    fall back, with the same bits, and ``bwd_tiling`` is always None.
     ``describe()`` has the reference's keys, so plan reports of the two
-    packages can be compared; ``tiling`` and ``partition`` are None (no
-    tiled route or mesh yet).
+    packages can be compared; ``tiling`` names kernel 6's banding and
+    ``partition`` is None (no mesh yet).
     """
 
     mode: AcuMode
@@ -470,6 +493,7 @@ class ConvPlan:
     spec: ConvSpec
     fn: Optional[Callable[..., torch.Tensor]] = None
     report: tuple[str, ...] = ()
+    tiling: Optional[object] = None
     bwd_route: Optional[str] = None
     bwd_tiling: Optional[tuple[int, int, int, int]] = None
 
@@ -486,7 +510,8 @@ class ConvPlan:
             "mode": self.mode.value,
             "fused": self.fused,
             "gemm": f"M={m} K={k} N={n}",
-            "tiling": None,
+            "tiling": None if self.tiling is None else
+                self.tiling.describe(self.spec.out_spatial[0]),
             "partition": None,
             "report": list(self.report),
         }
@@ -494,61 +519,119 @@ class ConvPlan:
 
 def conv_plan(acu: Acu, spec: ConvSpec, *, a_bits: Optional[int] = None,
               fused: Optional[bool] = None, mesh=None,
-              route: Optional[str] = None) -> ConvPlan:
-    """Resolve one conv2d site to a route.
+              route: Optional[str] = None,
+              vmem_budget: Optional[int] = None) -> ConvPlan:
+    """Resolve one conv2d site to the route the reference resolves.
 
-    The rule, with no shared-memory budget in it: a ``groups=1`` conv on a
-    LUT ACU with ``use_kernels`` and ``fused`` takes ``"fused_conv"``
-    whatever its image size, because the CUDA kernel tiles output pixels
-    across the batch and never needs a whole image on chip; its backward
-    route is ``"banded"``, for the same reason with no budget either. Every
-    other conv takes ``"im2col"``, a fused request on another mode or
-    without kernels with the reference's audit line in ``report``. ``route`` pins
-    one: ``"im2col"`` forces the eager path (the oracle), ``"fused_conv"``
-    raises if the kernel cannot serve the request, ``"tiled"`` is not
-    ported.
+    A fused request on a LUT ACU with ``use_kernels`` and a table takes
+    ``"fused_conv"`` (kernel 5) when the reference's whole-image VMEM
+    estimate fits ``vmem_budget`` (default ``CONV_VMEM_BUDGET``, 12 MiB),
+    ``"tiled"`` (kernel 6) when only a band fits, and ``"im2col"`` with an
+    audit line when not even a one-row band does (degenerate geometry).
+    The budget is the reference's TPU threshold, used here only so that
+    both packages take the same route: neither CUDA kernel needs it.
+    ``groups > 1`` takes ``"im2col_depthwise"`` (groups == Cin, one input
+    channel per group) or ``"im2col_grouped"``; any other conv, or a fused
+    request the kernels cannot serve, takes ``"im2col"``, with the
+    reference's audit lines in ``report``. ``route`` pins one:
+    ``"im2col"`` forces the eager path (the oracle); ``"fused_conv"`` and
+    ``"tiled"`` raise where the reference raises, instead of falling back.
     """
+    from repro_torch.kernels.fused_lut_conv import ops as cops
     _require_single_device(mesh)
     if route not in (None, "fused_conv", "tiled", "im2col"):
         raise ValueError(f"unknown conv route {route!r}")
-    if route == "tiled":
-        raise not_ported("the spatially tiled conv route",
-                         "queue 2, kernel 6 (fused_lut_conv_tiled_kernel)")
-    if spec.groups != 1:
-        raise not_ported(f"grouped conv (groups={spec.groups})",
-                         "queue 1, item 6 (the conv slice)")
     fused = acu.fused if fused is None else fused
     a_bits = acu.bits if a_bits is None else a_bits
+    budget = cops.CONV_VMEM_BUDGET if vmem_budget is None else vmem_budget
     report: list[str] = []
-    want_fused = fused or route == "fused_conv"
-    can_fuse = _lut_kernels(acu)
-    if want_fused and not can_fuse:
-        report.append(f"fused conv needs LUT mode + use_kernels + a built "
-                      f"table (have mode={acu.mode.value}, "
-                      f"use_kernels={acu.use_kernels})")
+    cout, cin_g, kh, kw = spec.w_shape
+    cin = spec.x_shape[1]
+    want_fused = fused or route in ("fused_conv", "tiled")
+    can_fuse = True
+    if spec.groups != 1:
+        can_fuse = False
+        if want_fused:
+            report.append(f"groups={spec.groups}: fused conv serves groups=1 "
+                          f"only; grouped route keeps the single-vmapped-GEMM "
+                          f"semantics")
+    if not _lut_kernels(acu):
+        can_fuse = False
+        if want_fused and spec.groups == 1:
+            report.append(f"fused conv needs LUT mode + use_kernels + a built "
+                          f"table (have mode={acu.mode.value}, "
+                          f"use_kernels={acu.use_kernels})")
     if route == "im2col":
         can_fuse = False
         report.append("route pinned to eager im2col by caller")
-    if route == "fused_conv" and not can_fuse:
-        raise ValueError(f"fused_conv route unavailable: {report}")
 
-    if want_fused and can_fuse:
-        from repro_torch.kernels.fused_lut_conv.ops import fused_lut_conv
+    whole_ok = False
+    ref_tiling = None
+    if can_fuse and want_fused:
+        n_codes = acu.multiplier.n_codes
+        geom = _conv_geometry_args(spec)
+        est = cops.conv_vmem_bytes(*geom, n_codes)
+        whole_ok = est <= budget
+        if route == "tiled" or not whole_ok:
+            ref_tiling = cops.pick_conv_spatial_tiling(*geom, n_codes,
+                                                       budget=budget)
+        if not whole_ok:
+            if ref_tiling is not None:
+                _, bh, _, n_copies = ref_tiling
+                ho, _ = spec.out_spatial
+                report.append(
+                    f"image working set ~{_fmt_vmem(est)} exceeds the "
+                    f"{_fmt_vmem(budget)} VMEM budget; spatially tiled over "
+                    f"output-row bands (bands of {bh} output rows, "
+                    f"{-(-ho // bh)} bands, {n_copies} halo blocks/band)")
+            else:
+                report.append(
+                    f"image working set ~{_fmt_vmem(est)} exceeds the "
+                    f"{_fmt_vmem(budget)} VMEM budget and even a one-row "
+                    f"band does not fit (degenerate geometry); falling "
+                    f"back to eager im2col")
+        elif route == "tiled":
+            report.append("route pinned to spatially-tiled kernel by caller")
+
+    if route == "fused_conv" and not (can_fuse and whole_ok):
+        raise ValueError(f"fused_conv route unavailable: {report}")
+    if route == "tiled" and not (can_fuse and ref_tiling is not None):
+        raise ValueError(f"tiled route unavailable: {report}")
+    serve_tiled = can_fuse and want_fused and ref_tiling is not None \
+        and (route == "tiled" or not whole_ok)
+    serve_whole = can_fuse and want_fused and whole_ok and route != "tiled"
+
+    if serve_whole or serve_tiled:
+        geom_kw = dict(stride=spec.stride, padding=spec.padding,
+                       dilation=spec.dilation, bits=a_bits)
+        tiling = None
+        kernel_fn = cops.fused_lut_conv
+        if serve_tiled:
+            # what the wrapper picks for the same geometry
+            ho, wo = spec.out_spatial
+            tiling = cops.pick_tiled_kernel_tiling(
+                cin, ho, wo, cout, kh, kw, *spec.stride, *spec.dilation,
+                acu.multiplier.n_codes)
+            kernel_fn = cops.fused_lut_conv_tiled
 
         def fused_call(x, wq, xs, xz, ws, *, emit_acc=False):
-            return fused_lut_conv(x, wq, acu.device_lut(x.device), acu.offset,
-                                  xs, xz, ws, stride=spec.stride,
-                                  padding=spec.padding,
-                                  dilation=spec.dilation, bits=a_bits,
-                                  emit_acc=emit_acc)
+            return kernel_fn(x, wq, acu.device_lut(x.device), acu.offset,
+                             xs, xz, ws, emit_acc=emit_acc, **geom_kw)
 
         return ConvPlan(mode=acu.mode, bits=acu.bits, use_kernels=True,
-                        fused=True, route="fused_conv", spec=spec,
-                        fn=fused_call, report=tuple(report),
-                        bwd_route="banded")
+                        fused=True,
+                        route="tiled" if serve_tiled else "fused_conv",
+                        spec=spec, fn=fused_call, report=tuple(report),
+                        tiling=tiling, bwd_route="banded")
+
+    if spec.groups == 1:
+        r = "im2col"
+    elif spec.groups == cin and cin_g == 1:
+        r = "im2col_depthwise"
+    else:
+        r = "im2col_grouped"
     return ConvPlan(mode=acu.mode, bits=acu.bits, use_kernels=acu.use_kernels,
-                    fused=fused, route="im2col", spec=spec,
-                    report=tuple(report))
+                    fused=fused, route=r, spec=spec, report=tuple(report))
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,9 @@ quantize -> ACU GEMM -> dequant, with the straight-through backward.
 Model code calls :func:`approx_dense` / :func:`conv2d` at its matmul sites
 and an :class:`ApproxConfig` (or None for exact float) decides whether and
 how approximation happens. Conv2D lowers to GEMM by im2col (paper §3.3.1)
-or runs the fused conv kernel, as :func:`~repro_torch.core.acu.conv_plan`
-resolves.
+or runs one of the two fused conv kernels (whole-image or banded), as
+:func:`~repro_torch.core.acu.conv_plan` resolves; grouped and depthwise
+convs lower to GEMMs as in the reference.
 
 The forward body is the reference's STE forward, rounding for rounding:
 weights are quantized outside the kernel, per output channel; the
@@ -537,6 +538,40 @@ def _banded_conv_bwd(acu: Acu, spec: ConvSpec, a_bits: int) -> BwdFn:
     return bwd
 
 
+def _fused_conv(x: torch.Tensor, w: torch.Tensor, cfg: ApproxConfig,
+                plan, xqp: QParams, wqp: QParams) -> torch.Tensor:
+    """A ``fused_conv`` or ``tiled`` plan's forward under the STE: the
+    weight quantized per output channel, the plan's kernel, and the
+    backward the plan implies (exact, or with ``approx_bwd`` the banded
+    kernels 7 and 4). Returns (N, Cout, Ho, Wo) in ``x``'s dtype."""
+    def fwd(x, w, xs, xz, ws, wz):
+        wqp_c = QParams(scale=ws, zero_point=wz, bits=cfg.w_bits, axis=0)
+        wq = acu_operand(quantize(w, wqp_c), wqp_c)
+        return plan(x, wq, xs, xz, ws)
+
+    bwd = (_banded_conv_bwd(cfg.acu, plan.spec, cfg.a_bits)
+           if cfg.approx_bwd else _exact_conv_bwd(plan.spec))
+    y = _ste(fwd, bwd, x, w, xqp, wqp, cfg, w_axis=0)   # (N, Ho, Wo, Cout)
+    return y.permute(0, 3, 1, 2).to(x.dtype)
+
+
+def _depthwise_weight(w: torch.Tensor, cin: int) -> torch.Tensor:
+    """The (Cin*kh*kw, Cout) block-diagonal GEMM weight of a depthwise
+    conv: output channel ``c * mult + o`` reads only the ``kh*kw`` patch
+    features of input channel ``c``; every other entry is a structural
+    0.0."""
+    cout = w.shape[0]
+    kk = w.shape[2] * w.shape[3]
+    mult = cout // cin
+    ch = torch.arange(cin, device=w.device).repeat_interleave(kk)
+    tap = torch.arange(kk, device=w.device).repeat(cin)
+    rows = torch.arange(cin * kk, device=w.device).repeat(mult)
+    cols = torch.cat([ch * mult + o for o in range(mult)])
+    vals = w.reshape(cout, kk)[cols, tap.repeat(mult)]
+    return torch.zeros((cin * kk, cout), dtype=w.dtype,
+                       device=w.device).index_put((rows, cols), vals)
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor] = None, *,
            stride: Sequence[int] = (1, 1), padding="SAME",
@@ -546,10 +581,12 @@ def conv2d(x: torch.Tensor, w: torch.Tensor,
            wqp: Optional[QParams] = None) -> torch.Tensor:
     """2-D convolution. ``x``: (N, Cin, H, W); ``w``: (Cout, Cin/groups,
     kh, kw). With an ``ApproxConfig`` the route comes from
-    :func:`~repro_torch.core.acu.conv_plan`: the fused CUDA conv kernel, or
-    eager im2col + the dense approximate GEMM (``route="im2col"`` pins it).
-    ``xqp``/``wqp`` override the quantizers (``wqp`` per output channel,
-    axis 0)."""
+    :func:`~repro_torch.core.acu.conv_plan`: the whole-image or the banded
+    fused CUDA conv kernel (``route="tiled"`` pins the banded one), eager
+    im2col + the dense approximate GEMM (``route="im2col"`` pins it), or
+    for ``groups > 1`` one dense GEMM against the block-diagonal weight
+    (depthwise) or one per group. ``xqp``/``wqp`` override the ``groups=1``
+    quantizers (``wqp`` per output channel, axis 0)."""
     n, cin = x.shape[:2]
     cout, cin_g, kh, kw = w.shape
     if cin != cin_g * groups:
@@ -559,34 +596,60 @@ def conv2d(x: torch.Tensor, w: torch.Tensor,
         return _exact_conv(x, w, b, spec.stride, spec.padding, spec.dilation,
                            groups)
     if cfg.fake_quant_only:
-        if route == "fused_conv":
-            raise ValueError("route='fused_conv' contradicts "
-                             "cfg.fake_quant_only")
+        if route in ("fused_conv", "tiled"):
+            raise ValueError(f"route={route!r} contradicts "
+                             f"cfg.fake_quant_only")
         route = "im2col"
     fused = cfg.acu.fused if cfg.fused is None else cfg.fused
     plan = conv_plan(cfg.acu, spec, a_bits=cfg.a_bits, fused=fused,
                      route=route)
-    xqp, wqp = _conv_qparams(x, w, cfg, xqp, wqp)
+    geom = (kh, kw, spec.stride, spec.padding, spec.dilation)
 
-    if plan.route == "fused_conv":
-        def fwd(x, w, xs, xz, ws, wz):
-            wqp_c = QParams(scale=ws, zero_point=wz, bits=cfg.w_bits, axis=0)
-            wq = acu_operand(quantize(w, wqp_c), wqp_c)
-            return plan(x, wq, xs, xz, ws)
-
-        bwd = (_banded_conv_bwd(cfg.acu, spec, cfg.a_bits)
-               if cfg.approx_bwd else _exact_conv_bwd(spec))
-        y = _ste(fwd, bwd, x, w, xqp, wqp, cfg, w_axis=0)  # (N, Ho, Wo, Cout)
-        y = y.permute(0, 3, 1, 2).to(x.dtype)
-    else:
-        cols, (ho, wo) = _im2col(x, kh, kw, spec.stride, spec.padding,
-                                 spec.dilation)
+    if plan.route in ("fused_conv", "tiled"):
+        xqp, wqp = _conv_qparams(x, w, cfg, xqp, wqp)
+        y = _fused_conv(x, w, cfg, plan, xqp, wqp)
+    elif plan.route == "im2col":
+        xqp, wqp = _conv_qparams(x, w, cfg, xqp, wqp)
+        cols, (ho, wo) = _im2col(x, *geom)
         wmat = w.reshape(cout, -1).t()                 # (C*kh*kw, Cout)
         m = cols.reshape(-1, cols.shape[-1])           # (N*Ho*Wo, C*kh*kw)
         wqp_mat = QParams(scale=wqp.scale, zero_point=wqp.zero_point,
                           bits=wqp.bits, axis=1)
         y = approx_dense(m, wmat, None, cfg, xqp=xqp, wqp=wqp_mat)
         y = y.reshape(n, ho, wo, cout).permute(0, 3, 1, 2)
+    elif plan.route == "im2col_depthwise":
+        # one GEMM against the block-diagonal weight, one activation scale
+        # over every channel; under a table with M[0, x] != 0 the
+        # structural zeros add their entries, as in the reference
+        cols, (ho, wo) = _im2col(x, *geom)
+        m = cols.reshape(-1, cols.shape[-1])           # (N*P, C*kh*kw)
+        y = approx_dense(m, _depthwise_weight(w, cin), None, cfg)
+        y = y.reshape(n, ho, wo, cout).permute(0, 3, 1, 2)
+    else:
+        # one GEMM per group, each with its own activation scale (the
+        # reference vmaps approx_dense over the group axis); a group's
+        # patch features are a contiguous channel-major slice
+        cpg_in, cpg_out = cin // groups, cout // groups
+        cols, (ho, wo) = _im2col(x, *geom)
+        kk = kh * kw
+        m = cols.reshape(n, ho * wo, groups, cpg_in * kk)
+        m = m.permute(2, 0, 1, 3).reshape(groups, n * ho * wo, cpg_in * kk)
+        wg = w.reshape(groups, cpg_out, cpg_in * kk).transpose(1, 2)
+        yg = torch.stack([approx_dense(m[g], wg[g], None, cfg)
+                          for g in range(groups)])
+        y = yg.reshape(groups, n, ho * wo, cpg_out).permute(1, 2, 0, 3)
+        y = y.reshape(n, ho, wo, cout).permute(0, 3, 1, 2)
     if b is not None:
         y = y + b.reshape(1, -1, 1, 1)
     return y
+
+
+def separable_conv2d(x: torch.Tensor, w_dw: torch.Tensor,
+                     w_pw: torch.Tensor, b: Optional[torch.Tensor] = None, *,
+                     stride: Sequence[int] = (1, 1), padding="SAME",
+                     cfg: Optional[ApproxConfig] = None) -> torch.Tensor:
+    """Depthwise (groups = Cin) then pointwise (1x1) conv, paper eq. (3)."""
+    cin = x.shape[1]
+    y = conv2d(x, w_dw, None, stride=stride, padding=padding, groups=cin,
+               cfg=cfg)
+    return conv2d(y, w_pw, b, stride=(1, 1), padding="VALID", cfg=cfg)

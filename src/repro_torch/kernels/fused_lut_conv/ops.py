@@ -1,14 +1,26 @@
-"""Public wrappers of the fused conv kernels, the forward
-(``csrc/fused_lut_conv.cu``) and the approximate weight gradient
-(``csrc/fused_lut_conv_bwd_w.cu``), and the conv geometry helpers.
+"""Public wrappers of the fused conv kernels: the whole-image forward
+(kernel 5, ``csrc/fused_lut_conv.cu``), the banded forward (kernel 6,
+``csrc/fused_lut_conv_tiled.cu``) and the approximate weight gradient
+(kernel 7, ``csrc/fused_lut_conv_bwd_w.cu``); the conv geometry helpers;
+and the reference's route arithmetic.
 
-The kernel reads the unpadded NCHW image and treats every tap that falls
+Kernel 5 reads the unpadded NCHW image and treats every tap that falls
 outside it as the zero-point code, which is what the reference's quantized
 0.0 padding gives, so spatial padding needs no correction and no padded
 copy of the image. Channels are not padded, so there is no channel-pad
-correction either. The reference's VMEM working-set model has no
-counterpart: the kernel tiles output pixels across the whole batch, so no
-image has to fit on chip.
+correction either. Kernel 5 tiles output pixels across the whole batch,
+so no image has to fit on chip; kernel 6 tiles them by image, band of
+output rows, strip of columns and Cout tile, and quantizes each input
+pixel of its halo'd band once.
+
+**Routing only.** ``CONV_VMEM_BUDGET``, ``MAX_BAND_COPIES``,
+``pick_conv_tiling``, ``conv_vmem_bytes``, ``band_copies``,
+``conv_tiled_vmem_bytes`` and ``pick_conv_spatial_tiling`` are copies of
+the reference's TPU VMEM model. The port uses them for one thing: to send
+each conv down the route the reference sends it (``core.acu.conv_plan``).
+The 12 MiB is the reference's threshold, not a property of the H100, and
+nothing here sizes a CUDA tile with it: kernel 6's own banding comes from
+this card's shared memory (:func:`pick_tiled_kernel_tiling`).
 
 The weight-gradient wrapper drops the reference's ``bh``, ``bn``, ``mc``
 and ``rmask`` arguments: they size VMEM row bands and mask band-padding
@@ -21,11 +33,25 @@ version in ``ref.py``.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import runtime
 from repro_torch.kernels.fused_lut_dense.ops import scale_operands
-from .ref import fused_lut_conv_bwd_w_ref, fused_lut_conv_ref
+from .ref import (fused_lut_conv_bwd_w_ref, fused_lut_conv_ref,
+                  fused_lut_conv_tiled_ref)
+
+# the reference's conservative per-core VMEM budget of its fused conv
+# kernels: a conv whose whole-image working set exceeds it takes the tiled
+# route there (and here), and one where even a one-row band exceeds it
+# takes eager im2col
+CONV_VMEM_BUDGET = 12 << 20
+
+# halo blocks per band the reference's tiled kernel streams before its
+# planner calls the geometry degenerate
+MAX_BAND_COPIES = 4
 
 
 def conv_out_size(size: int, k: int, stride: int, dilation: int,
@@ -41,7 +67,7 @@ def conv_padded_geometry(h: int, w: int, kh: int, kw: int, sh: int, sw: int,
                          bh: int) -> tuple[int, int, int, int, int]:
     """(ho, wo, ho_pad, hp, wp): the output extents, the output rows padded
     to a multiple of ``bh``, and the padded input extents every tap of
-    those rows reads (the reference's geometry, kept for plan reports)."""
+    those rows reads (the reference's geometry, for its VMEM model)."""
     (ph0, ph1), (pw0, pw1) = padding
     ho = conv_out_size(h, kh, sh, dh, (ph0, ph1))
     wo = conv_out_size(w, kw, sw, dw, (pw0, pw1))
@@ -50,6 +76,198 @@ def conv_padded_geometry(h: int, w: int, kh: int, kw: int, sh: int, sw: int,
     need_w = (wo - 1) * sw + (kw - 1) * dw + 1
     return ho, wo, ho_pad, max(h + ph0 + ph1, need_h), \
         max(w + pw0 + pw1, need_w)
+
+
+def pick_conv_tiling(c: int, ho: int, wo: int, cout: int, *,
+                     inner: int = 32, bh: int = 0, bn: int = 128
+                     ) -> tuple[int, int, int]:
+    """The (inner, bh, bn) tiles of the reference's whole-image kernel at
+    this geometry (routing only)."""
+    inner = min(inner, c)
+    if bh <= 0:  # target ~256 patch rows per strip
+        bh = max(1, min(ho, 256 // max(wo, 1)))
+    bh = min(bh, ho)
+    bn = min(bn, cout)
+    return inner, bh, bn
+
+
+def _grid_step_bytes(c_pad: int, bh: int, wo: int, sh: int, sw: int,
+                     inner: int, bn: int) -> int:
+    """Per-grid-step VMEM of both reference kernels: the tap window before
+    and after the strided slice, the gather tensors, the accumulator and
+    output tile."""
+    bm = bh * wo
+    win_rows = (bh - 1) * sh + 1
+    win_cols = (wo - 1) * sw + 1
+    return (4 * c_pad * win_rows * win_cols
+            + 4 * bm * c_pad
+            + 8 * bm * inner * bn
+            + 8 * bm * bn)
+
+
+def conv_vmem_bytes(c: int, h: int, w: int, cout: int, kh: int, kw: int,
+                    sh: int, sw: int, dh: int, dw: int,
+                    padding: tuple[tuple[int, int], tuple[int, int]],
+                    n_codes: int, *, inner: int = 32, bh: int = 0,
+                    bn: int = 128) -> int:
+    """VMEM working set of the reference's whole-image kernel (routing
+    only): image block and code scratch, LUT, weight codes, one grid
+    step."""
+    ho, wo, _, _, _ = conv_padded_geometry(h, w, kh, kw, sh, sw, dh, dw,
+                                           padding, 1)
+    inner, bh, bn = pick_conv_tiling(c, ho, wo, cout, inner=inner, bh=bh,
+                                     bn=bn)
+    _, _, _, hp, wp = conv_padded_geometry(h, w, kh, kw, sh, sw, dh, dw,
+                                           padding, bh)
+    c_pad = c + (-c) % inner
+    return (8 * c_pad * hp * wp
+            + 4 * n_codes * n_codes
+            + 4 * kh * kw * c_pad * bn
+            + _grid_step_bytes(c_pad, bh, wo, sh, sw, inner, bn))
+
+
+def band_copies(bh: int, kh: int, sh: int, dh: int) -> int:
+    """Halo blocks of ``bh*sh`` rows the reference's tiled kernel streams
+    per band of ``bh`` output rows."""
+    s_rows = bh * sh
+    need = (bh - 1) * sh + (kh - 1) * dh + 1
+    return -(-need // s_rows)
+
+
+def conv_tiled_vmem_bytes(c: int, h: int, w: int, cout: int, kh: int,
+                          kw: int, sh: int, sw: int, dh: int, dw: int,
+                          padding: tuple[tuple[int, int], tuple[int, int]],
+                          n_codes: int, *, inner: int, bh: int, bn: int
+                          ) -> int:
+    """VMEM working set of the reference's tiled kernel at band height
+    ``bh`` (routing only): the halo blocks, never the whole image."""
+    ho, wo, _, _, wp = conv_padded_geometry(h, w, kh, kw, sh, sw, dh, dw,
+                                            padding, bh)
+    c_pad = c + (-c) % inner
+    rows = band_copies(bh, kh, sh, dh) * bh * sh
+    return (8 * c_pad * rows * wp
+            + 4 * n_codes * n_codes
+            + 4 * kh * kw * c_pad * bn
+            + _grid_step_bytes(c_pad, bh, wo, sh, sw, inner, bn))
+
+
+def pick_conv_spatial_tiling(c: int, h: int, w: int, cout: int, kh: int,
+                             kw: int, sh: int, sw: int, dh: int, dw: int,
+                             padding: tuple[tuple[int, int], tuple[int, int]],
+                             n_codes: int, *,
+                             budget: int = CONV_VMEM_BUDGET,
+                             inner: int = 32, bn: int = 128
+                             ) -> Optional[tuple[int, int, int, int]]:
+    """The reference's (inner, bh, bn, n_copies) banding: the tallest band
+    whose working set fits ``budget``, or None for degenerate geometry
+    (routing only: the port's planner reads whether it is None)."""
+    ho, wo, _, _, _ = conv_padded_geometry(h, w, kh, kw, sh, sw, dh, dw,
+                                           padding, 1)
+    inner = min(inner, c)
+    bn = min(bn, cout)
+    for bh in range(min(ho, 64), 0, -1):
+        n_copies = band_copies(bh, kh, sh, dh)
+        if n_copies > MAX_BAND_COPIES:
+            continue
+        if conv_tiled_vmem_bytes(c, h, w, cout, kh, kw, sh, sw, dh, dw,
+                                 padding, n_codes, inner=inner, bh=bh,
+                                 bn=bn) <= budget:
+            return inner, bh, bn, n_copies
+    return None
+
+
+# shared memory one block of kernel 6 may use (the H100's opt-in limit)
+SMEM_PER_BLOCK = 232_448
+# threads per block and outputs per thread of kernel 6, as lut_gemm.cuh's
+TILED_THREADS, TILED_TM, TILED_TN = 256, 4, 4
+TILED_MAX_CHUNK = 32     # input channels staged per step, at most
+
+
+def _round16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+@dataclasses.dataclass(frozen=True)
+class TiledKernelTiling:
+    """Kernel 6's tiles: one block computes ``bh`` output rows x ``bw``
+    output columns x ``bn`` output channels of one image, staging ``cc``
+    input channels at a time as one-byte codes of the halo'd band
+    (``rows_in`` x ``cols_in`` input pixels per channel)."""
+
+    bh: int
+    bw: int
+    cc: int
+    bn: int
+    rows_in: int
+    cols_in: int
+    smem_bytes: int
+    tiles: int          # tiles per image: row bands x column strips x Cout
+
+    def describe(self, ho: int) -> str:
+        return (f"bands of {self.bh} output rows x {self.bw} columns "
+                f"({-(-ho // self.bh)} bands, {self.tiles} tiles per image), "
+                f"channel chunk {self.cc}, Cout tile {self.bn}, "
+                f"{self.smem_bytes} B of shared memory")
+
+
+def _tiled_smem(n_codes: int, plane: int, taps: int, cc: int, bn: int
+                ) -> int:
+    """Dynamic shared memory of one kernel-6 block: the int16 table, the
+    band's byte codes, the weight tile's byte codes (as the .cu sizes it)."""
+    return (_round16(n_codes * n_codes * 2) + _round16(cc * plane)
+            + _round16(taps * cc * bn))
+
+
+def pick_tiled_kernel_tiling(c: int, ho: int, wo: int, cout: int, kh: int,
+                             kw: int, sh: int, sw: int, dh: int, dw: int,
+                             n_codes: int, *, bh: int = 0, bn: int = 0
+                             ) -> TiledKernelTiling:
+    """Kernel 6's banding on this card, from its shared memory alone.
+
+    The Cout tile is 16, 32 or 64 wide by Cout (``bn`` pins one of them);
+    256 threads of 4 x 4 outputs then cover ``bm`` = 4096 / ``bn`` output
+    pixels, laid out as ``bh`` rows x ``bw`` columns. ``bh > 0`` pins the
+    band height (clamped to ``bm`` and Ho); otherwise the shape that computes the
+    fewest padded pixels, then stages the fewest halo'd input pixels, wins.
+    The channel chunk is the largest up to 32 whose band and weight codes
+    fit beside the 128 KiB table. Every choice gives the same bits."""
+    if bn <= 0:
+        bn = 16 if cout <= 16 else 32 if cout <= 32 else 64
+    if bn not in (16, 32, 64):
+        raise ValueError(f"kernel 6's Cout tile is 16, 32 or 64, not {bn}")
+    bm = TILED_THREADS * TILED_TM * TILED_TN // bn
+    taps = kh * kw
+    if bh > 0:
+        rows = min(bh, bm, ho)
+        shapes = [(rows, max(1, min(bm // rows, wo)))]
+    else:
+        widths = sorted({min(b, wo) for b in (4, 8, 16, 32, 64, 128, 256)
+                         if b <= bm})
+        shapes = [(min(bm // b, ho), b) for b in widths]
+    best = None
+    for rows, cols in shapes:
+        rows_in = (rows - 1) * sh + (kh - 1) * dh + 1
+        cols_in = (cols - 1) * sw + (kw - 1) * dw + 1
+        plane = rows_in * cols_in
+        cc = min(c, TILED_MAX_CHUNK)
+        while cc > 1 and _tiled_smem(n_codes, plane, taps, cc, bn) \
+                > SMEM_PER_BLOCK:
+            cc -= 1
+        smem = _tiled_smem(n_codes, plane, taps, cc, bn)
+        if smem > SMEM_PER_BLOCK:
+            continue
+        th, tw = -(-ho // rows), -(-wo // cols)
+        key = (th * rows * tw * cols, th * rows_in * tw * cols_in, -cols)
+        tiling = TiledKernelTiling(rows, cols, cc, bn, rows_in, cols_in,
+                                   smem, th * tw * -(-cout // bn))
+        if best is None or key < best[0]:
+            best = (key, tiling)
+    if best is None:
+        raise ValueError(
+            f"kernel 6 cannot stage one channel of a {kh}x{kw} tap window "
+            f"(dilation {dh}x{dw}) beside the table in "
+            f"{SMEM_PER_BLOCK} B of shared memory")
+    return best[1]
 
 
 def fused_lut_conv(x: torch.Tensor, wq: torch.Tensor, lut: torch.Tensor,
@@ -108,6 +326,72 @@ def fused_lut_conv(x: torch.Tensor, wq: torch.Tensor, lut: torch.Tensor,
 
 
 fused_lut_conv.launches = 0
+
+
+def fused_lut_conv_tiled(x: torch.Tensor, wq: torch.Tensor,
+                         lut: torch.Tensor, offset: int, x_scale, x_zp,
+                         w_scale, *, stride=(1, 1),
+                         padding=((0, 0), (0, 0)), dilation=(1, 1),
+                         bits: int = 8, bh: int = 0, bn: int = 0,
+                         emit_acc: bool = False) -> torch.Tensor:
+    """Fused approximate conv2d forward over halo'd output-row bands
+    (kernel 6): the reference's ``fused_lut_conv_tiled`` contract.
+
+    Operands as :func:`fused_lut_conv`. Returns (N, Ho, Wo, Cout) float32,
+    or the raw int32 accumulator with ``emit_acc=True``. ``bh > 0`` pins
+    the band height and ``bn`` the Cout tile (16, 32 or 64); 0 takes
+    :func:`pick_tiled_kernel_tiling`'s. Every band height gives the same
+    bits: integer sums do not depend on how the pixels are tiled.
+    """
+    n_codes = int(round(lut.numel() ** 0.5))
+    n, c, h, w_in = x.shape
+    cout, cin, kh, kw = wq.shape
+    if cin != c:
+        raise ValueError(f"weight expects {cin} input channels, x has {c}")
+    sh, sw = stride
+    dh, dw = dilation
+    (ph0, ph1), (pw0, pw1) = padding
+    ho = conv_out_size(h, kh, sh, dh, (ph0, ph1))
+    wo = conv_out_size(w_in, kw, sw, dw, (pw0, pw1))
+    tiling = pick_tiled_kernel_tiling(c, max(ho, 1), max(wo, 1), cout, kh,
+                                      kw, sh, sw, dh, dw, n_codes, bh=bh,
+                                      bn=bn)
+    if x.device.type == "cpu":
+        return fused_lut_conv_tiled_ref(
+            x, wq, lut.reshape(-1), offset, n_codes, x_scale, x_zp, w_scale,
+            stride=stride, padding=padding, dilation=dilation, bits=bits,
+            bh=tiling.bh, emit_acc=emit_acc)
+    lo = -(1 << (bits - 1))
+    hi = (1 << (bits - 1)) - 1
+    table = runtime.lut_to_int16(lut)
+    x = x.contiguous()
+    # (kh*kw, C, Cout): each tap's (C, Cout) slab contiguous, the
+    # reference's tap-major layout
+    wtap = wq.permute(2, 3, 1, 0).reshape(kh * kw, c, cout).contiguous()
+    xs, xz, ws = scale_operands(x_scale, x_zp, w_scale, cout, x.device)
+    for t, name, dt in ((x, "x", torch.float32), (wtap, "wq", torch.int32),
+                        (table, "lut", torch.int16)):
+        runtime.check_cuda_operand(t, name, dt, x.device)
+    out = torch.empty((n, max(ho, 0), max(wo, 0), cout), device=x.device,
+                      dtype=torch.int32 if emit_acc else torch.float32)
+    if out.numel() == 0:
+        return out
+    if out.numel() >= 2 ** 31:
+        raise ValueError("conv output has too many elements for 32-bit "
+                         "indices")
+    lib = runtime.kernel_library("fused_lut_conv_tiled")
+    blocks, stream = runtime.launch_config(x)
+    lib.check(lib.launch(x.data_ptr(), wtap.data_ptr(), table.data_ptr(),
+                         xs.data_ptr(), xz.data_ptr(), ws.data_ptr(),
+                         out.data_ptr(), int(emit_acc), n, c, h, w_in, cout,
+                         kh, kw, sh, sw, ph0, pw0, dh, dw, ho, wo, n_codes,
+                         offset, lo, hi, tiling.bh, tiling.bw, tiling.cc,
+                         tiling.bn, blocks, stream))
+    fused_lut_conv_tiled.launches += 1
+    return out
+
+
+fused_lut_conv_tiled.launches = 0
 
 
 def fused_lut_conv_bwd_w(x: torch.Tensor, g: torch.Tensor, lut: torch.Tensor,

@@ -49,6 +49,9 @@ SIGNATURES = {
     "fused_lut_conv": ("fused_lut_conv_launch",
                        [_P, _P, _P, _P, _P, _P, _P, _I] + [_I] * 15
                        + [_I, _I, _I, _I, _I, _P]),
+    "fused_lut_conv_tiled": ("fused_lut_conv_tiled_launch",
+                             [_P] * 7 + [_I] + [_I] * 15 + [_I] * 4
+                             + [_I] * 4 + [_I, _P]),
     "fused_lut_bwd": ("fused_lut_bwd_launch",
                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _I, _I, _P]),

@@ -210,6 +210,7 @@ def test_fused_lut_conv_bwd_w_matches_reference(ref, geom, table):
 
 
 def test_conv_geometry_helpers_match_reference(ref):
+    from repro_torch.kernels.fused_lut_conv import ops
     from repro_torch.kernels.fused_lut_conv.ops import (conv_out_size,
                                                         conv_padded_geometry)
     for args in [(32, 3, 1, 1, (1, 1)), (32, 3, 2, 1, (0, 1)),
@@ -217,6 +218,43 @@ def test_conv_geometry_helpers_match_reference(ref):
         assert conv_out_size(*args) == ref[2].conv_out_size(*args)
     g = (13, 11, 3, 3, 2, 1, 1, 2, ((1, 1), (2, 2)), 4)
     assert conv_padded_geometry(*g) == ref[2].conv_padded_geometry(*g)
+    # the reference's VMEM route arithmetic, copied for routing: equal over
+    # a grid of shapes, tilings and budgets
+    assert (ops.CONV_VMEM_BUDGET, ops.MAX_BAND_COPIES) == \
+        (ref[2].CONV_VMEM_BUDGET, ref[2].MAX_BAND_COPIES)
+    geoms = [  # (c, h, w, cout, kh, kw, sh, sw, dh, dw, padding)
+        (64, 224, 224, 64, 3, 3, 1, 1, 1, 1, ((1, 1), (1, 1))),
+        (128, 112, 112, 128, 3, 3, 1, 1, 1, 1, ((1, 1), (1, 1))),
+        (3, 224, 224, 64, 3, 3, 1, 1, 1, 1, ((1, 1), (1, 1))),
+        (512, 14, 14, 512, 3, 3, 1, 1, 1, 1, ((1, 1), (1, 1))),
+        (8, 20, 20, 8, 5, 5, 1, 1, 3, 3, ((6, 6), (6, 6))),
+        (16, 30, 14, 32, 3, 3, 2, 2, 2, 2, ((2, 2), (2, 2))),
+        (40, 9, 33, 4, 3, 3, 1, 1, 1, 1, ((1, 1), (1, 1))),
+        (5, 13, 11, 6, 1, 1, 2, 2, 1, 1, ((0, 0), (0, 0))),
+    ]
+    for geo in geoms:
+        c, h, w, cout = geo[:4]
+        ho = conv_out_size(h, geo[4], geo[6], geo[8], geo[10][0])
+        wo = conv_out_size(w, geo[5], geo[7], geo[9], geo[10][1])
+        for kw in (dict(), dict(inner=8, bh=3, bn=16)):
+            assert ops.pick_conv_tiling(c, ho, wo, cout, **kw) == \
+                ref[2].pick_conv_tiling(c, ho, wo, cout, **kw)
+        for n_codes in (256, 16):
+            assert ops.conv_vmem_bytes(*geo, n_codes) == \
+                ref[2].conv_vmem_bytes(*geo, n_codes)
+            for bh in (1, 2, 7):
+                assert ops.band_copies(bh, geo[4], geo[6], geo[8]) == \
+                    ref[2].band_copies(bh, geo[4], geo[6], geo[8])
+                kw = dict(inner=min(32, c), bh=bh, bn=min(128, cout))
+                assert ops.conv_tiled_vmem_bytes(*geo, n_codes, **kw) == \
+                    ref[2].conv_tiled_vmem_bytes(*geo, n_codes, **kw)
+            for budget in (128 << 10, 1 << 20, 4 << 20, 12 << 20):
+                assert ops.pick_conv_spatial_tiling(
+                    *geo, n_codes, budget=budget) == \
+                    ref[2].pick_conv_spatial_tiling(*geo, n_codes,
+                                                    budget=budget)
+        assert ops._grid_step_bytes(c, 2, wo, geo[6], geo[7], 8, 16) == \
+            ref[2]._grid_step_bytes(c, 2, wo, geo[6], geo[7], 8, 16)
 
 
 # ---------------------------------------------------------------------------
@@ -240,7 +278,8 @@ def test_every_kernel_source_has_a_signature():
     assert names == set(runtime.SIGNATURES) == {
         "lut_matmul", "fused_lut_dense", "fused_lut_conv", "fused_lut_bwd",
         "fused_lut_conv_bwd_w", "approx_flash_attention", "err_matmul",
-        "fused_lut_grouped", "quantize", "wkv", "flash_attention"}
+        "fused_lut_grouped", "quantize", "wkv", "flash_attention",
+        "fused_lut_conv_tiled"}
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -253,15 +292,16 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 def test_cpu_tensors_never_launch():
     from repro_torch.kernels.err_matmul.ops import err_matmul
     from repro_torch.kernels.quantize.ops import quantize
+    from repro_torch.kernels.fused_lut_conv.ops import fused_lut_conv_tiled
     ops = (lut_matmul, fused_lut_dense, fused_lut_conv, fused_lut_bwd,
-           fused_lut_conv_bwd_w, err_matmul, quantize)
+           fused_lut_conv_bwd_w, err_matmul, quantize, fused_lut_conv_tiled)
     before = [op.launches for op in ops]
     cfg = ApproxConfig(acu=make_acu(MULT, "lut", use_kernels=True,
                                     fused=True), approx_bwd=True)
     from repro_torch.core import approx_dense, conv2d
     x = torch.randn(1, 3, 6, 6, requires_grad=True)
     w = torch.randn(4, 3, 3, 3, requires_grad=True)
-    y = conv2d(x, w, cfg=cfg)
+    y = conv2d(x, w, cfg=cfg) + conv2d(x, w, cfg=cfg, route="tiled")
     approx_dense(y.mean(dim=(2, 3)), torch.randn(4, 2, requires_grad=True),
                  None, cfg).sum().backward()
     assert x.grad is not None and w.grad is not None
