@@ -36,15 +36,30 @@
    three LM engines (waves, continuous, paged KV): first holds the
    approximate flash attention kernels (contiguous and paged) against their
    plain versions on the card (every element within the summation-order ulp
-   term, at most ATTN_FLIP_ROWS rows beyond it by one code flip), and the
-   fused dense
-   kernel bitwise, at the slice's decode and prefill shapes; then serves 64
+   term, at most ATTN_FLIP_ROWS rows beyond it by one code flip), the
+   paged kernel's decode path (one item per batch row and KV head) also
+   under a biased table, with a planted fault (one batch row's page table
+   shifted by one page) shown beyond that tolerance, and the fused dense
+   kernel bitwise (at M = 32 also its raw accumulator on a biased table),
+   at the slice's decode and prefill shapes, with each shape's work plan;
+   then serves 64
    requests (prompts of 16 to 200 tokens, 16 of them sharing a 128-token
    prefix, 64 new tokens each) through each engine with the launch counters
    set to 0 just before and checked just after against 30 attention,
    211 dense and 211 quantize launches per model call; checks one short
    request against the CPU run's tokens; profiles one decode step of each
    KV layout;
+6b. holds the fused dense kernel (kernel 3) where its work plan matters:
+   prints the plan (tile, items, splits, SMs with work, tile rows past M)
+   at every M = 32 GEMM of SmolLM-135M, granite-moe-3b-a800m, rwkv6-3b and
+   CNN-224 and checks that each keeps every SM busy with no row past M;
+   holds it bitwise, float32 and the raw accumulator on a biased table, at
+   M = 1, M = 33, a ragged K, rwkv6-3b's 2560 x 2560 and CNN-224's f1
+   (32 x 200,704 x 512, its first and last 32 columns) and f2; shows a
+   planted fault (a plan with one K split dropped) caught; times the
+   rwkv6-3b GEMM and f1 and f2; and measures bank conflicts: the kernel
+   on real codes against codes that put a warp's 32 gathers in 32 banks,
+   beside the same measurement on the old shared core (lut_matmul);
 7. runs Table 4's emulation-mode ladder on ResNet-20 at full width, one
    wave of 256 images per row through ``VisionServeEngine``: native (no
    ACU), baseline LUT (the plain one-gather LUT GEMM), the LUT engine fused
@@ -365,8 +380,8 @@ def profile(torch, name: str, fn, wall_ms=None, lead: int = 0):
     before ``fn`` and leaves them out of the rows: late in this script's
     process the CNN-224 wave's trace has lost its first few dozen device
     records (the input copy and the first two convs; one spin ahead of
-    them moved that edge by one record). Returns ``fn``'s result and the
-    traced wall in ms."""
+    them moved that edge by one record). Returns ``fn``'s result, the
+    traced wall in ms and the rows (kernel name, device ms, count)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
@@ -390,7 +405,7 @@ def profile(torch, name: str, fn, wall_ms=None, lead: int = 0):
     rows.sort(key=lambda r: -r[1])
     if not rows:
         print(f"  profile {name}: no device time in the trace (not measured)")
-        return out, traced_ms
+        return out, traced_ms, rows
     busy = sum(r[1] for r in rows)
     print(f"  profile {name}: device busy {busy:.3f} ms of {wall_ms:.3f} "
           f"ms wall ({how}), idle share {1 - busy / wall_ms:.3f}; "
@@ -398,7 +413,7 @@ def profile(torch, name: str, fn, wall_ms=None, lead: int = 0):
     for key, ms, count in rows[:10] + [r for r in rows[10:]
                                        if r[0].startswith("Memcpy")]:
         print(f"    {ms:9.3f} ms  {count:4d}x  {key[:90]}")
-    return out, traced_ms
+    return out, traced_ms, rows
 
 
 class Check:
@@ -507,6 +522,179 @@ def serve_lm(torch, check, E, engines, prompts, n_new, cfg, ops, launches,
     return rates
 
 
+def biased_lut(np):
+    """The exact 8-bit product plus 7, flattened (int32): LUT[0, x] != 0,
+    so a padded or masked slot that a kernel sums shows."""
+    v = np.arange(-128, 128, dtype=np.int32)
+    return (v[:, None] * v[None, :] + 7).reshape(-1)
+
+
+def dense_phase(torch, np, dev, check, acu, ops, lookups_per_s,
+                lut_bytes, n_sm) -> dict:
+    """Kernel 3 (fused_lut_dense) as redesigned: its work plan at every
+    M = 32 GEMM of SmolLM-135M, granite-moe-3b-a800m, rwkv6-3b and CNN-224
+    (all SMs busy, no tile row past M), bitwise checks at M = 1, M = 33, a
+    ragged K, rwkv6-3b's and CNN-224's GEMMs (f1's plain GEMM on its first
+    and last 32 columns) and the raw accumulator on a biased table, a
+    planted fault (a plan with one K split dropped), times by regime, and
+    the bank-conflict measurement: the same kernel on real codes and on
+    codes that put a warp's 32 gathers in 32 banks, beside the same
+    measurement on the shared core the old kernel 3 ran (lut_matmul).
+    Returns the regime times."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import acu_operand, quantize, symmetric_qparams
+    from repro_torch.kernels.fused_lut_dense.ops import (
+        DensePlan, dense_plan, fused_lut_dense_planned)
+    from repro_torch.kernels.fused_lut_dense.ref import fused_lut_dense_ref
+
+    lut16 = acu.device_lut(dev)
+    lut32 = torch.from_numpy(acu.lut.reshape(-1)).to(dev)
+    b32 = torch.from_numpy(biased_lut(np)).to(dev)
+    b16 = b32.to(torch.int16)
+    off, n_codes = acu.offset, acu.multiplier.n_codes
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    t_phase = time.perf_counter()
+
+    def operands(m, k, n):
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+        xqp = symmetric_qparams(torch.clamp_min(x.abs().amax().float(),
+                                                1e-6), 8)
+        wqp = symmetric_qparams(torch.clamp_min(w.abs().amax(dim=0), 1e-9),
+                                8, axis=1)
+        wq = acu_operand(quantize(w, wqp), wqp).contiguous()
+        return x, wq, (xqp.scale, xqp.zero_point, wqp.scale), xqp
+
+    # -- the plan at every M = 32 GEMM of the served models -----------------
+    print(f"fused_lut_dense (kernel 3) work plans at M = {LM_SLOTS} on "
+          f"{n_sm} SMs (tile, items = segments, splits = most segments on "
+          f"one tile, SMs with work, tile rows past M):")
+    shapes = []
+    for arch in (LM_ARCH, MOE_ARCH, RWKV_ARCH):
+        c = get_config(arch)
+        q, kv = c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
+        if arch == RWKV_ARCH:
+            gl = [("Wr..Wo", c.d_model, c.d_model),
+                  ("Wk_cm", c.d_model, c.d_ff), ("Wv_cm", c.d_ff, c.d_model)]
+        else:
+            gl = [("q/o", c.d_model, q), ("k/v", c.d_model, kv)]
+            if arch == LM_ARCH:
+                gl += [("gate/up", c.d_model, c.d_ff),
+                       ("down", c.d_ff, c.d_model)]
+        gl.append(("head", c.d_model, c.vocab_padded))
+        shapes += [(f"{arch} {lab}", LM_SLOTS, kk, nn) for lab, kk, nn in gl]
+    f1_k = 4 * CNN_WIDTH * (CNN_IMG // 8) ** 2
+    shapes += [("CNN-224 f1", CNN_SLOTS, f1_k, 8 * CNN_WIDTH),
+               ("CNN-224 f2", CNN_SLOTS, 8 * CNN_WIDTH, CNN_CLASSES)]
+    full = []
+    for label, m, k, n in shapes:
+        sm = dense_plan(m, k, n, n_sm).summary()
+        full.append(sm["sms"] == n_sm and sm["rows_past_m"] == 0)
+        print(f"  {label:34s} {m}x{k}x{n}: {sm}")
+    check(all(full), f"every M = {LM_SLOTS} plan puts work on all {n_sm} "
+                     f"SMs and no tile row past M")
+
+    # -- bitwise at the redesign's edge shapes -------------------------------
+    cases = [("M = 1", 1, 576, 576, None), ("M = 33", 33, 576, 576, None),
+             ("ragged K, N = 200", 32, 570, 200, None),
+             ("rwkv6-3b Wr..Wo", LM_SLOTS, 2560, 2560, None),
+             ("CNN-224 f2", CNN_SLOTS, 512, CNN_CLASSES, None),
+             ("CNN-224 f1", CNN_SLOTS, f1_k, 8 * CNN_WIDTH, 32)]
+    for label, m, k, n, cols in cases:
+        x, wq, a3, _ = operands(m, k, n)
+        same = []
+        for l16, l32, emit in ((lut16, lut32, False), (b16, b32, True)):
+            yk = ops["fused_lut_dense"](x, wq, l16, off, *a3, emit_acc=emit)
+            for cs in ((slice(0, n),) if cols is None else
+                       (slice(0, cols), slice(n - cols, n))):
+                yp = fused_lut_dense_ref(x, wq[:, cs].contiguous(), l32, off,
+                                         n_codes, a3[0], a3[1], a3[2][cs],
+                                         emit_acc=emit)
+                same.append(torch.equal(yk[:, cs], yp))
+            del yk
+        sm = dense_plan(m, k, n, n_sm).summary()
+        check(all(same), f"fused_lut_dense {label} {m}x{k}x{n}: float32 "
+                         f"and emit_acc on a biased table bitwise equal to "
+                         f"the plain version"
+                         + ("" if cols is None else
+                            f" (its first and last {cols} columns)")
+                         + f"; plan {sm}")
+
+    # -- planted fault: a plan with one K split dropped ----------------------
+    x, wq, a3, _ = operands(LM_SLOTS, 2560, 2560)
+    plan = dense_plan(LM_SLOTS, 2560, 2560, n_sm)
+    i = int(np.flatnonzero(plan.segments[:, 3] >= 0)[0])
+    bad = DensePlan(**{**plan.__dict__,
+                       "segments": np.delete(plan.segments, i, axis=0),
+                       "offsets": tuple(int(o - (o > i))
+                                        for o in plan.offsets)})
+    caught = []
+    for emit in (False, True):
+        yk = fused_lut_dense_planned(x, wq, lut16, off, *a3, plan=bad,
+                                     emit_acc=emit)
+        caught.append(not torch.equal(yk, fused_lut_dense_ref(
+            x, wq, lut32, off, n_codes, *a3, emit_acc=emit)))
+    check(all(caught), f"planted fault: the {LM_SLOTS}x2560x2560 plan with "
+                       f"segment {i} (tile {plan.segments[i, 0]}, K groups "
+                       f"{plan.segments[i, 1]}..{plan.segments[i, 2]}) "
+                       f"dropped differs from the plain version, float32 "
+                       f"and emit_acc")
+
+    # -- times by regime ------------------------------------------------------
+    times = {}
+    for label, m, k, n in (("rwkv6-3b GEMM", LM_SLOTS, 2560, 2560),
+                           ("CNN-224 f1", CNN_SLOTS, f1_k, 8 * CNN_WIDTH),
+                           ("CNN-224 f2", CNN_SLOTS, 8 * CNN_WIDTH,
+                            CNN_CLASSES)):
+        x, wq, a3, _ = operands(m, k, n)
+        ms = cuda_ms(torch, lambda: ops["fused_lut_dense"](x, wq, lut16, off,
+                                                           *a3), 10)
+        bound = max((m * k * 2 + k * n * 4 + lut_bytes + m * n * 4)
+                    / HBM_BYTES_PER_S, m * k * n / lookups_per_s) * 1e3
+        times[label] = ms
+        print(f"  {label} {m}x{k}x{n}: {ms:.4f} ms, "
+              f"{m * k * n / ms / 1e9:.3f} T lookups/s, bound {bound:.4f} ms",
+              flush=True)
+        del x, wq
+
+    # -- bank conflicts: real codes against conflict-free ones ---------------
+    print("  bank conflicts (ms on real codes / ms on codes that put a "
+          "warp's gathers in 32 distinct banks; same kernel, same shape):")
+    for m, k, n in ((LM_SLOTS, 2560, 2560), (1024, 4608, 4608)):
+        plan = dense_plan(m, k, n, n_sm)
+        x, wq, a3, xqp = operands(m, k, n)
+        # new: a warp gathers one table row at its 32 lanes' columns; lane
+        # l's column j reads code 2l + 64 (j % 4): word l + 32 (j % 4),
+        # bank l
+        col = torch.arange(n, device=dev)
+        free_w = (2 * (col % plan.bn // plan.tn) + 64 * (col % plan.tn % 4)
+                  - 128).to(torch.int32)[None, :].expand(k, n).contiguous()
+        free_x = torch.full((m, k), 0.5, device=dev)
+        new = [cuda_ms(torch, lambda: ops["fused_lut_dense"](
+            xx, ww, lut16, off, *a3), 10) for xx, ww in
+            ((x, wq), (free_x, free_w), (x, wq))]
+        # the old core (lut_gemm.cuh, still lut_matmul's): half-warps of
+        # 16 columns on two rows; conflict-free when every row holds one
+        # code and a half-warp's 16 columns read codes 2c (banks c)
+        a = acu_operand(quantize(x, xqp), xqp).contiguous()
+        free_a = torch.zeros_like(a)
+        free_b = (2 * (col % 16) - 128).to(torch.int32)[None, :].expand(
+            k, n).contiguous()
+        old = [cuda_ms(torch, lambda: ops["lut_matmul"](aa, ww, lut16, off),
+                       5) for aa, ww in ((a, wq), (free_a, free_b), (a, wq))]
+        rn, ro = min(new[0], new[2]) / new[1], min(old[0], old[2]) / old[1]
+        times[f"conflicts {m}"] = (rn, ro)
+        print(f"    {m}x{k}x{n}: fused_lut_dense {new[0]:.4f} / {new[1]:.4f}"
+              f" ms (again {new[2]:.4f}): x{rn:.2f}; the old core "
+              f"(lut_matmul) {old[0]:.4f} / {old[1]:.4f} ms (again "
+              f"{old[2]:.4f}): x{ro:.2f}", flush=True)
+        del x, wq, a, free_a, free_b, free_w, free_x
+    torch.cuda.empty_cache()
+    print(f"kernel 3 phase: {time.perf_counter() - t_phase:.1f} s")
+    return times
+
+
 def attn_work(np, info, sq: int, hq: int, hkv: int, d: int, itemsize: int):
     """(bytes, lookups) one attention call must touch for (B, 3) rows of
     [q_base, kv_start, kv_len]: every real query row reads its visible
@@ -533,7 +721,10 @@ def lm_phase(torch, np, dev, check, acu, ops, launches, account,
     from repro_torch.core import (ApproxConfig, acu_operand,
                                   inline_symmetric_scale, quantize,
                                   symmetric_qparams)
+    from repro_torch.kernels import runtime
     from repro_torch.kernels.flash_attention import ref as aref
+    from repro_torch.kernels.flash_attention.ops import decode_plan
+    from repro_torch.kernels.fused_lut_dense.ops import dense_plan
     from repro_torch.kernels.fused_lut_dense.ref import fused_lut_dense_ref
     from repro_torch.models.transformer import (init_cache, init_paged_cache,
                                                 init_params)
@@ -621,6 +812,8 @@ def lm_phase(torch, np, dev, check, acu, ops, launches, account,
                 rowinfo=rows_h)
             kd, vd = k, v
             bk = 128
+        if name == "paged decode":
+            decode_case = (q, pt, pt_h, s3, rows, rows_h)
         yk, yp = kern(), plain()
         pv_scale = aref.attn_scales(*s3, d, 127)[1]
         agree = aref.same_device_agreement(yk, yp, lut32, off, 127, pv_scale,
@@ -653,12 +846,46 @@ def lm_phase(torch, np, dev, check, acu, ops, launches, account,
         if name.endswith("decode"):   # the JSON row: one decode step
             account(kname, cfg.n_layers, ms, pms, lib, bytes_, lookups, err)
 
+    # -- kernel 9's decode path: a biased table, and a planted fault --------
+    q, pt, pt_h, s3, rows, rows_h = decode_case
+    plan = decode_plan(q.shape[0] * hq, 1, d, hq // hkv, hq, LM_BLOCK, 2,
+                       n_codes, n_log, runtime.sm_count(0))
+    print(f"  approx_flash_attention_paged decode plan: {plan.items} items "
+          f"of {plan.heads} query heads (one per batch row and KV head), "
+          f"{plan.per_block} a block, {plan.grid} blocks, {plan.smem} B of "
+          f"shared memory")
+    b32 = torch.from_numpy(biased_lut(np)).to(dev)
+    pv_scale = aref.attn_scales(*s3, d, 127)[1]
+    for label, l16, l32, table in (
+            ("biased table", b32.to(torch.int16), b32, pt),
+            ("planted fault: batch row 0's page table shifted by one page",
+             lut16, lut32, torch.cat([pt[:1].roll(1, dims=1), pt[1:]]))):
+        yk = ops["approx_flash_attention_paged"](
+            q, k_pool, v_pool, l16, off, *s3, rowinfo=rows,
+            page_table=table, row_heads=hq, rep=hq // hkv)
+        yp = aref.approx_attention_paged_ref(
+            q.reshape(-1, 1, d), k_pool, v_pool, l32, off, *s3,
+            rowinfo=rows_h, page_table=pt_h, rep=hq // hkv)
+        agree = aref.same_device_agreement(yk, yp, l32, off, 127, pv_scale,
+                                           LM_BLOCK)
+        held = agree["within_flip"] and agree["flip_rows"] <= ATTN_FLIP_ROWS
+        fault = label.startswith("planted")
+        check(held != fault,
+              f"approx_flash_attention_paged decode, {label}: max |diff| "
+              f"{agree['max_err']:.3e}, {agree['flip_rows']} rows beyond "
+              f"{agree['ulp_tol']:.3e} (one flip {agree['flip_tol']:.3e}): "
+              + ("caught, beyond the tolerance" if fault else
+                 "within the tolerance"))
+    del decode_case
+
     # -- kernel 3 at the LM's GEMM shapes, bitwise --------------------------
     print("  fused_lut_dense at the LM's GEMM shapes, bitwise:")
     gemms = [("q/o", cfg.d_model, hq * d, 2), ("k/v", cfg.d_model, hkv * d, 2),
              ("gate/up", cfg.d_model, cfg.d_ff, 2),
              ("down", cfg.d_ff, cfg.d_model, 1),
              ("head", cfg.d_model, cfg.vocab_padded, 1)]
+    b16 = b32.to(torch.int16)
+    step_ms = 0.0
     for m_rows in (b, 256):
         for label, kk, nn, per_layer in gemms:
             x = rand(m_rows, kk)
@@ -671,9 +898,19 @@ def lm_phase(torch, np, dev, check, acu, ops, launches, account,
             kern = lambda: ops["fused_lut_dense"](x, wq, lut16, off, *a3)
             yk = kern()
             yp = fused_lut_dense_ref(x, wq, lut32, off, n_codes, *a3)
-            check(torch.equal(yk, yp), f"fused_lut_dense {label} "
-                                       f"{m_rows}x{kk}x{nn}: bitwise equal "
-                                       f"to the plain version")
+            same = torch.equal(yk, yp)
+            if m_rows == b:      # the raw accumulator on the biased table
+                same = same and torch.equal(
+                    ops["fused_lut_dense"](x, wq, b16, off, *a3,
+                                           emit_acc=True),
+                    fused_lut_dense_ref(x, wq, b32, off, n_codes, *a3,
+                                        emit_acc=True))
+            plan = dense_plan(m_rows, kk, nn, runtime.sm_count(0)).summary()
+            check(same, f"fused_lut_dense {label} {m_rows}x{kk}x{nn}: "
+                        f"bitwise equal to the plain version"
+                        + (", and emit_acc on a biased table"
+                           if m_rows == b else "")
+                        + f"; plan {plan}")
             ms = cuda_ms(torch, kern, 10)
             xf, wf = x.float(), w.float()
             lib = cuda_ms(torch, lambda: torch.matmul(xf, wf), 10)
@@ -690,7 +927,10 @@ def lm_phase(torch, np, dev, check, acu, ops, launches, account,
                         m_rows * kk * 2 + kk * nn * 4 + lut_bytes
                         + m_rows * nn * 4, m_rows * kk * nn, 0.0)
                 line += f" (plain {pms:.2f} ms, x{count} per decode step)"
+                step_ms += count * ms
             print(line, flush=True)
+    print(f"  fused_lut_dense per SmolLM decode step ({7 * cfg.n_layers + 1} "
+          f"GEMMs at M = {b}): {step_ms:.3f} ms")
     del kc, vc, k_pool, v_pool
 
     # -- serve 64 requests through each engine -----------------------------
@@ -875,9 +1115,7 @@ def moe_phase(torch, np, dev, check, acu, ops, launches, account,
         h = silu(gate.to(bf)) * up.to(bf)
         hold(f"{label} down", h, "w_down", cnt, step // 2)
         if label == "decode":
-            biased = np.arange(-128, 128, dtype=np.int32)
-            biased = (biased[:, None] * biased[None, :] + 7).reshape(-1)
-            b32 = torch.from_numpy(biased).to(dev)
+            b32 = torch.from_numpy(biased_lut(np)).to(dev)
             hold("decode gate, biased", xg, "w_gate", cnt,
                  table=(lut_to_int16(b32), b32), emit=True)
     geo = M.dispatch_geometry(cfg, 512)
@@ -1477,13 +1715,22 @@ def score_phase(torch, np, dev, check, acu, ops, launches,
     # one forward, profiled: its host-clock wall (ending in the loss's
     # device-to-host read) gives the scored tokens/s
     with torch.no_grad():
-        loss, wall_ms = profile(torch, "gemma2-27b loss_fn forward", score)
+        loss, wall_ms, rows = profile(torch, "gemma2-27b loss_fn forward",
+                                      score)
     dt = wall_ms / 1e3
     counts = {k: op.launches for k, op in ops.items()}
     for k in ops:
         launches[k] += counts[k]
     peak = torch.cuda.max_memory_allocated() / 2**30
     rate = SCORE_TOKENS / dt
+    k3_ms = sum(ms for key, ms, _ in rows if "fused_lut_dense" in key)
+    per_layer = (2 * dm * qd + 2 * dm * kvd + 3 * dm * cfg.d_ff)
+    k3_lookups = SCORE_TOKENS * (cfg.n_layers * per_layer
+                                 + dm * cfg.vocab_padded)
+    print(f"  fused_lut_dense in the forward: {k3_ms / 1e3:.3f} s of device "
+          f"time for {k3_lookups / 1e12:.2f} T lookups, "
+          + (f"{k3_lookups / k3_ms / 1e9:.3f} T lookups/s" if k3_ms else
+             "rate not measured (no device time traced)"), flush=True)
     print(f"  scored {SCORE_TOKENS} tokens of MarkovLM(vocab="
           f"{cfg.vocab_size}, seed=0) through loss_fn: loss {loss:.4f} "
           f"(ln vocab {np.log(cfg.vocab_size):.4f}), {dt:.1f} s, {rate:.1f} "
@@ -2558,6 +2805,10 @@ def main() -> int:
     lm_rates = lm_phase(torch, np, dev, check, acu, ops, launches, account,
                         lookups_per_s, lut_bytes)
 
+    # -- 6b. kernel 3's redesign: plans, edge shapes, conflicts ------------
+    dense_times = dense_phase(torch, np, dev, check, acu, ops,
+                              lookups_per_s, lut_bytes, n_sm)
+
     # -- 7. Table 4's emulation-mode ladder ---------------------------------
     ladder = ladder_phase(torch, np, dev, check, ops, launches, params,
                           images)
@@ -2629,6 +2880,12 @@ def main() -> int:
     print("Table 4 ladder, ms per wave of 256: " + ", ".join(
         f"{k} {v:.3f} ({ladder['baseline_lut'] / v:.2f}x)"
         for k, v in ladder.items()))
+    print("fused_lut_dense (kernel 3) by regime: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in dense_times.items()
+        if not k.startswith("conflicts")) + "; bank-conflict replay "
+        "(real / conflict-free codes) " + ", ".join(
+        f"M={k.split()[1]}: {v[0]:.2f} (old core {v[1]:.2f})"
+        for k, v in dense_times.items() if k.startswith("conflicts")))
     print("Table 2 arc:\n" + "\n".join(table2))
     if check.failures:
         print(f"chip_smoke: {len(check.failures)} check(s) failed",

@@ -46,6 +46,29 @@
 // softmax one row per warp. Padding rows of a q tile are not computed (only
 // their tile's block bound is used), so a decode step costs one row.
 //
+// Paged decode (kernel 9 with at most 8 query rows per (batch row, KV
+// head): rep heads x Sq <= 8, 16-key pages, head dim 64 or 128) runs its
+// own path, approx_decode_kernel, chosen by the wrapper
+// (kernels/flash_attention/ops.py: decode_plan):
+//  * a work item is one (batch row, KV head) with its rep query heads,
+//    rows b = g * rep + t (ir = b / row_heads and kvr = (b / rep) % KH, as
+//    above), on a group of 8 warps, two items a block of 512 threads: one
+//    warp a query row; every page is read and quantized once per item and
+//    serves all its rows;
+//  * the item's page-table row is read into shared memory once; the warps
+//    without a row copy pages into a ring of 4 cp.async stages and
+//    quantize the next page (K by key, V transposed) while the row warps
+//    compute the current one (the correctly rounded quantizers cost more
+//    than the gathers of a page). The item's warps meet at one named
+//    barrier a page: no block-wide barrier inside the KV loop;
+//  * per page and row, in one warp: QK as 16 keys x 2 halves of the head
+//    dim over the lanes, one shuffle to add the halves; the online softmax
+//    with the same reductions as the path above; PV as the head dim over
+//    the lanes, 16 gathers each.
+// Every semantic above holds on it: KV walked in order one 16-key page at
+// a time, the causal bound of the whole padded q tile, masked keys adding
+// LUT[code(p), v], the alpha = 0 rescale of a fully masked page.
+//
 // Float glue: __fdiv_rn in the quantizers, rintf (half to even), expf and
 // tanhf (no fast math), __fmul_rn / __fadd_rn where the reference rounds a
 // product and a sum separately. The scales stay on the device.
@@ -97,6 +120,8 @@ struct Params {
   long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss;
   int n_codes, offset, lo, hi, causal, window, has_softcap, paged;
   float softcap;
+  int dec_rows;           // decode path: query heads of one item (0: off)
+  int dec_items;          // decode path: items per block
 };
 
 // Shared memory carve-up, the same on host and device.
@@ -272,6 +297,312 @@ approx_attention_kernel(Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// paged decode: one item (batch row, KV head) on a group of 8 warps, one
+// warp a query row, the others copying and quantizing its pages
+// ---------------------------------------------------------------------------
+constexpr int kPage = 16;          // keys of one page (the pool's block size)
+constexpr int kStages = 4;         // cp.async ring depth, in pages
+constexpr int kItemWarps = 8;      // warps of one item
+constexpr int kDecodeThreads = 512;  // two items a block
+
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+// the warps of one item only (a named barrier, never the whole block)
+__device__ __forceinline__ void group_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Shared memory of the decode path: the table, then per item slot a ring
+// of raw pages (K then V, as stored), two buffers of codes (K by key, rows
+// padded to D + 8 bytes; V transposed, rows of 16 keys padded to 20 bytes;
+// both so that a warp's code loads hit distinct banks) and the item's
+// page-table row.
+struct DecodeLayout {
+  size_t ring, page, kc, vt, pages, slot, base, total;
+  __host__ __device__ DecodeLayout(int n_codes, int D, int es, int items,
+                                   int n_kv) {
+    page = (size_t)2 * kPage * D * es;
+    ring = kStages * page;
+    kc = round_up16((size_t)kPage * (D + 8));
+    vt = round_up16((size_t)D * (kPage + 4));
+    pages = round_up16((size_t)n_kv * 4);
+    slot = ring + 2 * kc + 2 * vt + pages;
+    base = round_up16((size_t)n_codes * n_codes * 2);
+    total = base + items * slot;
+  }
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kDecodeThreads, 1)
+approx_decode_kernel(Params p) {
+  constexpr int KS = D + 8;          // K code row stride (bytes)
+  constexpr int VS = kPage + 4;      // V code (transposed) row stride
+  constexpr int CPR = D * (int)sizeof(T) / 16;  // 16-byte copies a key
+  extern __shared__ __align__(16) unsigned char smem[];
+  const DecodeLayout L(p.n_codes, D, sizeof(T), p.dec_items, p.n_kv);
+  int16_t* lut = reinterpret_cast<int16_t*>(smem);
+  const char* lut_b = reinterpret_cast<const char*>(smem);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int n = p.n_codes, row_bytes = 2 * n;
+  // the table, every 16-byte copy in flight at once
+  if ((reinterpret_cast<uintptr_t>(p.lut) & 15) == 0 && (n * n) % 8 == 0) {
+    const char* src = reinterpret_cast<const char*>(p.lut);
+    for (int i = tid * 16; i < n * n * 2; i += kDecodeThreads * 16)
+      cp_async16(smem + i, src + i);
+    cp_commit();
+    cp_wait<0>();
+  } else {
+    for (int i = tid; i < n * n; i += kDecodeThreads) lut[i] = p.lut[i];
+  }
+  __syncthreads();  // the last block-wide barrier: the KV loop has none
+
+  const int slot = warp / kItemWarps;
+  if (slot >= p.dec_items) return;  // a block with one item: idle warps
+  const int rows = p.dec_rows * p.Sq;     // query rows of one item
+  const int rw = warp % kItemWarps;       // < rows: this warp's row
+  const bool is_row = rw < rows;
+  // the warps that copy and quantize pages: the ones without a row, or
+  // all eight when every warp has one
+  const int q0 = rows < kItemWarps ? rows : 0;
+  const bool is_quant = rw >= q0;
+  const int qthreads = (kItemWarps - q0) * 32, qtid = (rw - q0) * 32 + lane;
+  const int gthreads = kItemWarps * 32, gtid = rw * 32 + lane;
+  const int bar_item = 1 + slot, bar_quant = 1 + p.dec_items + slot;
+  const int t = rw / p.Sq, r = rw % p.Sq;  // a row warp's head and query
+  unsigned char* ring = smem + L.base + slot * L.slot;
+  uint8_t* kc0 = ring + L.ring;
+  uint8_t* vt0 = kc0 + 2 * L.kc;
+  int* pt = reinterpret_cast<int*>(vt0 + 2 * L.vt);  // this item's pages
+
+  const T* qg = static_cast<const T*>(p.q);
+  const char* kg = static_cast<const char*>(p.k);
+  const char* vg = static_cast<const char*>(p.v);
+  const float sq = *p.sq, sk = *p.sk, sv = *p.sv;
+  const float score_scale = *p.score_scale, pv_scale = *p.pv_scale;
+  const float lo = static_cast<float>(p.lo), hi = static_cast<float>(p.hi);
+  const int m00 = lut[p.offset * n + p.offset];
+  const int j = lane & 15, h = lane >> 4;  // QK: key, half of the head dim
+  const int n_items = p.BH / p.dec_rows;
+
+  for (int g = blockIdx.x * p.dec_items + slot; g < n_items;
+       g += gridDim.x * p.dec_items) {
+    const int b0 = g * p.dec_rows, b = b0 + t;
+    const int ir = b0 / p.row_heads;
+    const int kvr = (b0 / p.rep) % p.KH;
+    const int q_base = p.rowinfo[3 * ir];
+    const int kv_start = p.rowinfo[3 * ir + 1];
+    const int kv_len = p.rowinfo[3 * ir + 2];
+    const int n_eff =
+        p.causal ? min(p.n_kv, floor_div(q_base + p.bq - 1, kPage) + 1)
+                 : p.n_kv;
+    const long long k_off = kvr * p.ksh, v_off = kvr * p.vsh;
+    // the page-table row, read once: a page's copy then waits on nothing
+    group_sync(bar_item, gthreads);  // the previous item is done with it
+    for (int i = gtid; i < n_eff; i += gthreads)
+      pt[i] = p.page_table[(size_t)ir * p.n_kv + i];
+    group_sync(bar_item, gthreads);
+
+    auto issue = [&](int page) {   // page's raw K and V into its ring slot
+      if (page < n_eff) {
+        const long long start = (long long)pt[page] * kPage;
+        unsigned char* dst = ring + (page % kStages) * L.page;
+        for (int e = qtid; e < 2 * kPage * CPR; e += qthreads) {
+          const int kv = e / (kPage * CPR), jj = (e / CPR) % kPage;
+          const int ch = e % CPR;
+          const char* src =
+              kv == 0 ? kg + ((k_off + (start + jj) * p.kss) * sizeof(T))
+                      : vg + ((v_off + (start + jj) * p.vss) * sizeof(T));
+          cp_async16(dst + (size_t)e * 16, src + ch * 16);
+        }
+      }
+      cp_commit();
+    };
+    auto quantize_page = [&](int page) {  // ring -> codes[page % 2]
+      const T* rk =
+          reinterpret_cast<const T*>(ring + (page % kStages) * L.page);
+      const T* rv = rk + kPage * D;
+      uint8_t* kc = kc0 + (page & 1) * L.kc;
+      uint8_t* vt = vt0 + (page & 1) * L.vt;
+      for (int e = qtid; e < kPage * D / 4; e += qthreads) {
+        const int jj = e / (D / 4), d4 = (e % (D / 4)) * 4;  // K: 4 dims
+        uint32_t word = 0;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          word |= static_cast<uint32_t>(
+                      quantize_symmetric(to_float(rk[jj * D + d4 + c]), sk,
+                                         lo, hi) +
+                      p.offset)
+                  << (8 * c);
+        *reinterpret_cast<uint32_t*>(kc + jj * KS + d4) = word;
+      }
+      for (int e = qtid; e < D * kPage / 4; e += qthreads) {
+        const int d = e % D, j4 = (e / D) * 4;  // V: 4 keys of one dim
+        uint32_t word = 0;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          word |= static_cast<uint32_t>(
+                      quantize_symmetric(to_float(rv[(j4 + c) * D + d]), sv,
+                                         lo, hi) +
+                      p.offset)
+                  << (8 * c);
+        *reinterpret_cast<uint32_t*>(vt + d * VS + j4) = word;
+      }
+    };
+
+    // a row warp's Q codes, as table row byte offsets: head dims
+    // 4 * (2u + h) + c, the ones its lane's QK half reads
+    int qo[D / 2];
+    float m_run = kNegInf, l_run = 0.f, acc[D / 32];
+#pragma unroll
+    for (int u = 0; u < D / 32; ++u) acc[u] = 0.f;
+    if (is_row) {
+      const long long q_off = (b / p.QH) * p.qsb + (b % p.QH) * p.qsh +
+                              (long long)r * p.qss;
+#pragma unroll
+      for (int u = 0; u < D / 8; ++u)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float x = to_float(qg[q_off + 4 * (2 * u + h) + c]);
+          qo[4 * u + c] = (quantize_symmetric(x, sq, lo, hi) + p.offset) *
+                          row_bytes;
+        }
+    }
+
+    if (is_quant) {
+      for (int s = 0; s < kStages - 1; ++s) issue(s);
+      cp_wait<kStages - 2>();              // page 0 (this thread's copies)
+      group_sync(bar_quant, qthreads);     // ... and every quantizer's
+      if (n_eff > 0) quantize_page(0);
+      cp_wait<kStages - 3>();              // page 1
+    }
+    group_sync(bar_item, gthreads);
+
+    for (int ki = 0; ki < n_eff; ++ki) {
+      if (is_quant) issue(ki + kStages - 1);
+      if (is_row) {
+        const uint8_t* kc = kc0 + (ki & 1) * L.kc;
+        const uint8_t* vt = vt0 + (ki & 1) * L.vt;
+
+        // scores: lane (j, h) sums key j over its half of the head dim
+        int s_int = 0;
+#pragma unroll
+        for (int u = 0; u < D / 8; ++u) {
+          const uint32_t w = *reinterpret_cast<const uint32_t*>(
+              kc + j * KS + 4 * (2 * u + h));
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            s_int += *reinterpret_cast<const int16_t*>(
+                lut_b + qo[4 * u + c] + (((w >> (8 * c)) & 0xff) << 1));
+        }
+        s_int += __shfl_xor_sync(0xffffffffu, s_int, 16);
+        float sc = __fmul_rn(__int2float_rn(s_int), score_scale);
+        if (p.has_softcap)
+          sc = __fmul_rn(p.softcap, tanhf(__fdiv_rn(sc, p.softcap)));
+        const int k_pos = ki * kPage + j, q_pos = q_base + r;
+        bool live = k_pos >= kv_start && k_pos < kv_len;
+        if (p.causal) live = live && k_pos <= q_pos;
+        if (p.window >= 0) live = live && k_pos > q_pos - p.window;
+        const float sj = lane < kPage ? (live ? sc : kNegInf) : kNegInf;
+
+        // online softmax, reduced as the general path reduces it
+        float mx = sj;
+        for (int o = 16; o > 0; o >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float m_new = fmaxf(m_run, mx);
+        float pj = 0.f, psum = 0.f;
+        if (lane < kPage) {
+          pj = expf(__fsub_rn(sj, m_new));
+          psum = __fadd_rn(psum, pj);
+        }
+        for (int o = 16; o > 0; o >>= 1)
+          psum = __fadd_rn(psum, __shfl_xor_sync(0xffffffffu, psum, o));
+        const float code = fminf(fmaxf(rintf(__fmul_rn(pj, hi)), 0.f), hi);
+        const int prow = (static_cast<int>(code) + p.offset) * row_bytes;
+        const float alpha = expf(__fsub_rn(m_run, m_new));
+        l_run = __fadd_rn(__fmul_rn(alpha, l_run), psum);
+        m_run = m_new;
+
+        // PV: head dims lane + 32u, 16 gathers each
+        int pr[kPage];
+#pragma unroll
+        for (int jj = 0; jj < kPage; ++jj)
+          pr[jj] = __shfl_sync(0xffffffffu, prow, jj);
+        const int pad = min(max((ki + 1) * kPage - p.seq_k, 0), kPage);
+#pragma unroll
+        for (int u = 0; u < D / 32; ++u) {
+          const int d = lane + 32 * u;
+          int pv_int = 0;
+#pragma unroll
+          for (int w4 = 0; w4 < kPage / 4; ++w4) {
+            const uint32_t w = *reinterpret_cast<const uint32_t*>(
+                vt + d * VS + 4 * w4);
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              pv_int += *reinterpret_cast<const int16_t*>(
+                  lut_b + pr[4 * w4 + c] + (((w >> (8 * c)) & 0xff) << 1));
+          }
+          pv_int -= pad * m00;
+          const float pv = __fmul_rn(__int2float_rn(pv_int), pv_scale);
+          acc[u] = __fadd_rn(__fmul_rn(acc[u], alpha), pv);
+        }
+      }
+      if (is_quant) {
+        if (ki + 1 < n_eff) quantize_page(ki + 1);
+        cp_wait<kStages - 3>();        // page ki + 2 (this thread's copies)
+      }
+      group_sync(bar_item, gthreads);
+    }
+    if (is_row) {
+      const float denom = fmaxf(l_run, 1e-30f);
+#pragma unroll
+      for (int u = 0; u < D / 32; ++u)
+        p.out[((size_t)b * p.Sq + r) * D + lane + 32 * u] =
+            __fdiv_rn(acc[u], denom);
+    }
+  }
+  cp_wait<0>();
+}
+
+template <typename T, int D>
+int launch_decode(const Params& prm, int num_blocks, cudaStream_t stream) {
+  const DecodeLayout L(prm.n_codes, D, sizeof(T), prm.dec_items, prm.n_kv);
+  if (L.total > 232448 || prm.dec_items < 1 ||
+      prm.dec_items * kItemWarps > kDecodeThreads / 32 ||
+      prm.dec_rows * prm.Sq > kItemWarps || prm.bk != kPage)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = approx_decode_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L.total));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int items = prm.BH / prm.dec_rows;
+  const int blocks = (items + prm.dec_items - 1) / prm.dec_items;
+  const int grid = blocks < num_blocks ? blocks : num_blocks;
+  if (grid <= 0) return static_cast<int>(cudaSuccess);
+  kernel<<<grid, kDecodeThreads, L.total, stream>>>(prm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_decode_d(const Params& prm, int num_blocks, cudaStream_t stream) {
+  return prm.D == 64 ? launch_decode<T, 64>(prm, num_blocks, stream)
+                     : launch_decode<T, 128>(prm, num_blocks, stream);
+}
+
 template <typename T>
 int launch(const Params& prm, int num_blocks, cudaStream_t stream) {
   const Layout L(prm.n_codes, prm.D, prm.bk);
@@ -300,15 +631,23 @@ extern "C" int approx_flash_attention_launch(
     long long ksh, long long kss, long long vsb, long long vsh, long long vss,
     int n_codes,
     int offset, int lo, int hi, int causal, int window, int has_softcap,
-    float softcap, int paged, int num_blocks, void* stream) {
+    float softcap, int paged, int dec_rows, int dec_items, int num_blocks,
+    void* stream) {
   Params prm{q,      k,       v,           lut,      rowinfo, page_table,
              sq,     sk,      sv,          score_scale, pv_scale, out,
              BH,     Sq,      D,           seq_k,    bq,      bk,
              n_kv,   rep,     QH,          KH,       row_heads, qsb,
              qsh,    qss,     ksb,         ksh,      kss,     vsb,
              vsh,    vss,     n_codes,     offset,   lo,      hi,
-             causal, window,  has_softcap, paged,    softcap};
+             causal, window,  has_softcap, paged,    softcap, dec_rows,
+             dec_items};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dec_items > 0) {
+    if (!paged || (D != 64 && D != 128))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return bf16 ? launch_decode_d<__nv_bfloat16>(prm, num_blocks, s)
+                : launch_decode_d<float>(prm, num_blocks, s);
+  }
   return bf16 ? launch<__nv_bfloat16>(prm, num_blocks, s)
               : launch<float>(prm, num_blocks, s);
 }

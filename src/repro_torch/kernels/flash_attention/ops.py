@@ -17,9 +17,15 @@ a ``(B, H, S, D)`` view of a ``(B, S, H, D)`` cache is taken as it is.
 for short sequences as the reference does (``prepare_approx_attention``).
 ``row_heads`` lets the heads of one batch row share one ``rowinfo`` (and
 page-table) row, so a caller passes its (B, 3) extents as they are.
+
+A paged call with at most 8 query rows per (batch row, KV head) runs the
+kernel's decode path (:func:`decode_plan`): one work item per (batch row,
+KV head) with its ``rep`` query heads, so each page is read and quantized
+once per item.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -32,6 +38,79 @@ from .ref import (_rows, approx_attention_paged_ref, approx_attention_ref,
 BQ = 128
 BK = 128
 FLASH_HEAD_DIMS = (64, 128)   # kernel 11's instantiations (every config's)
+
+
+DECODE_PAGE = 16        # the decode path's page: the pool's block size
+DECODE_STAGES = 4       # its cp.async ring, in pages
+DECODE_ITEM_WARPS = 8   # warps of one item: one a query row, the rest
+                        # copy and quantize pages
+DECODE_ITEMS = 2        # items of one block (512 threads)
+SMEM_LIMIT = 232_448    # dynamic shared memory one block may use (H100)
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    """Kernel 9's decode path for one call: items of ``heads`` query rows
+    of the folded layout (``b = item * heads + t``), each row with its
+    ``sq`` query positions on a warp of the item's 8, ``per_block`` items
+    in a block, ``grid`` blocks, ``smem`` bytes of shared memory."""
+    heads: int
+    sq: int
+    items: int
+    per_block: int
+    grid: int
+    smem: int
+
+    def rows(self, item: int, rep: int, row_heads: int, kh: int):
+        """(page-table row, KV head, query rows) of one item, as the
+        kernel maps it: ``ir = b0 // row_heads``, ``kvr = (b0 // rep) %
+        kh`` for its first row ``b0``, shared by all its rows."""
+        b0 = item * self.heads
+        return (b0 // row_heads, (b0 // rep) % kh,
+                list(range(b0, b0 + self.heads)))
+
+
+def decode_smem(n_codes: int, d: int, itemsize: int, per_block: int,
+                n_kv: int) -> int:
+    """Shared memory of the decode path (``DecodeLayout`` in the source):
+    the int16 table, then per item a ring of 4 raw K/V pages, two
+    buffers each of K codes (rows of d + 8 bytes) and transposed V codes
+    (rows of 20 bytes), and its page-table row of ``n_kv`` entries."""
+    r16 = lambda v: (v + 15) // 16 * 16
+    ring = DECODE_STAGES * 2 * DECODE_PAGE * d * itemsize
+    slot = (ring + 2 * r16(DECODE_PAGE * (d + 8))
+            + 2 * r16(d * (DECODE_PAGE + 4)) + r16(4 * n_kv))
+    return r16(n_codes * n_codes * 2) + per_block * slot
+
+
+def decode_plan(bh: int, sq: int, d: int, rep: int, row_heads: int,
+                bk: int, itemsize: int, n_codes: int, n_kv: int,
+                n_sm: int) -> Optional[DecodePlan]:
+    """The decode path's plan for a paged call, or None when the call
+    takes the general path (pages of other than 16 keys, a head dim other
+    than 64 or 128, or more than 8 query rows per item). The ``rep`` query
+    heads of one KV head share an item when ``row_heads`` is a multiple of
+    ``rep`` (they then share a page-table row); otherwise each query row
+    is an item of its own. Two items a block where shared memory holds
+    them, else one."""
+    heads = rep if row_heads % rep == 0 else 1
+    if bk != DECODE_PAGE or d not in (64, 128) or \
+            heads * sq > DECODE_ITEM_WARPS:
+        return None
+    for per_block in range(DECODE_ITEMS, 0, -1):
+        smem = decode_smem(n_codes, d, itemsize, per_block, n_kv)
+        if smem <= SMEM_LIMIT:
+            items = bh // heads
+            return DecodePlan(heads, sq, items, per_block,
+                              min(n_sm, -(-items // per_block)), smem)
+    return None
+
+
+def _aligned16(t: torch.Tensor) -> bool:
+    """A pool the decode path copies 16 bytes at a time."""
+    es = t.element_size()
+    return (t.data_ptr() % 16 == 0 and t.stride(0) * es % 16 == 0
+            and t.stride(2) * es % 16 == 0 and t.shape[-1] * es % 16 == 0)
 
 
 def _folded(t: torch.Tensor) -> torch.Tensor:
@@ -91,6 +170,10 @@ def _launch(q, k, v, lut_flat, info, page_table, scales, st: dict, counted,
         return out
     lib = runtime.kernel_library("approx_flash_attention")
     blocks, stream = runtime.launch_config(q)
+    plan = None
+    if paged and _aligned16(k) and _aligned16(v):
+        plan = decode_plan(bh, sq, d, rep, row_heads, st["bk"],
+                           k.element_size(), st["n_codes"], n_kv, blocks)
     lib.check(lib.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
         info.data_ptr(),
@@ -100,7 +183,8 @@ def _launch(q, k, v, lut_flat, info, page_table, scales, st: dict, counted,
         st["bk"], n_kv, rep, qh, kh, row_heads, *q_addr, *k_addr, *v_addr,
         st["n_codes"], st["offset"], st["lo"], st["hi"], int(causal),
         -1 if window is None else int(window), int(softcap is not None),
-        0.0 if softcap is None else float(softcap), int(paged), blocks,
+        0.0 if softcap is None else float(softcap), int(paged),
+        plan.heads if plan else 0, plan.per_block if plan else 0, blocks,
         stream))
     counted.launches += 1
     return out

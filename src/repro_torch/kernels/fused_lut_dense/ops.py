@@ -3,15 +3,157 @@
 (``csrc/fused_lut_bwd.cu``).
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
-version in ``ref.py``. Nothing is padded, so the kernels need no K-pad
-correction.
+version in ``ref.py``. Nothing is padded in memory; the forward kernel
+pads the last group of 4 K slots with offset codes and subtracts
+``pad * LUT[off, off]`` itself.
+
+The forward kernel runs a work plan made here (:func:`dense_plan`): the
+tile shape, and for each persistent block its list of segments (output
+tile, K range, workspace slot). The CPU tests hold the same plan against
+the plain version (``ref.fused_lut_dense_plan_ref``) that the card runs.
 """
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+
+import numpy as np
 import torch
 
 from repro_torch.kernels import runtime
 from .ref import fused_lut_bwd_ref, fused_lut_dense_ref
+
+DENSE_KG = 4        # K slots in one group: the unit of a segment's K range
+
+
+@dataclass(frozen=True, eq=False)
+class DensePlan:
+    """Kernel 3's work plan for one (M, K, N) on ``n_sm`` SMs.
+
+    A block has 8 warps: ``wm`` of them across the tile's rows (``tm``
+    rows each, ``bm = tm * wm``) and ``8 // wm`` across each K chunk; a
+    warp's 32 lanes hold ``tn`` columns each (``bn = 32 * tn``). Tiles are
+    numbered row-major (``tiles_n`` per row band); K is cut into
+    ``groups`` groups of 4. ``segments`` is an (S, 4) int32 array of
+    (tile, first group, end group, slot), block ``b`` running rows
+    ``offsets[b]:offsets[b + 1]`` in order. A segment that covers all of
+    its tile's groups has slot -1 and stores the tile; the others add
+    into workspace slot ``slot`` (``bm * bn`` int32 sums, then one
+    arrival counter per slot)."""
+    M: int
+    K: int
+    N: int
+    tm: int
+    tn: int
+    wm: int
+    tiles_m: int
+    tiles_n: int
+    groups: int
+    offsets: tuple
+    segments: np.ndarray
+    n_slots: int
+
+    @property
+    def bm(self) -> int:
+        return self.tm * self.wm
+
+    @property
+    def bn(self) -> int:
+        return 32 * self.tn
+
+    @property
+    def grid(self) -> int:
+        return len(self.offsets) - 1
+
+    @property
+    def slot_elems(self) -> int:
+        return self.bm * self.bn
+
+    def summary(self) -> dict:
+        """What a report prints: the tile, the items (segments), the most
+        segments on one tile (splits), the SMs with work, and the tile rows
+        past M (the kernel's warps skip them: none gathers for a row past
+        M)."""
+        per_tile = np.bincount(self.segments[:, 0],
+                               minlength=self.tiles_m * self.tiles_n)
+        return dict(tile=f"{self.bm}x{self.bn}", items=len(self.segments),
+                    splits=int(per_tile.max()), sms=self.grid,
+                    rows_past_m=self.tiles_m * self.bm - self.M)
+
+
+def dense_tile(M: int, K: int, N: int, n_sm: int) -> tuple[int, int, int]:
+    """(tm, wm, tn): rows per warp, warps across rows, columns per lane.
+    The row tile is the smallest of 1, 2, 4, 8, 16 and 32 rows that holds
+    M (64 from M = 64 on), so that no warp gathers for a row past M at M
+    up to 32. The column tile, 128 or 256, is the one that pads N least
+    (256 on a tie), except that 128 is taken when 256-column tiles would
+    leave each SM's share of K under 128: many short K splits of a few
+    tiles cost more in their atomic sums and per-segment work than twice
+    the tiles of half the width."""
+    if M >= 64:
+        tm, wm = 8, 8
+    elif M > 16:
+        tm, wm = 4, 8
+    elif M > 2:
+        tm = 4
+        wm = max(1, -(-M // tm))
+        wm = 1 << (wm - 1).bit_length()           # 1, 2 or 4 warps
+    else:
+        tm, wm = max(M, 1), 1
+    tn = min((8, 4), key=lambda t: (-(-N // (32 * t)) * 32 * t, -t))
+    tiles = -(-M // (tm * wm)) * -(-N // 256)
+    if tn == 8 and tiles < n_sm and K * tiles < 128 * n_sm:
+        tn = 4
+    return tm, wm, tn
+
+
+@functools.lru_cache(maxsize=512)
+def dense_plan(M: int, K: int, N: int, n_sm: int) -> DensePlan:
+    """The segments each of ``n_sm`` persistent blocks runs. Whole tiles
+    go round-robin while at least two rounds of them remain; the rest (all
+    of them when there are fewer tiles than SMs) is cut along K into
+    ``n_sm`` equal runs of groups over the tiles in order (stream-K), so
+    that every SM gets the same share. A run may end or start inside a
+    tile: those tiles get a workspace slot."""
+    tm, wm, tn = dense_tile(M, K, N, n_sm)
+    bm, bn = tm * wm, 32 * tn
+    tiles_m, tiles_n = -(-M // bm), -(-N // bn)
+    n_tiles = tiles_m * tiles_n
+    groups = -(-K // DENSE_KG)
+    whole = n_tiles if n_tiles % n_sm == 0 else \
+        max(0, n_tiles // n_sm - 1) * n_sm
+    rest = n_tiles - whole
+    total = rest * groups
+    grid = n_sm if n_tiles >= n_sm else max(1, min(n_sm, total))
+    per_block = [[(t, 0, groups) for t in range(b, whole, grid)]
+                 for b in range(grid)]
+    for b in range(grid):
+        it, it1 = b * total // grid, (b + 1) * total // grid
+        while it < it1:
+            t, g0 = divmod(it, groups)
+            g1 = min(groups, g0 + it1 - it)
+            per_block[b].append((whole + t, g0, g1))
+            it += g1 - g0
+    split = sorted({t for segs in per_block for t, g0, g1 in segs
+                    if (g0, g1) != (0, groups)})
+    slot_of = {t: i for i, t in enumerate(split)}
+    rows, offsets = [], [0]
+    for segs in per_block:
+        rows += [(t, g0, g1, slot_of.get(t, -1)) for t, g0, g1 in segs]
+        offsets.append(len(rows))
+    segments = np.asarray(rows, dtype=np.int32).reshape(-1, 4)
+    segments.setflags(write=False)
+    return DensePlan(M, K, N, tm, tn, wm, tiles_m, tiles_n, groups,
+                     tuple(offsets), segments, len(split))
+
+
+@functools.lru_cache(maxsize=512)
+def _device_plan(plan: DensePlan, device: torch.device) -> torch.Tensor:
+    """The plan as the kernel reads it: ``offsets`` then the segments, one
+    int32 tensor on ``device``, uploaded once per plan and device."""
+    flat = np.concatenate([np.asarray(plan.offsets, np.int32),
+                           plan.segments.reshape(-1)])
+    return torch.from_numpy(flat).to(device)
 
 
 def scale_operands(x_scale, x_zp, w_scale, n: int, device):
@@ -49,6 +191,31 @@ def fused_lut_dense(x: torch.Tensor, wq: torch.Tensor, lut: torch.Tensor,
         return fused_lut_dense_ref(x, wq, lut.reshape(-1), offset, n_codes,
                                    x_scale, x_zp, w_scale, bits=bits,
                                    emit_acc=emit_acc)
+    if M == 0 or N == 0 or K == 0:
+        return torch.zeros((M, N), device=x.device,
+                           dtype=torch.int32 if emit_acc else torch.float32)
+    blocks, _ = runtime.launch_config(x)
+    return fused_lut_dense_planned(x, wq, lut, offset, x_scale, x_zp,
+                                   w_scale, plan=dense_plan(M, K, N, blocks),
+                                   bits=bits, emit_acc=emit_acc)
+
+
+fused_lut_dense.launches = 0
+
+
+def fused_lut_dense_planned(x: torch.Tensor, wq: torch.Tensor,
+                            lut: torch.Tensor, offset: int, x_scale, x_zp,
+                            w_scale, *, plan: DensePlan, bits: int = 8,
+                            emit_acc: bool = False) -> torch.Tensor:
+    """Launch kernel 3 on CUDA operands with the given work plan (the one
+    :func:`fused_lut_dense` makes, or another for a test) and add one to
+    ``fused_lut_dense.launches``."""
+    n_codes = int(round(lut.numel() ** 0.5))
+    M, K = x.shape
+    N = wq.shape[1]
+    if (plan.M, plan.K, plan.N) != (M, K, N):
+        raise ValueError(f"plan is for {(plan.M, plan.K, plan.N)}, the "
+                         f"operands are {(M, K, N)}")
     lo = -(1 << (bits - 1))
     hi = (1 << (bits - 1)) - 1
     table = runtime.lut_to_int16(lut)
@@ -60,19 +227,22 @@ def fused_lut_dense(x: torch.Tensor, wq: torch.Tensor, lut: torch.Tensor,
         runtime.check_cuda_operand(t, name, dt, x.device)
     out = torch.empty((M, N), device=x.device,
                       dtype=torch.int32 if emit_acc else torch.float32)
-    if M == 0 or N == 0 or K == 0:
-        return out.zero_()
+    # split tiles' sums and arrival counters, zeroed; none when no tile is
+    # split
+    work = (torch.zeros if plan.n_slots else torch.empty)(
+        max(1, plan.n_slots * (plan.slot_elems + 1)), dtype=torch.int32,
+        device=x.device)
     lib = runtime.kernel_library("fused_lut_dense")
-    blocks, stream = runtime.launch_config(x)
+    _, stream = runtime.launch_config(x)
     lib.check(lib.launch(x.data_ptr(), wq.data_ptr(), table.data_ptr(),
                          xs.data_ptr(), xz.data_ptr(), ws.data_ptr(),
                          out.data_ptr(), int(emit_acc), M, K, N, n_codes,
-                         offset, lo, hi, blocks, stream))
+                         offset, lo, hi,
+                         _device_plan(plan, x.device).data_ptr(), plan.grid,
+                         plan.tm, plan.tn, plan.wm, plan.tiles_n, plan.groups,
+                         work.data_ptr(), plan.n_slots, stream))
     fused_lut_dense.launches += 1
     return out
-
-
-fused_lut_dense.launches = 0
 
 
 def fused_lut_bwd(a: torch.Tensor, b: torch.Tensor, lut: torch.Tensor,

@@ -36,6 +36,57 @@ def fused_lut_dense_ref(x: torch.Tensor, wq: torch.Tensor,
     return acc.to(torch.float32) * (xs * ws.reshape(1, -1))
 
 
+def fused_lut_dense_plan_ref(x: torch.Tensor, wq: torch.Tensor,
+                             lut_flat: torch.Tensor, offset: int,
+                             n_codes: int, x_scale, x_zp, w_scale, *, plan,
+                             bits: int = 8,
+                             emit_acc: bool = False) -> torch.Tensor:
+    """:func:`fused_lut_dense_ref` summed segment by segment over kernel
+    3's work plan (``ops.dense_plan``), as the kernel sums: each segment's
+    int32 partial over its tile and its K groups of 4, the slots past K
+    holding the offset code on both sides and ``pad * LUT[off, off]``
+    subtracted; a whole tile stored, a split one added into its slot and
+    taken when its groups are complete; one dequant on the full sum. A
+    plan that leaves a group of a tile out leaves that tile 0."""
+    lo = -(1 << (bits - 1))
+    hi = (1 << (bits - 1)) - 1
+    dev = x.device
+    xs = torch.as_tensor(x_scale, dtype=torch.float32, device=dev)
+    xz = torch.as_tensor(x_zp, dtype=torch.float32, device=dev)
+    M, K = x.shape
+    N = wq.shape[1]
+    kp = plan.groups * 4
+    a = torch.full((M, kp), offset, dtype=torch.int64, device=dev)
+    a[:, :K] = quantize_shifted(x, xs, xz, lo, hi, offset)
+    b = torch.full((kp, N), offset, dtype=torch.int64, device=dev)
+    b[:K] = wq.to(torch.int64) + offset
+    lut_flat = lut_flat.reshape(-1).to(torch.int32)
+    m00 = int(lut_flat[offset * n_codes + offset])
+    bm, bn = plan.bm, plan.bn
+    acc = torch.zeros((M, N), dtype=torch.int32, device=dev)
+    sums = torch.zeros((max(plan.n_slots, 1), bm, bn), dtype=torch.int32,
+                       device=dev)
+    arrived = [0] * plan.n_slots
+    for t, g0, g1, slot in plan.segments.tolist():
+        m0, n0 = (t // plan.tiles_n) * bm, (t % plan.tiles_n) * bn
+        rs, cs = slice(m0, min(M, m0 + bm)), slice(n0, min(N, n0 + bn))
+        ks = slice(4 * g0, 4 * g1)
+        pad = 4 * (g1 - g0) - (min(K, 4 * g1) - 4 * g0)
+        part = lut_gather_sum(a[rs, ks], b[ks, cs], lut_flat, n_codes) \
+            - pad * m00
+        if slot < 0:
+            acc[rs, cs] = part
+            continue
+        sums[slot, :part.shape[0], :part.shape[1]] += part
+        arrived[slot] += g1 - g0
+        if arrived[slot] == plan.groups:
+            acc[rs, cs] = sums[slot, :part.shape[0], :part.shape[1]]
+    if emit_acc:
+        return acc
+    ws = torch.as_tensor(w_scale, dtype=torch.float32, device=dev)
+    return acc.to(torch.float32) * (xs * ws.reshape(1, -1))
+
+
 def fused_lut_bwd_ref(a: torch.Tensor, b: torch.Tensor,
                       lut_flat: torch.Tensor, offset: int, n_codes: int,
                       a_scale, b_scale, *, bits: int = 8,

@@ -44,8 +44,8 @@ SIGNATURES = {
     "lut_matmul": ("lut_matmul_launch",
                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "fused_lut_dense": ("fused_lut_dense_launch",
-                        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _P]),
+                        [_P] * 7 + [_I] * 8 + [_P] + [_I] * 6 + [_P, _I,
+                                                              _P]),
     "fused_lut_conv": ("fused_lut_conv_launch",
                        [_P, _P, _P, _P, _P, _P, _P, _I] + [_I] * 15
                        + [_I, _I, _I, _I, _I, _P]),
@@ -59,7 +59,7 @@ SIGNATURES = {
                              [_P] * 6 + [_I] * 15 + [_I] * 5 + [_P]),
     "approx_flash_attention": ("approx_flash_attention_launch",
                                [_P] * 12 + [_I] * 12 + [_L] * 9 + [_I] * 7
-                               + [ctypes.c_float, _I, _I, _P]),
+                               + [ctypes.c_float] + [_I] * 4 + [_P]),
     "err_matmul": ("err_matmul_launch", [_P] * 5 + [_I] * 7 + [_P]),
     "fused_lut_grouped": ("fused_lut_grouped_launch",
                           [_P, _I] + [_P] * 7 + [_I] * 11 + [_P]),

@@ -478,3 +478,53 @@ def test_cuda_attention_kernels_match_plain_versions(cuda, dtype):
                 assert approx_flash_attention_paged.launches == n0 + 1
                 _assert_same_device(got, want_p, _lut(table), s[2], bk)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq", [1, 2])
+def test_cuda_grouped_paged_decode(cuda, dtype, sq):
+    """On a card: kernel 9's decode path (one item per batch row and KV
+    head, its rep = 3 query heads sharing each page) against the plain
+    version on a biased table, with unused page-table entries 0 and pool
+    block 0 holding data (the causal bound of the padded q tile walks
+    into them), a window and a softcap on one of the two geometries."""
+    from repro_torch.kernels.flash_attention.ops import decode_plan
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(sq)
+    b, hkv, rep, d, bk = 5, 3, 3, 64, 16
+    hq = hkv * rep
+    kv_lens = np.array([1, 17, 40, 100, 16]) + sq - 1
+    n_log = -(-int(kv_lens.max() + 8) // bk)
+    n_pool = 1 + b * n_log
+    kp = rng.normal(size=(hkv, n_pool, bk, d)).astype(np.float32)
+    vp = rng.normal(size=(hkv, n_pool, bk, d)).astype(np.float32)
+    pt = np.zeros((b, n_log), np.int32)
+    for i, kl in enumerate(kv_lens):
+        used = -(-int(kl) // bk)
+        pt[i, :used] = 1 + rng.permutation(b * n_log)[:used]
+    info = np.stack([kv_lens - sq, np.zeros(b, np.int64), kv_lens],
+                    1).astype(np.int32)
+    q = rng.normal(size=(b, hq, sq, d)).astype(np.float32)
+    s = [np.float32(np.abs(t).max() / 127) for t in (q, kp, vp)]
+    lut32 = torch.from_numpy(_lut("biased")).reshape(-1).to(cuda)
+    lut16 = lut32.to(torch.int16)
+    qt, kt, vt = (torch.from_numpy(a).to(cuda, dt) for a in (q, kp, vp))
+    st = [torch.tensor(x, device=cuda) for x in s]
+    info_t, pt_t = (torch.from_numpy(a).to(cuda) for a in (info, pt))
+    plan = decode_plan(b * hq, sq, d, rep, hq, bk, kt.element_size(), 256,
+                       n_log, 132)
+    assert plan is not None and plan.heads == rep
+    for window, softcap in ((None, None), (24, 30.0)):
+        want = tref.approx_attention_paged_ref(
+            qt.reshape(-1, sq, d), kt, vt, lut32, 128, *st,
+            rowinfo=info_t.repeat_interleave(hq, 0),
+            page_table=pt_t.repeat_interleave(hq, 0), rep=rep,
+            window=window, softcap=softcap)
+        n0 = approx_flash_attention_paged.launches
+        got = approx_flash_attention_paged(
+            qt, kt, vt, lut16, 128, *st, rowinfo=info_t, page_table=pt_t,
+            rep=rep, row_heads=hq, window=window, softcap=softcap)
+        assert approx_flash_attention_paged.launches == n0 + 1
+        _assert_same_device(got, want, _lut("biased"), s[2], bk)
+    torch.cuda.synchronize()

@@ -29,7 +29,7 @@ from repro_torch.kernels.fused_lut_conv.ref import (  # noqa: E402
 from repro_torch.kernels.fused_lut_dense.ops import (  # noqa: E402
     fused_lut_bwd, fused_lut_dense)
 from repro_torch.kernels.fused_lut_dense.ref import (  # noqa: E402
-    fused_lut_bwd_ref, fused_lut_dense_ref)
+    fused_lut_bwd_ref, fused_lut_dense_plan_ref, fused_lut_dense_ref)
 from repro_torch.kernels.lut_matmul.ops import lut_matmul  # noqa: E402
 from repro_torch.kernels.lut_matmul.ref import lut_matmul_ref  # noqa: E402
 from test_torch_parity import load_reference  # noqa: E402
@@ -388,4 +388,43 @@ def test_cuda_backward_kernels_match_plain_versions(cuda, table):
             fused_lut_conv_bwd_w(x, gr, l16, OFF, sx, sg, **kw),
             fused_lut_conv_bwd_w_ref(x, gr, l32, OFF, 256, sx, sg, **kw))
         assert fused_lut_conv_bwd_w.launches == n0 + 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", sorted(TABLES))
+def test_cuda_fused_lut_dense_split_shapes(cuda, table):
+    """On a card: kernel 3 at the shapes its plan splits along K (M = 1,
+    32 and 33; a K whose last group of 4 is ragged; 10 columns; a long K
+    on two tiles) and at one of whole tiles, float32 and emit_acc, each
+    launch counted once, bitwise equal to the plain version and to the
+    plain version summed over the same plan."""
+    from repro_torch.kernels.fused_lut_dense.ops import dense_plan
+    g = torch.Generator(device=cuda)
+    g.manual_seed(2)
+    lut = torch.from_numpy(TABLES[table])
+    l16 = runtime.lut_to_int16(lut).to(cuda)
+    l32 = lut.reshape(-1).to(cuda)
+    n_sm = runtime.sm_count(0)
+    for m, k, n in ((1, 576, 576), (32, 576, 576), (33, 576, 192),
+                    (32, 570, 200), (32, 130, 10), (32, 40_000, 512),
+                    (300, 97, 260)):
+        x = torch.randn((m, k), generator=g, device=cuda) * 2
+        wq = torch.randint(-128, 128, (k, n), generator=g, device=cuda,
+                           dtype=torch.int32)
+        xs = x.abs().amax() / 127
+        xz = torch.tensor(1.0, device=cuda)
+        ws = torch.rand(n, generator=g, device=cuda) * 0.1
+        plan = dense_plan(m, k, n, n_sm)
+        for emit in (False, True):
+            n0 = fused_lut_dense.launches
+            got = fused_lut_dense(x, wq, l16, OFF, xs, xz, ws, emit_acc=emit)
+            assert fused_lut_dense.launches == n0 + 1
+            want = fused_lut_dense_ref(x, wq, l32, OFF, 256, xs, xz, ws,
+                                       emit_acc=emit)
+            assert torch.equal(got, want), (m, k, n, emit, plan.summary())
+            if k * n <= 600_000:
+                assert torch.equal(got, fused_lut_dense_plan_ref(
+                    x, wq, l32, OFF, 256, xs, xz, ws, plan=plan,
+                    emit_acc=emit))
     torch.cuda.synchronize()
