@@ -39,14 +39,21 @@
    term, at most ATTN_FLIP_ROWS rows beyond it by one code flip), the
    paged kernel's decode path (one item per batch row and KV head) also
    under a biased table, with a planted fault (one batch row's page table
-   shifted by one page) shown beyond that tolerance, and the fused dense
+   shifted by one page) shown beyond that tolerance, the contiguous
+   kernel's decode path (one item per batch row and KV head, the
+   reference's 128-key blocks streamed 32 keys a stage) under both tables
+   with left-padded rows, a padded q tile that reaches a block its row
+   never sees and a fully masked first block, with a planted fault
+   (kv_start shifted by one block) beyond that tolerance and timed against
+   the general path and SDPA in the same call, and the fused dense
    kernel bitwise (at M = 32 also its raw accumulator on a biased table),
    at the slice's decode and prefill shapes, with each shape's work plan;
    then serves 64
    requests (prompts of 16 to 200 tokens, 16 of them sharing a 128-token
    prefix, 64 new tokens each) through each engine with the launch counters
    set to 0 just before and checked just after against 30 attention,
-   211 dense and 211 quantize launches per model call; checks one short
+   211 dense and 211 quantize launches per model call, every decode call's
+   attention on its kernel's decode path and no other; checks one short
    request against the CPU run's tokens; profiles one decode step of each
    KV layout;
 6b. holds the fused dense kernel (kernel 3) where its work plan matters:
@@ -85,10 +92,12 @@
    groups of 1 capacity row) and of prefills of 128 and 512 tokens (2 and
    8 rows), with counts from layer 0's routing and synthetic ones (empty
    experts, all tokens to one expert), and under a biased table with the
-   raw accumulator (dead rows 0); then serves 32 requests (16 to 200 prompt
-   tokens, 8 sharing a 128-token prefix, 32 new tokens each) through the
-   three engines with the counters checked against 96 grouped, 129 dense,
-   225 quantize and 32 attention launches per model call; prints layer 0's
+   raw accumulator (dead rows 0); holds kernel 8's decode path at the
+   model's attention as step 6 does; then serves 32 requests (16 to 200
+   prompt tokens, 8 sharing a 128-token prefix, 32 new tokens each)
+   through the three engines with the counters checked against 96
+   grouped, 129 dense, 225 quantize and 32 attention launches per model
+   call, every decode call's attention on its decode path; prints layer 0's
    dropped fraction and aux loss at a decode step and a prefill; checks a
    short request's tokens against the CPU on the model cut to 2 layers;
    profiles one decode step and times the per-call expert weight
@@ -133,10 +142,13 @@
    the whole-image kernel (fused_lut_conv), bitwise, f32 and int32, at
    VGG-16's conv1_2 (8x64x224^2 -> 64) and conv2_2 (8x128x112^2 -> 128),
    the CNN's c2 (32x64x112^2 -> 128), stride 2, dilation 2, a band height
-   that does not divide Ho and a biased table at odd C, and times kernel 6,
-   kernel 5, the plain version and ``F.conv2d`` (f32, TF32 off) at the
-   first three against the gather bound, with each one's banding, grid and
-   blocks per SM; then serves 128 images of ``image_task(n_classes=1000,
+   that does not divide Ho and a biased table at odd C (where a planted
+   fault, a tiling with its last channel group dropped, must be caught),
+   and times kernel 6, kernel 5 (in the same call), the plain version and
+   ``F.conv2d`` (f32, TF32 off) at the first three against the gather
+   bound, with each one's tiling, grid and blocks per SM, and kernel 6's
+   bank-conflict replay at c2; then serves 128 images of
+   ``image_task(n_classes=1000,
    size=224)`` through ``VisionServeEngine(slots=32)`` with the CNN at
    VGG-16's stage widths (``init_cnn(width=64, img=224)``) on the fused
    ACU: each conv's route from ``plan_report`` (c2 tiled, as the reference
@@ -148,7 +160,8 @@
    launch counts checked); a separable block (depthwise 3x3 on
    8x32x112^2, then 1x1 -> 64) and a groups=4 conv on the fused ACU,
    bitwise equal to the CPU's, launch counts checked;
-13. prints one ``{"kernels": [...]}`` line, then the result line.
+13. prints the redesigned kernels against their old paths, one
+   ``{"kernels": [...]}`` line, then the result line.
 
 Every weight of every approximate GEMM is quantized on every call through
 the quantize kernel, so each phase's exact launch counts include it.
@@ -471,11 +484,12 @@ def serve_lm(torch, check, E, engines, prompts, n_new, cfg, ops, launches,
     attn_kernel = {"wave": "approx_flash_attention",
                    "continuous": "approx_flash_attention",
                    "paged": "approx_flash_attention_paged"}
-    calls = [0]
+    calls = [0, 0]           # model calls, of which decode steps
     inner = E.apply_model
 
     def counted(*a, **k):
         calls[0] += 1
+        calls[1] += bool(k.get("decode"))
         return inner(*a, **k)
 
     E.apply_model = counted
@@ -489,7 +503,9 @@ def serve_lm(torch, check, E, engines, prompts, n_new, cfg, ops, launches,
                     for p in prompts]
             for op in ops.values():
                 op.launches = 0
-            calls[0] = 0
+                if hasattr(op, "decode_launches"):
+                    op.decode_launches = 0
+            calls[:] = [0, 0]
             t0 = time.perf_counter()
             eng.run(reqs)
             dt = time.perf_counter() - t0
@@ -511,6 +527,14 @@ def serve_lm(torch, check, E, engines, prompts, n_new, cfg, ops, launches,
             want = {k: want_call.get(k, 0) * calls[0] for k in ops}
             check(counts == want, f"{name}: launch counts are {want_call} "
                                   f"per model call x {calls[0]} calls")
+            if attention:    # every decode call on the decode path, and
+                kname = attn_kernel[name]     # nothing else
+                dec = ops[kname].decode_launches
+                check(dec == cfg.n_layers * calls[1],
+                      f"{name}: {dec} of {kname}'s {counts[kname]} launches "
+                      f"on its decode path = {cfg.n_layers} per decode call "
+                      f"x {calls[1]} decode calls; the {calls[0] - calls[1]}"
+                      f" prefill calls on the general path")
             if name == "paged":
                 check(stats["prefix_hit_blocks"] > 0,
                       f"paged: the shared prefix was reused "
@@ -712,10 +736,102 @@ def attn_work(np, info, sq: int, hq: int, hkv: int, d: int, itemsize: int):
     return bytes_, lookups
 
 
+def hold_decode_path(torch, np, dev, check, acu, ops, cfg, seed: int):
+    """Kernel 8's contiguous decode path at ``cfg``'s decode shape:
+    LM_SLOTS rows of one query each over a LM_MAX_SEQ-key bf16 cache read
+    in place through its (B, Hkv, S, D) view. Prints the plan; holds the
+    path against the plain version (every element within the
+    summation-order term, at most ATTN_FLIP_ROWS rows beyond it by one code
+    flip) under the standard and a biased table, with left-padded rows, a
+    row whose padded q tile of 8 crosses a 128-key block boundary (the
+    bound runs a block the row never sees) and a row whose first block is
+    all masked; shows a planted fault (kv_start shifted by one block)
+    beyond that tolerance; and times the decode path, the general path
+    (``general=True``) and SDPA in the same call. Returns the three
+    times in ms."""
+    import torch.nn.functional as F
+    from repro_torch.core import inline_symmetric_scale
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.flash_attention import ref as aref
+    from repro_torch.kernels.flash_attention.ops import decode_plan
+
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kern = ops["approx_flash_attention"]
+    off, n_codes = acu.offset, acu.multiplier.n_codes
+    b, s = LM_SLOTS, LM_MAX_SEQ
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    pos = rng.integers(16, s // 2 + 8, b)
+    pad = rng.integers(0, 8, b)          # the wave engine's left pads
+    pos[0] = 124                         # q tile 124..131 reaches block 1
+    pos[1], pad[1] = 300, 140            # keys 0..139 masked: block 0 dead
+    info = np.stack([pos, pad, pos + 1], 1).astype(np.int32)
+    rows = torch.from_numpy(info).to(dev)
+    shifted = torch.from_numpy(info + np.array([0, 128, 0], np.int32)).to(dev)
+    bf = torch.bfloat16
+    q = torch.randn((b, 1, hq, d), generator=gen, device=dev).to(
+        bf).transpose(1, 2)
+    kc = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(bf)
+    vc = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(bf)
+    k, v = kc.transpose(1, 2), vc.transpose(1, 2)
+    s3 = [inline_symmetric_scale(torch.clamp_min(t.abs().amax(), 1e-6), 8)
+          for t in (q, kc, vc)]
+    plan = decode_plan(b * hq, 1, d, hq // hkv, hq, 128, 2, n_codes,
+                       s // 128, runtime.sm_count(0), paged=False)
+    print(f"  approx_flash_attention decode path at {cfg.name}'s decode "
+          f"shape ({b} rows, {hq} heads over {hkv}, head_dim {d}, {s}-key "
+          f"cache): {plan}")
+    check(plan is not None and plan.heads == hq // hkv,
+          f"{cfg.name} decode: one item per batch row and KV head")
+    pv_scale = aref.attn_scales(*s3, d, 127)[1]
+    b32 = torch.from_numpy(biased_lut(np)).to(dev)
+    lut32 = torch.from_numpy(acu.lut.reshape(-1)).to(dev)
+    lut16 = acu.device_lut(dev)
+    for label, l16, l32, info_k in (
+            ("standard table", lut16, lut32, rows),
+            ("biased table", b32.to(torch.int16), b32, rows),
+            ("planted fault: kv_start shifted by one block", lut16, lut32,
+             shifted)):
+        n0 = (kern.launches, kern.decode_launches)
+        yk = kern(q, k, v, l16, off, *s3, rowinfo=info_k, row_heads=hq)
+        took = (kern.launches - n0[0], kern.decode_launches - n0[1])
+        yp = aref.approx_attention_ref(
+            q.reshape(-1, 1, d), k.reshape(-1, s, d), v.reshape(-1, s, d),
+            l32, off, *s3, rowinfo=rows.repeat_interleave(hq, 0))
+        agree = aref.same_device_agreement(yk, yp, l32, off, 127, pv_scale,
+                                           128)
+        held = (bool(torch.isfinite(yk).all()) and agree["within_flip"]
+                and agree["flip_rows"] <= ATTN_FLIP_ROWS)
+        fault = label.startswith("planted")
+        check(took == (1, 1) and held != fault,
+              f"approx_flash_attention decode path, {cfg.name}, {label}: "
+              f"max |diff| {agree['max_err']:.3e}, {agree['flip_rows']} rows"
+              f" beyond {agree['ulp_tol']:.3e} (one flip "
+              f"{agree['flip_tol']:.3e}): "
+              + ("caught, beyond the tolerance" if fault else
+                 "within the tolerance") + f"; launches (all, decode) {took}")
+    kpos = torch.arange(s, device=dev)
+    mask = ((kpos >= rows[:, 1:2, None]) & (kpos < rows[:, 2:3, None])
+            & (kpos <= rows[:, :1, None]))[:, None]
+    qd, kd, vd = q.contiguous(), k.contiguous(), v.contiguous()
+    lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, enable_gqa=True), 20)
+    times = [cuda_ms(torch, lambda g=g: kern(
+        q, k, v, lut16, off, *s3, rowinfo=rows, row_heads=hq, general=g), 20)
+        for g in (False, True, False)]
+    ms_dec = min(times[0], times[2])
+    print(f"    decode path {times[0]:.4f} ms (again {times[2]:.4f}), general "
+          f"path {times[1]:.4f} ms ({times[1] / ms_dec:.2f}x the decode "
+          f"path), scaled_dot_product_attention {lib:.4f} ms", flush=True)
+    return ms_dec, times[1], lib
+
+
 def lm_phase(torch, np, dev, check, acu, ops, launches, account,
-             lookups_per_s, lut_bytes) -> dict:
+             lookups_per_s, lut_bytes, redesign: dict) -> dict:
     """SmolLM-135M on the fused ACU: the slice's kernels at its shapes,
-    then 64 requests through each LM engine. Returns tokens/s by engine."""
+    then 64 requests through each LM engine. Returns tokens/s by engine;
+    kernel 8's decode-path times go into ``redesign``."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.core import (ApproxConfig, acu_operand,
@@ -878,6 +994,10 @@ def lm_phase(torch, np, dev, check, acu, ops, launches, account,
                  "within the tolerance"))
     del decode_case
 
+    # -- kernel 8's decode path ---------------------------------------------
+    redesign["kernel 8 " + cfg.name] = hold_decode_path(
+        torch, np, dev, check, acu, ops, cfg, 12)
+
     # -- kernel 3 at the LM's GEMM shapes, bitwise --------------------------
     print("  fused_lut_dense at the LM's GEMM shapes, bitwise:")
     gemms = [("q/o", cfg.d_model, hq * d, 2), ("k/v", cfg.d_model, hkv * d, 2),
@@ -1001,11 +1121,12 @@ def lm_phase(torch, np, dev, check, acu, ops, launches, account,
 
 
 def moe_phase(torch, np, dev, check, acu, ops, launches, account,
-              lookups_per_s, lut_bytes) -> dict:
+              lookups_per_s, lut_bytes, redesign: dict) -> dict:
     """granite-moe-3b-a800m on the fused ACU: kernel 10 at the model's
-    shapes, then 32 requests through each LM engine, the card against the
-    CPU on a two-layer cut, and a profile of one decode step. Returns
-    tokens/s by engine."""
+    shapes and kernel 8's decode path at its attention's, then 32 requests
+    through each LM engine, the card against the CPU on a two-layer cut,
+    and a profile of one decode step. Returns tokens/s by engine; kernel
+    8's decode-path times go into ``redesign``."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.core import (ApproxConfig, QParams, acu_operand,
@@ -1133,6 +1254,10 @@ def moe_phase(torch, np, dev, check, acu, ops, launches, account,
         for wname, width in (("w_gate", d), ("w_down", f)):
             x = torch.randn((G, C, width), generator=gen, device=dev).to(bf)
             hold(f"{label} {wname[2:]}", x * live.to(bf), wname, cnt)
+
+    # -- kernel 8's decode path at granite's attention --------------------
+    redesign["kernel 8 " + cfg.name] = hold_decode_path(
+        torch, np, dev, check, acu, ops, cfg, 14)
 
     # -- serve 32 requests through each engine -----------------------------
     prompts = lm_requests(np, cfg.vocab_size, MOE_REQUESTS, MOE_SHARED)
@@ -1808,14 +1933,17 @@ def score_phase(torch, np, dev, check, acu, ops, launches,
 
 
 def conv_phase(torch, np, dev, check, acu, ops, launches, account,
-               lookups_per_s, lut_bytes, n_sm) -> dict:
+               lookups_per_s, lut_bytes, n_sm, redesign: dict) -> dict:
     """ImageNet-scale convs: kernel 6 against its plain version and kernel
-    5, bitwise, with times at the VGG-16 and CNN-224 shapes; the CNN at
-    width 64 and 224^2 served through ``VisionServeEngine`` with c2 on the
-    banded route, exact launch counts and fused logits bitwise equal to
-    the unfused ones; one ``approx_bwd`` step banded against whole-image;
-    a separable block and a grouped conv against the CPU. Returns the
-    serve numbers."""
+    5, bitwise, with its tiling, a planted fault (a tiling with one channel
+    group dropped) and times beside kernel 5's in the same call at the
+    VGG-16 and CNN-224 shapes (into ``redesign``), and its bank-conflict
+    replay at c2; the CNN at width 64 and 224^2 served through
+    ``VisionServeEngine`` with c2 on the banded route, exact launch counts
+    and fused logits bitwise equal to the unfused ones; one ``approx_bwd``
+    step banded against whole-image; a separable block and a grouped conv
+    against the CPU. Returns the serve numbers."""
+    import dataclasses
     import torch.nn.functional as F
     from repro_torch.core import (ApproxConfig, acu_operand, make_acu,
                                   quantize, separable_conv2d)
@@ -1883,6 +2011,15 @@ def conv_phase(torch, np, dev, check, acu, ops, launches, account,
                   f"version and to fused_lut_conv ({tiling.describe(ho)}; "
                   f"{items} tiles on a grid of {grid} persistent blocks, "
                   f"{per_sm} block(s) per SM by shared memory)")
+        if table == "biased":   # planted fault: the last channel group,
+            # which holds channels C - 1 and the pad, dropped from the sum
+            bad = dataclasses.replace(tiling, c4=tiling.c4 - 4)
+            caught = not torch.equal(fused_lut_conv_tiled(
+                x, wq, l16, off, *args, emit_acc=True, tiling=bad, **geo), ap)
+            check(caught, f"fused_lut_conv_tiled {label}, planted fault: a "
+                          f"tiling with its last channel group dropped (c4 "
+                          f"{bad.c4} of {tiling.c4}) differs from the plain "
+                          f"version: caught")
         del yp, ap
         if not timed:
             account("fused_lut_conv_tiled", 0, 0.0, 0.0, 0.0, 0.0, 0.0, err)
@@ -1892,8 +2029,9 @@ def conv_phase(torch, np, dev, check, acu, ops, launches, account,
         lib = cuda_ms(torch, lambda: F.conv2d(x, wf, stride=st,
                                               padding=(pad[0][0], pad[1][0]),
                                               dilation=dl), 10)
-        ms6 = cuda_ms(torch, k6, 10)
-        ms5 = cuda_ms(torch, k5, 10)
+        ms6, ms5, ms6b = (cuda_ms(torch, fn, 10) for fn in (k6, k5, k6))
+        ms6 = min(ms6, ms6b)
+        redesign[f"kernel 6 {label}"] = (ms6, ms5)
         msp = cuda_ms(torch, plain, 2, warm=1)
         nbytes = ((x.numel() + wq.numel() + n * ho * ho * cout) * 4
                   + lut_bytes + cout * 4 + 8)
@@ -1902,11 +2040,31 @@ def conv_phase(torch, np, dev, check, acu, ops, launches, account,
         account("fused_lut_conv_tiled", int(label == "CNN-224 c2"), ms6,
                 msp, lib, nbytes, lookups, err)
         print(f"  {label}: {lookups / 1e9:.2f} G lookups, bound {bound:.3f} "
-              f"ms; kernel 6 {ms6:.3f} ms ({lookups / ms6 / 1e9:.3f} T "
-              f"lookups/s), kernel 5 {ms5:.3f} ms ({lookups / ms5 / 1e9:.3f}"
-              f" T lookups/s), plain {msp:.1f} ms, F.conv2d f32 {lib:.3f} "
-              f"ms; band {tiling.bh} rows x {tiling.bw} columns, grid "
-              f"{grid} of {items} tiles", flush=True)
+              f"ms ({bound / ms6:.0%} of it); kernel 6 {ms6:.3f} ms "
+              f"({lookups / ms6 / 1e9:.3f} T lookups/s), kernel 5 "
+              f"{ms5:.3f} ms ({lookups / ms5 / 1e9:.3f} T lookups/s) in the "
+              f"same call: kernel 6 {ms5 / ms6:.2f}x faster; plain "
+              f"{msp:.1f} ms, F.conv2d f32 {lib:.3f} ms; tile {tiling.bh} "
+              f"rows x {tiling.bw} columns, grid {grid} of {items} tiles",
+              flush=True)
+        if label == "CNN-224 c2":   # bank conflicts: real codes against
+            # codes that put a warp's 32 gathers in 32 banks (lane l's
+            # channel j reads code 2l + 64j: word l + 32j, bank l) on one
+            # table row (every pixel 0.5)
+            co = torch.arange(cout, device=dev)
+            lane, j = co % tiling.bn // tiling.tn, co % tiling.tn
+            free_w = (2 * lane + 64 * j - off).to(torch.int32)[
+                :, None, None, None].expand(ws_).contiguous()
+            free_x = torch.full(xs_, 0.5, device=dev)
+            free = cuda_ms(torch, lambda: fused_lut_conv_tiled(
+                free_x, free_w, l16, off, *args, **geo), 10)
+            again = cuda_ms(torch, k6, 10)
+            replay = min(ms6, again) / free
+            redesign["kernel 6 conflicts"] = replay
+            print(f"    bank conflicts at c2: {min(ms6, again):.3f} ms on "
+                  f"real codes / {free:.3f} ms on conflict-free codes: "
+                  f"x{replay:.2f}", flush=True)
+            del free_w, free_x
         del wf
     torch.cuda.empty_cache()
 
@@ -2331,6 +2489,9 @@ def table2_phase(torch, np, dev, check):
 
 
 def main() -> int:
+    # a run cut short (a time limit, a lost machine) shows how far it got
+    sys.stdout.reconfigure(line_buffering=True)
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -2802,8 +2963,9 @@ def main() -> int:
                 lambda: trainer.fit(p, state, batches, 1), 1e3 / rate)
 
     # -- 6. serve SmolLM-135M ----------------------------------------------
+    redesign = {}
     lm_rates = lm_phase(torch, np, dev, check, acu, ops, launches, account,
-                        lookups_per_s, lut_bytes)
+                        lookups_per_s, lut_bytes, redesign)
 
     # -- 6b. kernel 3's redesign: plans, edge shapes, conflicts ------------
     dense_times = dense_phase(torch, np, dev, check, acu, ops,
@@ -2821,7 +2983,7 @@ def main() -> int:
     # -- 9. serve granite-moe-3b-a800m -------------------------------------
     t0 = time.perf_counter()
     moe_rates = moe_phase(torch, np, dev, check, acu, ops, launches, account,
-                          lookups_per_s, lut_bytes)
+                          lookups_per_s, lut_bytes, redesign)
     print(f"MoE phase: {time.perf_counter() - t0:.1f} s")
 
     # -- 10. serve rwkv6-3b --------------------------------------------------
@@ -2837,7 +2999,7 @@ def main() -> int:
 
     # -- 12. ImageNet-scale convs: kernel 6 on the CNN at 224^2 ----------
     convs = conv_phase(torch, np, dev, check, acu, ops, launches, account,
-                       lookups_per_s, lut_bytes, n_sm)
+                       lookups_per_s, lut_bytes, n_sm, redesign)
 
     # -- 13. report --------------------------------------------------------
     rows = []
@@ -2886,7 +3048,19 @@ def main() -> int:
         "(real / conflict-free codes) " + ", ".join(
         f"M={k.split()[1]}: {v[0]:.2f} (old core {v[1]:.2f})"
         for k, v in dense_times.items() if k.startswith("conflicts")))
+    print("redesigned kernels, each against its old path in the same call: "
+          + ", ".join(
+              f"{k} {v[0]:.3f} ms vs kernel 5 {v[1]:.3f} ms ({v[1] / v[0]:.2f}x)"
+              for k, v in redesign.items() if k.startswith("kernel 6 ")
+              and k != "kernel 6 conflicts")
+          + f"; kernel 6 bank-conflict replay "
+          f"x{redesign['kernel 6 conflicts']:.2f}; " + ", ".join(
+              f"{k} decode path {v[0]:.4f} ms vs general {v[1]:.4f} ms "
+              f"({v[1] / v[0]:.2f}x), SDPA {v[2]:.4f} ms"
+              for k, v in redesign.items() if k.startswith("kernel 8 ")))
     print("Table 2 arc:\n" + "\n".join(table2))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
+          f"kernels' build included")
     if check.failures:
         print(f"chip_smoke: {len(check.failures)} check(s) failed",
               file=sys.stderr)

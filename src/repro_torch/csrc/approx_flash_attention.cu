@@ -46,28 +46,51 @@
 // softmax one row per warp. Padding rows of a q tile are not computed (only
 // their tile's block bound is used), so a decode step costs one row.
 //
-// Paged decode (kernel 9 with at most 8 query rows per (batch row, KV
-// head): rep heads x Sq <= 8, 16-key pages, head dim 64 or 128) runs its
-// own path, approx_decode_kernel, chosen by the wrapper
-// (kernels/flash_attention/ops.py: decode_plan):
+// Decode paths. A call with at most 8 query rows per (batch row, KV head)
+// (rep heads x Sq <= 8, head dim 64 or 128, K/V rows 16-byte aligned) runs
+// one of two decode kernels instead, chosen by the wrapper
+// (kernels/flash_attention/ops.py: decode_plan). At decode the general
+// path above stages and quantizes each K/V block once per query row and
+// idles most of its 256 threads behind five block-wide barriers a block;
+// the decode paths share the work of one KV head instead:
 //  * a work item is one (batch row, KV head) with its rep query heads,
-//    rows b = g * rep + t (ir = b / row_heads and kvr = (b / rep) % KH, as
-//    above), on a group of 8 warps, two items a block of 512 threads: one
-//    warp a query row; every page is read and quantized once per item and
-//    serves all its rows;
-//  * the item's page-table row is read into shared memory once; the warps
-//    without a row copy pages into a ring of 4 cp.async stages and
-//    quantize the next page (K by key, V transposed) while the row warps
-//    compute the current one (the correctly rounded quantizers cost more
-//    than the gathers of a page). The item's warps meet at one named
-//    barrier a page: no block-wide barrier inside the KV loop;
-//  * per page and row, in one warp: QK as 16 keys x 2 halves of the head
+//    rows b = g * rep + t (ir = b / row_heads and kvr = b / rep, or (b /
+//    rep) % KH in the pool, as above), on a group of 8 warps: one warp a
+//    query row; the warps without a row copy keys with cp.async into a
+//    ring of 4 stages and quantize the next stage (K by key, V
+//    transposed, padded so that a warp's code loads hit distinct banks)
+//    while the row warps compute the current one, so every key is read
+//    and quantized once per item for all its rows. The correctly rounded
+//    quantizers cost more than the gathers of a stage;
+//  * the item's warps meet at one named barrier a stage: no block-wide
+//    barrier inside the KV loop. Blocks of 512 threads hold two items
+//    where shared memory allows (contiguous: one while the items are no
+//    more than the SMs, so that each has an SM of its own);
+//  * per stage and row, in one warp: QK as 16 keys x 2 halves of the head
 //    dim over the lanes, one shuffle to add the halves; the online softmax
 //    with the same reductions as the path above; PV as the head dim over
 //    the lanes, 16 gathers each.
-// Every semantic above holds on it: KV walked in order one 16-key page at
-// a time, the causal bound of the whole padded q tile, masked keys adding
-// LUT[code(p), v], the alpha = 0 rescale of a fully masked page.
+// Paged (kernel 9, approx_decode_kernel): a stage is one 16-key page, K
+// and V, read through the item's page-table row (staged once per item);
+// the page is the reference's bk, so each stage ends with its softmax and
+// PV. Contiguous (kernel 8, approx_decode_contig_kernel): the reference's
+// bk is min(128, round_up(Sk, 128)) keys, and p is taken against the
+// running max at the end of each bk block. So a stage is 32 keys (two
+// 16-key tiles) of K or of V, streamed in the order the rows use them: a
+// block's bk/32 K stages (each row warp keeps the block's bk scores in
+// shared memory), the softmax, then its bk/32 V stages (int32 PV
+// partials, folded into acc with the Sk-pad correction at the block's
+// last stage). A block that holds one item gives it all 16 warps, and a
+// row warp keeps its Q codes (as table-row offsets) in shared memory: at
+// 512 threads a thread has 128 registers, and the gathers in flight need
+// them more (measured: both lowered the call's time). Keys past the
+// cache's end are copied as zeros (cp.async zero fill). KV is never split
+// across items (a flash-decoding merge would take p against another max:
+// another function).
+// Every semantic above holds on both: KV walked in order in the
+// reference's blocks, the causal bound of the whole padded q tile, masked
+// keys adding LUT[code(p), v], the alpha = 0 rescale of a fully masked
+// block, the Sk-pad correction, K/V read in place through their strides.
 //
 // Float glue: __fdiv_rn in the quantizers, rintf (half to even), expf and
 // tanhf (no fast math), __fmul_rn / __fadd_rn where the reference rounds a
@@ -298,21 +321,23 @@ approx_attention_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// paged decode: one item (batch row, KV head) on a group of 8 warps, one
-// warp a query row, the others copying and quantizing its pages
+// decode paths: one item (batch row, KV head) on a group of 8 warps, one
+// warp a query row, the others copying and quantizing its keys
 // ---------------------------------------------------------------------------
-constexpr int kPage = 16;          // keys of one page (the pool's block size)
-constexpr int kStages = 4;         // cp.async ring depth, in pages
+constexpr int kPage = 16;          // keys of one page / one tile
+constexpr int kStages = 4;         // cp.async ring depth
 constexpr int kItemWarps = 8;      // warps of one item
-constexpr int kDecodeThreads = 512;  // two items a block
+constexpr int kDecodeThreads = 512;  // at most two items a block
 
 __device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
 }
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+// cp.async with zero fill: src_bytes = 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes = 16) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
-               "l"(src));
+               "l"(src), "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -326,11 +351,179 @@ __device__ __forceinline__ void group_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// Shared memory of the decode path: the table, then per item slot a ring
-// of raw pages (K then V, as stored), two buffers of codes (K by key, rows
-// padded to D + 8 bytes; V transposed, rows of 16 keys padded to 20 bytes;
-// both so that a warp's code loads hit distinct banks) and the item's
-// page-table row.
+// The 128 KiB table into shared memory, every 16-byte copy in flight at
+// once; returns after the block's barrier.
+__device__ __forceinline__ void stage_table(int16_t* lut, const int16_t* src,
+                                            int n, int tid) {
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && (n * n) % 8 == 0) {
+    const char* s = reinterpret_cast<const char*>(src);
+    char* d = reinterpret_cast<char*>(lut);
+    for (int i = tid * 16; i < n * n * 2; i += kDecodeThreads * 16)
+      cp_async16(d + i, s + i);
+    cp_commit();
+    cp_wait<0>();
+  } else {
+    for (int i = tid; i < n * n; i += kDecodeThreads) lut[i] = src[i];
+  }
+  __syncthreads();
+}
+
+// Code buffers of one 16-key tile: K by key (rows of D + 8 bytes), V
+// transposed (rows of 16 keys padded to 20 bytes), both so that a warp's
+// code loads hit distinct banks.
+template <int D>
+struct TileCodes {
+  static constexpr int KS = D + 8;
+  static constexpr int VS = kPage + 4;
+};
+
+// raw K (16 keys x D, as stored) -> K codes
+template <typename T, int D>
+__device__ __forceinline__ void quantize_k_tile(const T* rk, uint8_t* kc,
+                                                float s, float lo, float hi,
+                                                int offset, int qtid,
+                                                int qthreads) {
+  for (int e = qtid; e < kPage * D / 4; e += qthreads) {
+    const int jj = e / (D / 4), d4 = (e % (D / 4)) * 4;  // 4 dims of a key
+    uint32_t word = 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      word |= static_cast<uint32_t>(
+                  quantize_symmetric(to_float(rk[jj * D + d4 + c]), s, lo,
+                                     hi) +
+                  offset)
+              << (8 * c);
+    *reinterpret_cast<uint32_t*>(kc + jj * TileCodes<D>::KS + d4) = word;
+  }
+}
+
+// raw V (16 keys x D, as stored) -> V codes, transposed
+template <typename T, int D>
+__device__ __forceinline__ void quantize_v_tile(const T* rv, uint8_t* vt,
+                                                float s, float lo, float hi,
+                                                int offset, int qtid,
+                                                int qthreads) {
+  for (int e = qtid; e < D * kPage / 4; e += qthreads) {
+    const int d = e % D, j4 = (e / D) * 4;  // 4 keys of one dim
+    uint32_t word = 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      word |= static_cast<uint32_t>(
+                  quantize_symmetric(to_float(rv[(j4 + c) * D + d]), s, lo,
+                                     hi) +
+                  offset)
+              << (8 * c);
+    *reinterpret_cast<uint32_t*>(vt + d * TileCodes<D>::VS + j4) = word;
+  }
+}
+
+// QK of one query row over one 16-key tile: lane (j, h) sums key j over
+// its half h of the head dim (qo: its Q codes as table-row byte offsets,
+// head dims 4 * (2u + h) + c); one shuffle adds the halves
+template <int D>
+__device__ __forceinline__ int qk_tile(const uint8_t* kc,
+                                       const int (&qo)[D / 2],
+                                       const char* lut_b, int j, int h) {
+  int s_int = 0;
+#pragma unroll
+  for (int u = 0; u < D / 8; ++u) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(
+        kc + j * TileCodes<D>::KS + 4 * (2 * u + h));
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      s_int += *reinterpret_cast<const int16_t*>(
+          lut_b + qo[4 * u + c] + (((w >> (8 * c)) & 0xff) << 1));
+  }
+  return s_int + __shfl_xor_sync(0xffffffffu, s_int, 16);
+}
+
+// The same over Q offsets kept in shared memory (qs: the row's D table-row
+// byte offsets): one broadcast 16-byte load serves 4 gathers, and the 32
+// or 64 registers qo would hold stay free for gathers in flight
+template <int D>
+__device__ __forceinline__ int qk_tile_s(const uint8_t* kc, const int* qs,
+                                         const char* lut_b, int j, int h) {
+  int s_int = 0;
+#pragma unroll
+  for (int u = 0; u < D / 8; ++u) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(
+        kc + j * TileCodes<D>::KS + 4 * (2 * u + h));
+    const int4 q4 = *reinterpret_cast<const int4*>(qs + 4 * (2 * u + h));
+    s_int += *reinterpret_cast<const int16_t*>(lut_b + q4.x +
+                                               ((w & 0xff) << 1)) +
+             *reinterpret_cast<const int16_t*>(lut_b + q4.y +
+                                               (((w >> 8) & 0xff) << 1)) +
+             *reinterpret_cast<const int16_t*>(lut_b + q4.z +
+                                               (((w >> 16) & 0xff) << 1)) +
+             *reinterpret_cast<const int16_t*>(lut_b + q4.w +
+                                               ((w >> 24) << 1));
+  }
+  return s_int + __shfl_xor_sync(0xffffffffu, s_int, 16);
+}
+
+// PV of one query row over one 16-key tile: head dims lane + 32u, 16
+// gathers each at the keys' probability-code rows pr (byte offsets)
+template <int D>
+__device__ __forceinline__ void pv_tile(const uint8_t* vt,
+                                        const int (&pr)[kPage],
+                                        const char* lut_b, int lane,
+                                        int (&pv)[D / 32]) {
+#pragma unroll
+  for (int u = 0; u < D / 32; ++u) {
+    const int d = lane + 32 * u;
+#pragma unroll
+    for (int w4 = 0; w4 < kPage / 4; ++w4) {
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(
+          vt + d * TileCodes<D>::VS + 4 * w4);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        pv[u] += *reinterpret_cast<const int16_t*>(
+            lut_b + pr[4 * w4 + c] + (((w >> (8 * c)) & 0xff) << 1));
+    }
+  }
+}
+
+// a row warp's Q codes, as table row byte offsets: head dims 4 * (2u + h)
+// + c, the ones its lane's QK half reads
+template <typename T, int D>
+__device__ __forceinline__ void load_q(const T* qg, long long q_off, int h,
+                                       float sq, float lo, float hi,
+                                       int offset, int row_bytes,
+                                       int (&qo)[D / 2]) {
+#pragma unroll
+  for (int u = 0; u < D / 8; ++u)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float x = to_float(qg[q_off + 4 * (2 * u + h) + c]);
+      qo[4 * u + c] = (quantize_symmetric(x, sq, lo, hi) + offset) * row_bytes;
+    }
+}
+
+// Which of an item's iw warps do what: a row warp (rw < rows) computes
+// one query row; the quantizer warps (the ones without a row, or all of
+// them when every warp has one) copy and quantize keys.
+struct ItemRoles {
+  int rows, rw, q0, qthreads, qtid, gthreads, gtid, bar_item, bar_quant;
+  bool is_row, is_quant;
+  __device__ ItemRoles(int warp, int lane, int slot, int items, int n_rows,
+                       int iw) {
+    rows = n_rows;
+    rw = warp % iw;
+    is_row = rw < rows;
+    q0 = rows < iw ? rows : 0;
+    is_quant = rw >= q0;
+    qthreads = (iw - q0) * 32;
+    qtid = (rw - q0) * 32 + lane;
+    gthreads = iw * 32;
+    gtid = rw * 32 + lane;
+    bar_item = 1 + slot;
+    bar_quant = 1 + items + slot;
+  }
+};
+
+// Shared memory of the paged decode path: the table, then per item slot a
+// ring of raw pages (K then V, as stored), two buffers each of K and V
+// codes and the item's page-table row.
 struct DecodeLayout {
   size_t ring, page, kc, vt, pages, slot, base, total;
   __host__ __device__ DecodeLayout(int n_codes, int D, int es, int items,
@@ -349,40 +542,20 @@ struct DecodeLayout {
 template <typename T, int D>
 __global__ void __launch_bounds__(kDecodeThreads, 1)
 approx_decode_kernel(Params p) {
-  constexpr int KS = D + 8;          // K code row stride (bytes)
-  constexpr int VS = kPage + 4;      // V code (transposed) row stride
-  constexpr int CPR = D * (int)sizeof(T) / 16;  // 16-byte copies a key
   extern __shared__ __align__(16) unsigned char smem[];
   const DecodeLayout L(p.n_codes, D, sizeof(T), p.dec_items, p.n_kv);
   int16_t* lut = reinterpret_cast<int16_t*>(smem);
   const char* lut_b = reinterpret_cast<const char*>(smem);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int n = p.n_codes, row_bytes = 2 * n;
-  // the table, every 16-byte copy in flight at once
-  if ((reinterpret_cast<uintptr_t>(p.lut) & 15) == 0 && (n * n) % 8 == 0) {
-    const char* src = reinterpret_cast<const char*>(p.lut);
-    for (int i = tid * 16; i < n * n * 2; i += kDecodeThreads * 16)
-      cp_async16(smem + i, src + i);
-    cp_commit();
-    cp_wait<0>();
-  } else {
-    for (int i = tid; i < n * n; i += kDecodeThreads) lut[i] = p.lut[i];
-  }
-  __syncthreads();  // the last block-wide barrier: the KV loop has none
+  constexpr int CPR = D * (int)sizeof(T) / 16;  // 16-byte copies a key
+  stage_table(lut, p.lut, n, tid);  // the last block-wide barrier
 
   const int slot = warp / kItemWarps;
   if (slot >= p.dec_items) return;  // a block with one item: idle warps
-  const int rows = p.dec_rows * p.Sq;     // query rows of one item
-  const int rw = warp % kItemWarps;       // < rows: this warp's row
-  const bool is_row = rw < rows;
-  // the warps that copy and quantize pages: the ones without a row, or
-  // all eight when every warp has one
-  const int q0 = rows < kItemWarps ? rows : 0;
-  const bool is_quant = rw >= q0;
-  const int qthreads = (kItemWarps - q0) * 32, qtid = (rw - q0) * 32 + lane;
-  const int gthreads = kItemWarps * 32, gtid = rw * 32 + lane;
-  const int bar_item = 1 + slot, bar_quant = 1 + p.dec_items + slot;
-  const int t = rw / p.Sq, r = rw % p.Sq;  // a row warp's head and query
+  const ItemRoles R(warp, lane, slot, p.dec_items, p.dec_rows * p.Sq,
+                    kItemWarps);
+  const int t = R.rw / p.Sq, r = R.rw % p.Sq;  // a row warp's head, query
   unsigned char* ring = smem + L.base + slot * L.slot;
   uint8_t* kc0 = ring + L.ring;
   uint8_t* vt0 = kc0 + 2 * L.kc;
@@ -411,16 +584,16 @@ approx_decode_kernel(Params p) {
                  : p.n_kv;
     const long long k_off = kvr * p.ksh, v_off = kvr * p.vsh;
     // the page-table row, read once: a page's copy then waits on nothing
-    group_sync(bar_item, gthreads);  // the previous item is done with it
-    for (int i = gtid; i < n_eff; i += gthreads)
+    group_sync(R.bar_item, R.gthreads);  // the previous item is done with it
+    for (int i = R.gtid; i < n_eff; i += R.gthreads)
       pt[i] = p.page_table[(size_t)ir * p.n_kv + i];
-    group_sync(bar_item, gthreads);
+    group_sync(R.bar_item, R.gthreads);
 
     auto issue = [&](int page) {   // page's raw K and V into its ring slot
       if (page < n_eff) {
         const long long start = (long long)pt[page] * kPage;
         unsigned char* dst = ring + (page % kStages) * L.page;
-        for (int e = qtid; e < 2 * kPage * CPR; e += qthreads) {
+        for (int e = R.qtid; e < 2 * kPage * CPR; e += R.qthreads) {
           const int kv = e / (kPage * CPR), jj = (e / CPR) % kPage;
           const int ch = e % CPR;
           const char* src =
@@ -434,81 +607,38 @@ approx_decode_kernel(Params p) {
     auto quantize_page = [&](int page) {  // ring -> codes[page % 2]
       const T* rk =
           reinterpret_cast<const T*>(ring + (page % kStages) * L.page);
-      const T* rv = rk + kPage * D;
-      uint8_t* kc = kc0 + (page & 1) * L.kc;
-      uint8_t* vt = vt0 + (page & 1) * L.vt;
-      for (int e = qtid; e < kPage * D / 4; e += qthreads) {
-        const int jj = e / (D / 4), d4 = (e % (D / 4)) * 4;  // K: 4 dims
-        uint32_t word = 0;
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          word |= static_cast<uint32_t>(
-                      quantize_symmetric(to_float(rk[jj * D + d4 + c]), sk,
-                                         lo, hi) +
-                      p.offset)
-                  << (8 * c);
-        *reinterpret_cast<uint32_t*>(kc + jj * KS + d4) = word;
-      }
-      for (int e = qtid; e < D * kPage / 4; e += qthreads) {
-        const int d = e % D, j4 = (e / D) * 4;  // V: 4 keys of one dim
-        uint32_t word = 0;
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          word |= static_cast<uint32_t>(
-                      quantize_symmetric(to_float(rv[(j4 + c) * D + d]), sv,
-                                         lo, hi) +
-                      p.offset)
-                  << (8 * c);
-        *reinterpret_cast<uint32_t*>(vt + d * VS + j4) = word;
-      }
+      quantize_k_tile<T, D>(rk, kc0 + (page & 1) * L.kc, sk, lo, hi,
+                            p.offset, R.qtid, R.qthreads);
+      quantize_v_tile<T, D>(rk + kPage * D, vt0 + (page & 1) * L.vt, sv, lo,
+                            hi, p.offset, R.qtid, R.qthreads);
     };
 
-    // a row warp's Q codes, as table row byte offsets: head dims
-    // 4 * (2u + h) + c, the ones its lane's QK half reads
     int qo[D / 2];
     float m_run = kNegInf, l_run = 0.f, acc[D / 32];
 #pragma unroll
     for (int u = 0; u < D / 32; ++u) acc[u] = 0.f;
-    if (is_row) {
-      const long long q_off = (b / p.QH) * p.qsb + (b % p.QH) * p.qsh +
-                              (long long)r * p.qss;
-#pragma unroll
-      for (int u = 0; u < D / 8; ++u)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float x = to_float(qg[q_off + 4 * (2 * u + h) + c]);
-          qo[4 * u + c] = (quantize_symmetric(x, sq, lo, hi) + p.offset) *
-                          row_bytes;
-        }
-    }
+    if (R.is_row)
+      load_q<T, D>(qg, (b / p.QH) * p.qsb + (b % p.QH) * p.qsh +
+                           (long long)r * p.qss,
+                   h, sq, lo, hi, p.offset, row_bytes, qo);
 
-    if (is_quant) {
+    if (R.is_quant) {
       for (int s = 0; s < kStages - 1; ++s) issue(s);
       cp_wait<kStages - 2>();              // page 0 (this thread's copies)
-      group_sync(bar_quant, qthreads);     // ... and every quantizer's
+      group_sync(R.bar_quant, R.qthreads);  // ... and every quantizer's
       if (n_eff > 0) quantize_page(0);
       cp_wait<kStages - 3>();              // page 1
     }
-    group_sync(bar_item, gthreads);
+    group_sync(R.bar_item, R.gthreads);
 
     for (int ki = 0; ki < n_eff; ++ki) {
-      if (is_quant) issue(ki + kStages - 1);
-      if (is_row) {
+      if (R.is_quant) issue(ki + kStages - 1);
+      if (R.is_row) {
         const uint8_t* kc = kc0 + (ki & 1) * L.kc;
         const uint8_t* vt = vt0 + (ki & 1) * L.vt;
 
         // scores: lane (j, h) sums key j over its half of the head dim
-        int s_int = 0;
-#pragma unroll
-        for (int u = 0; u < D / 8; ++u) {
-          const uint32_t w = *reinterpret_cast<const uint32_t*>(
-              kc + j * KS + 4 * (2 * u + h));
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            s_int += *reinterpret_cast<const int16_t*>(
-                lut_b + qo[4 * u + c] + (((w >> (8 * c)) & 0xff) << 1));
-        }
-        s_int += __shfl_xor_sync(0xffffffffu, s_int, 16);
+        const int s_int = qk_tile<D>(kc, qo, lut_b, j, h);
         float sc = __fmul_rn(__int2float_rn(s_int), score_scale);
         if (p.has_softcap)
           sc = __fmul_rn(p.softcap, tanhf(__fdiv_rn(sc, p.softcap)));
@@ -542,31 +672,267 @@ approx_decode_kernel(Params p) {
         for (int jj = 0; jj < kPage; ++jj)
           pr[jj] = __shfl_sync(0xffffffffu, prow, jj);
         const int pad = min(max((ki + 1) * kPage - p.seq_k, 0), kPage);
+        int pv_int[D / 32];
+#pragma unroll
+        for (int u = 0; u < D / 32; ++u) pv_int[u] = 0;
+        pv_tile<D>(vt, pr, lut_b, lane, pv_int);
 #pragma unroll
         for (int u = 0; u < D / 32; ++u) {
-          const int d = lane + 32 * u;
-          int pv_int = 0;
-#pragma unroll
-          for (int w4 = 0; w4 < kPage / 4; ++w4) {
-            const uint32_t w = *reinterpret_cast<const uint32_t*>(
-                vt + d * VS + 4 * w4);
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-              pv_int += *reinterpret_cast<const int16_t*>(
-                  lut_b + pr[4 * w4 + c] + (((w >> (8 * c)) & 0xff) << 1));
-          }
-          pv_int -= pad * m00;
-          const float pv = __fmul_rn(__int2float_rn(pv_int), pv_scale);
+          const float pv =
+              __fmul_rn(__int2float_rn(pv_int[u] - pad * m00), pv_scale);
           acc[u] = __fadd_rn(__fmul_rn(acc[u], alpha), pv);
         }
       }
-      if (is_quant) {
+      if (R.is_quant) {
         if (ki + 1 < n_eff) quantize_page(ki + 1);
         cp_wait<kStages - 3>();        // page ki + 2 (this thread's copies)
       }
-      group_sync(bar_item, gthreads);
+      group_sync(R.bar_item, R.gthreads);
     }
-    if (is_row) {
+    if (R.is_row) {
+      const float denom = fmaxf(l_run, 1e-30f);
+#pragma unroll
+      for (int u = 0; u < D / 32; ++u)
+        p.out[((size_t)b * p.Sq + r) * D + lane + 32 * u] =
+            __fdiv_rn(acc[u], denom);
+    }
+  }
+  cp_wait<0>();
+}
+
+// The contiguous path's stage: kContigSub 16-key tiles of K or of V (32
+// keys), so that a 128-key block takes 8 stages, each with twice a
+// page-tile's work behind one barrier; a ring of 4 such stages.
+constexpr int kContigSub = 2;
+constexpr int kContigKeys = kContigSub * kPage;
+constexpr int kContigStages = 4;
+
+// Shared memory of the contiguous decode path: the table, then per item
+// slot a ring of raw stages (32 keys of K or V, as stored), two code
+// buffers (a stage's K or V tiles each), each row warp's bk scores, which
+// its softmax overwrites with the keys' probability-code rows, and each
+// row's D Q codes as table-row byte offsets.
+struct ContigLayout {
+  size_t tile, ring, sub, codes, scores, qoff, slot, base, total;
+  __host__ __device__ ContigLayout(int n_codes, int D, int es, int items,
+                                   int bk) {
+    tile = (size_t)kContigKeys * D * es;
+    ring = kContigStages * tile;
+    const size_t kbytes = (size_t)kPage * (D + 8), vbytes =
+        (size_t)D * (kPage + 4);
+    sub = round_up16(kbytes > vbytes ? kbytes : vbytes);
+    codes = kContigSub * sub;
+    scores = round_up16((size_t)kItemWarps * bk * 4);
+    qoff = round_up16((size_t)kItemWarps * D * 4);
+    slot = ring + 2 * codes + scores + qoff;
+    base = round_up16((size_t)n_codes * n_codes * 2);
+    total = base + items * slot;
+  }
+};
+
+// Contiguous decode (kernel 8): the item's keys stream in stages of 32
+// keys in the order its rows consume them, for each bk block its bk/32
+// stages of K and then its bk/32 stages of V. A row warp writes each K
+// tile's 16 scores, takes the block's softmax after its last K stage (the
+// reference's bk block, not the stage), and sums each V tile's PV into
+// int32 partials that the block's last V stage corrects for the Sk pad
+// and folds into acc.
+template <typename T, int D>
+__global__ void __launch_bounds__(kDecodeThreads, 1)
+approx_decode_contig_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const ContigLayout L(p.n_codes, D, sizeof(T), p.dec_items, p.bk);
+  int16_t* lut = reinterpret_cast<int16_t*>(smem);
+  const char* lut_b = reinterpret_cast<const char*>(smem);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int n = p.n_codes, row_bytes = 2 * n, bk = p.bk;
+  constexpr int CPR = D * (int)sizeof(T) / 16;  // 16-byte copies a key
+  stage_table(lut, p.lut, n, tid);  // the last block-wide barrier
+
+  // an item's warps: all 16 of a block that holds one item (more
+  // quantizers for its few rows), 8 of one that holds two
+  const int iw = kDecodeThreads / 32 / p.dec_items;
+  const int slot = warp / iw;
+  const ItemRoles R(warp, lane, slot, p.dec_items, p.dec_rows * p.Sq, iw);
+  const int t = R.rw / p.Sq, r = R.rw % p.Sq;
+  unsigned char* ring = smem + L.base + slot * L.slot;
+  uint8_t* codes0 = ring + L.ring;
+  float* S = reinterpret_cast<float*>(codes0 + 2 * L.codes) +
+             (R.rw % kItemWarps) * bk;            // this row warp's scores
+  int* P = reinterpret_cast<int*>(S);              // ... then its p rows
+  int* qs = reinterpret_cast<int*>(codes0 + 2 * L.codes + L.scores) +
+            (R.rw % kItemWarps) * D;              // its Q offsets
+
+  const T* qg = static_cast<const T*>(p.q);
+  const char* kg = static_cast<const char*>(p.k);
+  const char* vg = static_cast<const char*>(p.v);
+  const float sq = *p.sq, sk = *p.sk, sv = *p.sv;
+  const float score_scale = *p.score_scale, pv_scale = *p.pv_scale;
+  const float lo = static_cast<float>(p.lo), hi = static_cast<float>(p.hi);
+  const int m00 = lut[p.offset * n + p.offset];
+  const int j = lane & 15, h = lane >> 4;
+  const int nst = bk / kContigKeys, per_block = 2 * nst;
+  const int n_items = p.BH / p.dec_rows;
+
+  for (int g = blockIdx.x * p.dec_items + slot; g < n_items;
+       g += gridDim.x * p.dec_items) {
+    const int b0 = g * p.dec_rows, b = b0 + t;
+    const int ir = b0 / p.row_heads;
+    const int kvr = b0 / p.rep;
+    const int q_base = p.rowinfo[3 * ir];
+    const int kv_start = p.rowinfo[3 * ir + 1];
+    const int kv_len = p.rowinfo[3 * ir + 2];
+    // the causal bound of the whole padded q tile of bq rows
+    const int n_eff =
+        p.causal ? min(p.n_kv, floor_div(q_base + p.bq - 1, bk) + 1)
+                 : p.n_kv;
+    const int n_stages = n_eff * per_block;
+    const char* kbase =
+        kg + ((kvr / p.KH) * p.ksb + (kvr % p.KH) * p.ksh) * sizeof(T);
+    const char* vbase =
+        vg + ((kvr / p.KH) * p.vsb + (kvr % p.KH) * p.vsh) * sizeof(T);
+
+    // stage -> its raw 32 keys in the ring; keys past the cache hold 0
+    auto issue = [&](int st) {
+      if (st < n_stages) {
+        const int w = st % per_block;
+        const bool is_v = w >= nst;
+        const int key0 =
+            (st / per_block) * bk + (is_v ? w - nst : w) * kContigKeys;
+        const char* base = is_v ? vbase : kbase;
+        const long long stride = (is_v ? p.vss : p.kss) * sizeof(T);
+        unsigned char* dst = ring + (st % kContigStages) * L.tile;
+        for (int e = R.qtid; e < kContigKeys * CPR; e += R.qthreads) {
+          const int key = key0 + e / CPR;
+          const bool ok = key < p.seq_k;
+          cp_async16(dst + (size_t)e * 16,
+                     ok ? base + key * stride + (e % CPR) * 16 : base,
+                     ok ? 16 : 0);
+        }
+      }
+      cp_commit();
+    };
+    auto quantize_stage = [&](int st) {  // ring -> codes[st % 2]
+      const T* raw =
+          reinterpret_cast<const T*>(ring + (st % kContigStages) * L.tile);
+      uint8_t* dst = codes0 + (st & 1) * L.codes;
+#pragma unroll
+      for (int sb = 0; sb < kContigSub; ++sb) {
+        if (st % per_block < nst)
+          quantize_k_tile<T, D>(raw + sb * kPage * D, dst + sb * L.sub, sk,
+                                lo, hi, p.offset, R.qtid, R.qthreads);
+        else
+          quantize_v_tile<T, D>(raw + sb * kPage * D, dst + sb * L.sub, sv,
+                                lo, hi, p.offset, R.qtid, R.qthreads);
+      }
+    };
+
+    float m_run = kNegInf, l_run = 0.f, alpha = 1.f, acc[D / 32];
+    int pv_int[D / 32];
+#pragma unroll
+    for (int u = 0; u < D / 32; ++u) {
+      acc[u] = 0.f;
+      pv_int[u] = 0;
+    }
+    group_sync(R.bar_item, R.gthreads);  // the previous item is done
+    if (R.is_row) {
+      const long long q_off =
+          (b / p.QH) * p.qsb + (b % p.QH) * p.qsh + (long long)r * p.qss;
+      for (int dd = lane; dd < D; dd += 32)
+        qs[dd] = (quantize_symmetric(to_float(qg[q_off + dd]), sq, lo, hi) +
+                  p.offset) *
+                 row_bytes;
+      __syncwarp();
+    }
+    if (R.is_quant) {
+      for (int st = 0; st < kContigStages - 1; ++st) issue(st);
+      cp_wait<kContigStages - 2>();        // stage 0 (this thread's copies)
+      group_sync(R.bar_quant, R.qthreads);  // ... and every quantizer's
+      if (n_stages > 0) quantize_stage(0);
+      cp_wait<kContigStages - 3>();        // stage 1
+    }
+    group_sync(R.bar_item, R.gthreads);
+
+    for (int st = 0; st < n_stages; ++st) {
+      if (R.is_quant) issue(st + kContigStages - 1);
+      if (R.is_row) {
+        const uint8_t* codes = codes0 + (st & 1) * L.codes;
+        const int ki = st / per_block, w = st % per_block;
+        if (w < nst) {
+          // scores of keys (w * 2 + sb) * 16 + j of block ki
+#pragma unroll
+          for (int sb = 0; sb < kContigSub; ++sb) {
+            const int key = (w * kContigSub + sb) * kPage + j;
+            const int s_int = qk_tile_s<D>(codes + sb * L.sub, qs, lut_b, j,
+                                           h);
+            float sc = __fmul_rn(__int2float_rn(s_int), score_scale);
+            if (p.has_softcap)
+              sc = __fmul_rn(p.softcap, tanhf(__fdiv_rn(sc, p.softcap)));
+            const int k_pos = ki * bk + key, q_pos = q_base + r;
+            bool live = k_pos >= kv_start && k_pos < kv_len;
+            if (p.causal) live = live && k_pos <= q_pos;
+            if (p.window >= 0) live = live && k_pos > q_pos - p.window;
+            if (h == 0) S[key] = live ? sc : kNegInf;
+          }
+          if (w == nst - 1) {
+            // the block's online softmax over its bk scores
+            __syncwarp();
+            float mx = kNegInf;
+            for (int jj = lane; jj < bk; jj += 32) mx = fmaxf(mx, S[jj]);
+            for (int o = 16; o > 0; o >>= 1)
+              mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+            const float m_new = fmaxf(m_run, mx);
+            float psum = 0.f;
+            for (int jj = lane; jj < bk; jj += 32) {
+              const float pj = expf(__fsub_rn(S[jj], m_new));
+              psum = __fadd_rn(psum, pj);
+              const float code =
+                  fminf(fmaxf(rintf(__fmul_rn(pj, hi)), 0.f), hi);
+              P[jj] = (static_cast<int>(code) + p.offset) * row_bytes;
+            }
+            for (int o = 16; o > 0; o >>= 1)
+              psum = __fadd_rn(psum, __shfl_xor_sync(0xffffffffu, psum, o));
+            alpha = expf(__fsub_rn(m_run, m_new));
+            l_run = __fadd_rn(__fmul_rn(alpha, l_run), psum);
+            m_run = m_new;
+            __syncwarp();
+          }
+        } else {
+          // PV of keys ((w - nst) * 2 + sb) * 16 .. +15 of block ki
+          const int sp = w - nst;
+#pragma unroll
+          for (int sb = 0; sb < kContigSub; ++sb) {
+            int pr[kPage];
+            const int* prow = P + (sp * kContigSub + sb) * kPage;
+#pragma unroll
+            for (int q4 = 0; q4 < kPage / 4; ++q4) {
+              const int4 v4 = *reinterpret_cast<const int4*>(prow + 4 * q4);
+              pr[4 * q4] = v4.x;
+              pr[4 * q4 + 1] = v4.y;
+              pr[4 * q4 + 2] = v4.z;
+              pr[4 * q4 + 3] = v4.w;
+            }
+            pv_tile<D>(codes + sb * L.sub, pr, lut_b, lane, pv_int);
+          }
+          if (sp == nst - 1) {
+            const int pad = min(max((ki + 1) * bk - p.seq_k, 0), bk);
+#pragma unroll
+            for (int u = 0; u < D / 32; ++u) {
+              const float pv =
+                  __fmul_rn(__int2float_rn(pv_int[u] - pad * m00), pv_scale);
+              acc[u] = __fadd_rn(__fmul_rn(acc[u], alpha), pv);
+              pv_int[u] = 0;
+            }
+          }
+        }
+      }
+      if (R.is_quant) {
+        if (st + 1 < n_stages) quantize_stage(st + 1);
+        cp_wait<kContigStages - 3>();  // stage + 2 (this thread's copies)
+      }
+      group_sync(R.bar_item, R.gthreads);
+    }
+    if (R.is_row) {
       const float denom = fmaxf(l_run, 1e-30f);
 #pragma unroll
       for (int u = 0; u < D / 32; ++u)
@@ -579,21 +945,31 @@ approx_decode_kernel(Params p) {
 
 template <typename T, int D>
 int launch_decode(const Params& prm, int num_blocks, cudaStream_t stream) {
-  const DecodeLayout L(prm.n_codes, D, sizeof(T), prm.dec_items, prm.n_kv);
-  if (L.total > 232448 || prm.dec_items < 1 ||
+  const bool paged = prm.paged != 0;
+  const size_t total =
+      paged ? DecodeLayout(prm.n_codes, D, sizeof(T), prm.dec_items,
+                           prm.n_kv).total
+            : ContigLayout(prm.n_codes, D, sizeof(T), prm.dec_items,
+                           prm.bk).total;
+  // the tilings the decode paths are built for, and no other
+  if (total > 232448 || prm.dec_items < 1 ||
       prm.dec_items * kItemWarps > kDecodeThreads / 32 ||
-      prm.dec_rows * prm.Sq > kItemWarps || prm.bk != kPage)
+      prm.dec_rows * prm.Sq > kItemWarps || prm.BH % prm.dec_rows ||
+      (paged ? prm.bk != kPage
+             : (prm.bk % kContigKeys != 0 || prm.bk <= 0 ||
+                prm.Sq > prm.bq)))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = approx_decode_kernel<T, D>;
+  auto kernel = paged ? approx_decode_kernel<T, D>
+                      : approx_decode_contig_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(L.total));
+      static_cast<int>(total));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int items = prm.BH / prm.dec_rows;
   const int blocks = (items + prm.dec_items - 1) / prm.dec_items;
   const int grid = blocks < num_blocks ? blocks : num_blocks;
   if (grid <= 0) return static_cast<int>(cudaSuccess);
-  kernel<<<grid, kDecodeThreads, L.total, stream>>>(prm);
+  kernel<<<grid, kDecodeThreads, total, stream>>>(prm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -643,8 +1019,7 @@ extern "C" int approx_flash_attention_launch(
              dec_items};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dec_items > 0) {
-    if (!paged || (D != 64 && D != 128))
-      return static_cast<int>(cudaErrorInvalidValue);
+    if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
     return bf16 ? launch_decode_d<__nv_bfloat16>(prm, num_blocks, s)
                 : launch_decode_d<float>(prm, num_blocks, s);
   }

@@ -1,5 +1,5 @@
 // fused_lut_conv_tiled: approximate conv2d forward over halo'd bands of
-// output rows, quantize and dequant fused,
+// output pixels, quantize and dequant fused,
 //
 //     out[n, oh, ow, co] = float(acc) * (xs * ws[co])    (or acc, emit_acc)
 //     acc = sum_{c,u,v} LUT[q(x[n, c, oh*sh - ph + u*dh, ow*sw - pw + v*dw])
@@ -11,226 +11,363 @@
 // input rows of one band of output rows in VMEM, quantized them once per
 // band, and sliced each tap's window out of those codes.
 //
-// Design on Hopper. One work item is one image, one band of `bh` output
-// rows by a strip of `bw` output columns, and one `BN`-wide Cout tile;
-// blocks are persistent and walk the items (Cout tile fastest, so
-// neighbouring items read the same input rows from L2). For each chunk of
-// `cc` input channels the block stages
-//   * the band's halo'd input pixels, ((bh-1)*sh + (kh-1)*dh + 1) rows by
-//     ((bw-1)*sw + (kw-1)*dw + 1) columns, read from NCHW with consecutive
-//     threads on consecutive columns (coalesced), quantized ONCE each with
-//     the quantizer of kernels 2 and 5 (lut_gemm.cuh: quantize_code) and
-//     kept as one-byte table rows;
-//   * the tile's weight codes, kh*kw x cc x BN bytes;
-// then every tap (u, v) reads its strided window straight out of the
-// shared band: no second global read and no second quantize of a pixel
-// (kernel 5 re-reads and re-quantizes each pixel for every tap it feeds).
-// Each thread keeps a 4 x 4 block of int32 accumulators (4 output pixels x
-// 4 output channels) in registers across all chunks and taps.
+// What bounds it on Hopper: every product is one data-dependent 16-bit
+// gather from the int16 product table in shared memory (128 KiB at 8
+// bits), so the ceiling is one gather per lane per clock, 132 SMs x 32
+// lanes; the bytes (the image, the output) take a fraction of that time.
 //
-// Pixels outside the image (SAME padding, the halo past the last row or
-// column) take the zero-point code, table row `off`, as the reference's
-// quantized 0.0 padding does. Channels are never padded: the last chunk
-// sums only the channels that exist, so no c_pad * LUT[off, off]
-// correction is needed. Output pixels of a tile past Ho or Wo are computed
-// on zero-point codes and never stored.
-//
-// Bound: the shared-memory gather rate, as for every LUT GEMM
-// (lut_gemm.cuh); the int16 table takes 128 KiB of the block's shared
-// memory, the band and weight codes the rest (the wrapper picks bh, bw and
-// cc so that all three fit: kernels/fused_lut_conv/ops.py,
-// pick_tiled_kernel_tiling). Integer adds are associative, so every band
-// height, strip width and chunk gives the reference's accumulator bit for
-// bit.
-#include "lut_gemm.cuh"
+// The design (the dense GEMM's, csrc/fused_lut_dense.cu, carried to a
+// conv). A work item is one image, one tile of bh output rows x bw output
+// columns (at most 64 pixels) and one Cout tile of 32 * TN channels;
+// blocks are persistent and walk the items Cout tile fastest, so
+// neighbouring blocks read the same input rows from L2.
+//  * One table row per warp instruction. Warp w owns 8 of the tile's
+//    pixels and all 32 * TN channels, lane l the TN consecutive channels
+//    l * TN + j. At each (pixel, channel, tap) all 32 lanes gather from the
+//    same table row, the pixel's code, at their own weight codes, so what
+//    is left of bank conflicts is the collisions among one row's 32 codes
+//    (a warp of 16 channels x 2 pixels read two rows at the same 16 codes:
+//    a conflict on every gather).
+//  * One shared-memory instruction per lookup. The halo'd band's codes are
+//    staged channel innermost, one 32-bit word per (input pixel, group of 4
+//    channels), so one broadcast load gives the 4 channels of one pixel
+//    for any tap, stride or dilation; the weight codes are staged as
+//    [tap][channel][Cout tile] bytes, so a lane's TN codes are one 8-, 16-
+//    or 32-bit load; the byte address a * 2n + 2b is formed in registers.
+//    The inner loop is one add, one 16-bit gather and one accumulate per
+//    product.
+//  * The channel pad. A channel count that is not a multiple of 4 is
+//    padded with the offset code on both sides (the wrapper pads the
+//    weight codes; the band's pad channels are written as the offset), and
+//    taps * c_pad * LUT[off, off] is subtracted in integer space, the
+//    reference's rule for its K pad (fused_lut_dense/kernel.py:76).
+//  * Overlapped staging. The steps of a block are (item, chunk of cc
+//    channels). A step's raw band (float32, [channel][row][column] as the
+//    NCHW image lies, 4-byte cp.async, zero fill outside the image) and its
+//    weight codes (16-byte cp.async, two buffers) are copied while the
+//    previous step is gathered; the raw band is quantized once per item
+//    with the quantizer of kernels 2, 3 and 5 (__fdiv_rn, rintf, clamp) in
+//    one pass between two barriers, and is then free for the next step's
+//    copy. The table is copied once per block with 16-byte cp.async.
+//  * Pixels outside the image (SAME padding, the halo past the last row or
+//    column) are copied as 0.0 and quantized, the reference's quantized
+//    0.0 padding. Pixels of a tile past Ho or Wo are computed and not
+//    stored.
+// The tiling (bh, bw, cc, TN) is the wrapper's
+// (kernels/fused_lut_conv/ops.py: pick_tiled_kernel_tiling, which sizes
+// the shared memory exactly as Layout below does); the launch refuses any
+// tiling it was not built for. Integer adds are associative, so every
+// tiling gives the reference's accumulator bit for bit.
+#include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = lutgemm::kThreads;
-constexpr int kTM = lutgemm::kTM;
-constexpr int kTN = lutgemm::kTN;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTM = 8;                 // output pixels of one warp
+constexpr int kPixels = kWarps * kTM;  // output pixels of one tile
+constexpr int kSmemLimit = 232448;     // opt-in shared memory of a block
 
-struct TiledGeom {
-  int n, c, h, w, cout, kh, kw, sh, sw, ph, pw, dh, dw, ho, wo;
-  int n_codes, offset;
-  float lo, hi;
-  int bh, bw, cc;          // band rows, strip columns, channel chunk
-  int rows_in, cols_in;    // the halo'd band's input extent
-  int tiles_h, tiles_w, tiles_n;
-};
-
-template <int BN>
-__host__ __device__ inline int tiled_smem_bytes(const TiledGeom& g) {
-  return lutgemm::round_up16(g.n_codes * g.n_codes * 2) +
-         lutgemm::round_up16(g.cc * g.rows_in * g.cols_in) +
-         lutgemm::round_up16(g.kh * g.kw * g.cc * BN);
+__host__ __device__ inline size_t round_up16(size_t bytes) {
+  return (bytes + 15) & ~size_t(15);
 }
 
-template <int BN, bool kEmitAcc>
-__global__ void __launch_bounds__(kThreads)
-tiled_kernel(const float* __restrict__ x, const int* __restrict__ wq,
+struct Geom {
+  int n, c, h, w, cout, kh, kw, sh, sw, ph, pw, dh, dw, ho, wo;
+  int n_codes, offset, lo, hi;
+  int bh, bw, cc;          // tile rows, tile columns, channel chunk
+  int rows_in, cols_in;    // the halo'd band's input extent
+  int c4, cout_pad;        // channels padded to 4, Cout padded to its tiles
+  int tiles_h, tiles_w, tiles_n, chunks;
+};
+
+// Shared memory carve-up, the same on host and device (and in the
+// wrapper's _tiled_smem): the table, the raw band of one chunk (float),
+// its codes (one word per input pixel and 4 channels), two buffers of
+// weight codes.
+struct Layout {
+  size_t raw, codes, wts, wbuf, total;
+  __host__ __device__ Layout(const Geom& g, int bn) {
+    const size_t plane = (size_t)g.rows_in * g.cols_in;
+    raw = round_up16((size_t)g.n_codes * g.n_codes * 2);
+    codes = raw + round_up16(plane * g.cc * 4);
+    wts = codes + round_up16(plane * g.cc);
+    wbuf = round_up16((size_t)g.kh * g.kw * g.cc * bn);
+    total = wts + 2 * wbuf;
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+// cp.async with zero fill: src_bytes = 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// The activation quantizer of kernels 2, 3 and 5, rounded exactly as the
+// reference: clip(round_half_even(x / xs + xz), lo, hi), a correctly
+// rounded divide and a separately rounded add (no contraction, no fast
+// math).
+__device__ __forceinline__ int quantize_code(float x, float xs, float xz,
+                                             float lo, float hi) {
+  float q = rintf(__fadd_rn(__fdiv_rn(x, xs), xz));
+  q = fminf(fmaxf(q, lo), hi);
+  return static_cast<int>(q);
+}
+
+// TN weight codes of one (tap, channel) row, as byte offsets 2b
+template <int TN>
+__device__ __forceinline__ void load_b(const uint8_t* row, int (&b2)[TN]) {
+  uint32_t w;
+  if constexpr (TN == 4)
+    w = *reinterpret_cast<const uint32_t*>(row);
+  else if constexpr (TN == 2)
+    w = *reinterpret_cast<const uint16_t*>(row);
+  else
+    w = *row;
+#pragma unroll
+  for (int j = 0; j < TN; ++j) b2[j] = ((w >> (8 * j)) & 0xff) << 1;
+}
+
+template <int TN, bool kEmitAcc>
+__global__ void __launch_bounds__(kThreads, 1)
+tiled_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wcodes,
              const int16_t* __restrict__ lut_g, const float* __restrict__ xs_p,
              const float* __restrict__ xz_p, const float* __restrict__ ws,
-             void* __restrict__ out_p, TiledGeom g) {
-  constexpr int kCols = BN / kTN;            // threads across Cout
-  constexpr int kRows = kThreads / kCols;    // threads across pixels
+             void* __restrict__ out_p, Geom g) {
+  constexpr int BN = 32 * TN;
   extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L(g, BN);
   int16_t* lut = reinterpret_cast<int16_t*>(smem);
-  const int plane = g.rows_in * g.cols_in;
-  uint8_t* band = smem + lutgemm::round_up16(g.n_codes * g.n_codes * 2);
-  uint8_t* wsm = band + lutgemm::round_up16(g.cc * plane);
+  const char* lut_b = reinterpret_cast<const char*>(smem);
+  float* raw = reinterpret_cast<float*>(smem + L.raw);
+  uint32_t* codes = reinterpret_cast<uint32_t*>(smem + L.codes);
+  uint8_t* wbuf = smem + L.wts;
 
-  const int tid = threadIdx.x;
-  const int tx = tid % kCols;
-  const int ty = tid / kCols;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int n = g.n_codes, row_bytes = 2 * n;
   const int taps = g.kh * g.kw;
+  const int plane = g.rows_in * g.cols_in;
+  const int cg = g.cc / 4;            // band words per input pixel
   const size_t hw = (size_t)g.h * g.w;
 
-  for (int i = tid; i < g.n_codes * g.n_codes; i += kThreads)
-    lut[i] = lut_g[i];
+  // the table, 16 bytes a copy where it is aligned (the first group)
+  {
+    const int bytes = n * n * 2;
+    const char* src = reinterpret_cast<const char*>(lut_g);
+    if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && bytes % 16 == 0) {
+      for (int i = tid * 16; i < bytes; i += kThreads * 16)
+        cp_async16(smem + i, src + i);
+    } else {
+      for (int i = tid; i < n * n; i += kThreads) lut[i] = lut_g[i];
+    }
+    cp_commit();
+  }
 
   const float xs = *xs_p, xz = *xz_p;
   const int zi = static_cast<int>(xz);
+  const float lo = static_cast<float>(g.lo), hi = static_cast<float>(g.hi);
 
-  // this thread's output pixels within a tile: row, column, and the band
-  // offset of their tap (0, 0); pixels past the band's rows are dead
-  int prow[kTM], pcol[kTM], pix[kTM];
+  // this warp's pixels: band word of their tap (0, 0); pixels past the
+  // tile's bh x bw are dead (read the band's first word, never stored)
+  int pbase[kTM];
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
-    const int p = ty + i * kRows;
-    prow[i] = p / g.bw;
-    pcol[i] = p - prow[i] * g.bw;
-    pix[i] = prow[i] < g.bh ? prow[i] * g.sh * g.cols_in + pcol[i] * g.sw
-                            : 0;
+    const int p = warp * kTM + i, pr = p / g.bw, pc = p - pr * g.bw;
+    pbase[i] = pr < g.bh ? (pr * g.sh * g.cols_in + pc * g.sw) * cg : 0;
   }
 
-  const int n_work = g.n * g.tiles_h * g.tiles_w * g.tiles_n;
-  for (int work = blockIdx.x; work < n_work; work += gridDim.x) {
-    int rest = work;
-    const int tn = rest % g.tiles_n;
+  const int n_items = g.n * g.tiles_h * g.tiles_w * g.tiles_n;
+  const int my_items =
+      blockIdx.x < n_items ? (n_items - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int steps = my_items * g.chunks;
+
+  struct Item { int img, th, tw, tn; };
+  auto item_of = [&](int s) {
+    int rest = blockIdx.x + (s / g.chunks) * gridDim.x;
+    Item it;
+    it.tn = rest % g.tiles_n;
     rest /= g.tiles_n;
-    const int tw = rest % g.tiles_w;
+    it.tw = rest % g.tiles_w;
     rest /= g.tiles_w;
-    const int th = rest % g.tiles_h;
-    const int img = rest / g.tiles_h;
-    const int oh0 = th * g.bh, ow0 = tw * g.bw, n0 = tn * BN;
-    const int ih0 = oh0 * g.sh - g.ph, iw0 = ow0 * g.sw - g.pw;
+    it.th = rest % g.tiles_h;
+    it.img = rest / g.tiles_h;
+    return it;
+  };
 
-    int acc[kTM][kTN];
-#pragma unroll
-    for (int i = 0; i < kTM; ++i)
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) acc[i][j] = 0;
+  // step s's raw band into `raw` and its weight codes into buffer s & 1
+  auto issue = [&](int s) {
+    const Item it = item_of(s);
+    const int c0 = (s % g.chunks) * g.cc;
+    const int ncc = min(g.cc, g.c - c0), ncc4 = min(g.cc, g.c4 - c0);
+    const int ih0 = it.th * g.bh * g.sh - g.ph;
+    const int iw0 = it.tw * g.bw * g.sw - g.pw;
+    const float* xc = x + ((size_t)it.img * g.c + c0) * hw;
+    for (int e = tid; e < ncc * plane; e += kThreads) {
+      const int ci = e / plane;
+      const int r = e - ci * plane;
+      const int rr = r / g.cols_in;
+      const int ih = ih0 + rr, iw = iw0 + (r - rr * g.cols_in);
+      const bool ok = ih >= 0 && ih < g.h && iw >= 0 && iw < g.w;
+      cp_async4(raw + e, ok ? xc + ci * hw + (size_t)ih * g.w + iw : x,
+                ok ? 4 : 0);
+    }
+    uint8_t* wb = wbuf + (s & 1) * L.wbuf;
+    const uint8_t* wsrc = wcodes + (size_t)it.tn * BN;
+    constexpr int kCopies = BN / 16;    // 16-byte copies of one row
+    for (int e = tid; e < taps * ncc4 * kCopies; e += kThreads) {
+      const int row = e / kCopies, ch = e - row * kCopies;
+      const int t = row / ncc4, ci = row - t * ncc4;
+      cp_async16(wb + (t * g.cc + ci) * BN + ch * 16,
+                 wsrc + ((size_t)t * g.c4 + c0 + ci) * g.cout_pad + ch * 16);
+    }
+  };
 
-    for (int c0 = 0; c0 < g.c; c0 += g.cc) {
-      const int ncc = min(g.cc, g.c - c0);
-      __syncthreads();  // the previous chunk's readers are done
-      // the band: ncc x rows_in x cols_in codes, each pixel quantized once
-      const float* xc = x + ((size_t)img * g.c + c0) * hw;
-      for (int e = tid; e < ncc * plane; e += kThreads) {
-        const int ci = e / plane;
-        const int r = e - ci * plane;
-        const int rr = r / g.cols_in;
-        const int ih = ih0 + rr;
-        const int iw = iw0 + (r - rr * g.cols_in);
+  int acc[kTM][TN];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0;
+
+  if (steps > 0) issue(0);
+  cp_commit();
+  for (int s = 0; s < steps; ++s) {
+    const int chunk = s % g.chunks, c0 = chunk * g.cc;
+    const int ncc = min(g.cc, g.c - c0), ng = (min(g.cc, g.c4 - c0)) / 4;
+    cp_wait_all();     // step s's copies (and, first, the table)
+    __syncthreads();   // ... for every thread; step s - 1's gathers done
+    // raw -> codes: 4 channels of one input pixel a word, the pad
+    // channels the offset code
+    for (int e = tid; e < ng * plane; e += kThreads) {
+      const int gq = e / plane, pix = e - gq * plane;
+      uint32_t word = 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int ci = 4 * gq + q;
         int v = g.offset;
-        if (ih >= 0 && ih < g.h && iw >= 0 && iw < g.w)
-          v = lutgemm::quantize_code(__ldg(xc + ci * hw + (size_t)ih * g.w +
-                                           iw),
-                                     xs, xz, g.lo, g.hi) -
-              zi + g.offset;
-        band[e] = static_cast<uint8_t>(min(max(v, 0), g.n_codes - 1));
+        if (ci < ncc)
+          v = min(max(quantize_code(raw[ci * plane + pix], xs, xz, lo, hi) -
+                          zi + g.offset,
+                      0),
+                  n - 1);
+        word |= static_cast<uint32_t>(v) << (8 * q);
       }
-      // the weight tile: (tap, channel) rows of BN codes, coalesced on Cout
-      for (int e = tid; e < taps * ncc * BN; e += kThreads) {
-        const int tc = e / BN;
-        const int ni = e - tc * BN;
-        const int t = tc / ncc;
-        const int co = n0 + ni;
-        int v = g.offset;
-        if (co < g.cout)
-          v = min(max(__ldg(wq + ((size_t)t * g.c + c0 + (tc - t * ncc)) *
-                                     g.cout + co) + g.offset, 0),
-                  g.n_codes - 1);
-        wsm[e] = static_cast<uint8_t>(v);
-      }
-      __syncthreads();
+      codes[pix * cg + gq] = word;
+    }
+    __syncthreads();   // the codes are in; the raw band is free
+    if (s + 1 < steps) issue(s + 1);
+    cp_commit();
 
-      for (int t = 0; t < taps; ++t) {
-        const int u = t / g.kw;
-        const uint8_t* bt = band + u * g.dh * g.cols_in + (t - u * g.kw) * g.dw;
-        const uint8_t* wt = wsm + t * ncc * BN + tx;
-#pragma unroll 4
-        for (int ci = 0; ci < ncc; ++ci) {
-          int a[kTM], b[kTN];
+    const uint8_t* wb = wbuf + (s & 1) * L.wbuf + lane * TN;
+    for (int t = 0; t < taps; ++t) {
+      const int u = t / g.kw, v = t - u * g.kw;
+      const int toff = (u * g.dh * g.cols_in + v * g.dw) * cg;
+      const uint8_t* wt = wb + t * g.cc * BN;
+      for (int gq = 0; gq < ng; ++gq) {
+        uint32_t aw[kTM];
 #pragma unroll
-          for (int i = 0; i < kTM; ++i)
-            a[i] = bt[ci * plane + pix[i]] * g.n_codes;
+        for (int i = 0; i < kTM; ++i) aw[i] = codes[pbase[i] + toff + gq];
 #pragma unroll
-          for (int j = 0; j < kTN; ++j) b[j] = wt[ci * BN + j * kCols];
+        for (int q = 0; q < 4; ++q) {
+          int b2[TN];
+          load_b<TN>(wt + (4 * gq + q) * BN, b2);
 #pragma unroll
-          for (int i = 0; i < kTM; ++i)
+          for (int i = 0; i < kTM; ++i) {
+            const int ab = static_cast<int>((aw[i] >> (8 * q)) & 0xff) *
+                           row_bytes;
 #pragma unroll
-            for (int j = 0; j < kTN; ++j) acc[i][j] += lut[a[i] + b[j]];
+            for (int j = 0; j < TN; ++j)
+              acc[i][j] +=
+                  *reinterpret_cast<const int16_t*>(lut_b + ab + b2[j]);
+          }
         }
       }
     }
 
+    if (chunk == g.chunks - 1) {  // the item's last chunk: store it
+      const Item it = item_of(s);
+      const int corr = taps * (g.c4 - g.c) * lut[g.offset * n + g.offset];
+      const int co0 = it.tn * BN + lane * TN;
 #pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int oh = oh0 + prow[i], ow = ow0 + pcol[i];
-      if (prow[i] >= g.bh || oh >= g.ho || ow >= g.wo) continue;
-      const size_t m = ((size_t)img * g.ho + oh) * g.wo + ow;
+      for (int i = 0; i < kTM; ++i) {
+        const int p = warp * kTM + i, pr = p / g.bw, pc = p - pr * g.bw;
+        const int oh = it.th * g.bh + pr, ow = it.tw * g.bw + pc;
+        if (pr < g.bh && oh < g.ho && ow < g.wo) {
+          const size_t m = ((size_t)it.img * g.ho + oh) * g.wo + ow;
 #pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const int co = n0 + tx + j * kCols;
-        if (co >= g.cout) continue;
-        if (kEmitAcc)
-          static_cast<int*>(out_p)[m * g.cout + co] = acc[i][j];
-        else
-          static_cast<float*>(out_p)[m * g.cout + co] = __fmul_rn(
-              __int2float_rn(acc[i][j]), __fmul_rn(xs, ws[co]));
+          for (int j = 0; j < TN; ++j) {
+            const int co = co0 + j;
+            if (co >= g.cout) continue;
+            const int a = acc[i][j] - corr;
+            if (kEmitAcc)
+              static_cast<int*>(out_p)[m * g.cout + co] = a;
+            else
+              static_cast<float*>(out_p)[m * g.cout + co] = __fmul_rn(
+                  __int2float_rn(a), __fmul_rn(xs, ws[co]));
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = 0;
       }
     }
   }
+  cp_wait_all();
 }
 
-template <int BN, bool kEmitAcc>
-int launch_bn(const float* x, const int* wq, const int16_t* lut,
+template <int TN, bool kEmitAcc>
+int launch_tn(const float* x, const uint8_t* wc, const int16_t* lut,
               const float* xs, const float* xz, const float* ws, void* out,
-              TiledGeom g, int num_blocks, cudaStream_t stream) {
-  constexpr int BM = kThreads * kTM * kTN / BN;
-  if (g.bh < 1 || g.bw < 1 || g.bh * g.bw > BM || g.cc < 1)
+              const Geom& g, int smem_bytes, int num_blocks,
+              cudaStream_t stream) {
+  const Layout L(g, 32 * TN);
+  if (static_cast<size_t>(smem_bytes) != L.total || L.total > kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
-  g.tiles_n = (g.cout + BN - 1) / BN;
-  const int bytes = tiled_smem_bytes<BN>(g);
-  auto kernel = tiled_kernel<BN, kEmitAcc>;
+  auto kernel = tiled_kernel<TN, kEmitAcc>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long items =
       (long long)g.n * g.tiles_h * g.tiles_w * g.tiles_n;
-  if (items >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  if (items * g.chunks >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int grid = static_cast<int>(items < num_blocks ? items : num_blocks);
   if (grid <= 0) return static_cast<int>(cudaSuccess);
-  kernel<<<grid, kThreads, bytes, stream>>>(x, wq, lut, xs, xz, ws, out, g);
+  kernel<<<grid, kThreads, smem_bytes, stream>>>(x, wc, lut, xs, xz, ws, out,
+                                                 g);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kEmitAcc>
-int launch_emit(int bn, const float* x, const int* wq, const int16_t* lut,
-                const float* xs, const float* xz, const float* ws, void* out,
-                const TiledGeom& g, int num_blocks, cudaStream_t s) {
-  switch (bn) {
-    case 16:
-      return launch_bn<16, kEmitAcc>(x, wq, lut, xs, xz, ws, out, g,
-                                     num_blocks, s);
-    case 32:
-      return launch_bn<32, kEmitAcc>(x, wq, lut, xs, xz, ws, out, g,
-                                     num_blocks, s);
-    case 64:
-      return launch_bn<64, kEmitAcc>(x, wq, lut, xs, xz, ws, out, g,
-                                     num_blocks, s);
+int launch_emit(int tn, const float* x, const uint8_t* wc,
+                const int16_t* lut, const float* xs, const float* xz,
+                const float* ws, void* out, const Geom& g, int smem_bytes,
+                int num_blocks, cudaStream_t s) {
+  switch (tn) {
+    case 1:
+      return launch_tn<1, kEmitAcc>(x, wc, lut, xs, xz, ws, out, g,
+                                    smem_bytes, num_blocks, s);
+    case 2:
+      return launch_tn<2, kEmitAcc>(x, wc, lut, xs, xz, ws, out, g,
+                                    smem_bytes, num_blocks, s);
+    case 4:
+      return launch_tn<4, kEmitAcc>(x, wc, lut, xs, xz, ws, out, g,
+                                    smem_bytes, num_blocks, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -238,25 +375,35 @@ int launch_emit(int bn, const float* x, const int* wq, const int16_t* lut,
 
 }  // namespace
 
-// wq: (kh*kw, C, Cout) int32 shifted weight codes, tap-major.
+// wcodes: (kh*kw, c4, cout_pad) uint8 weight codes (wq + off), tap-major,
+// the channel and Cout pads holding the offset code. The tiling (bh, bw,
+// cc, tn, c4) is the wrapper's, summed as given: c4 channels in steps of
+// cc, taps * (c4 - c) * LUT[off, off] subtracted.
 extern "C" int fused_lut_conv_tiled_launch(
-    const float* x, const int* wq, const int16_t* lut, const float* xs,
-    const float* xz, const float* ws, void* out, int emit_acc, int n, int c,
-    int h, int w, int cout, int kh, int kw, int sh, int sw, int ph, int pw,
-    int dh, int dw, int ho, int wo, int n_codes, int offset, int lo, int hi,
-    int bh, int bw, int cc, int bn, int num_blocks, void* stream) {
-  TiledGeom g{n,  c,  h,  w,  cout, kh, kw, sh, sw, ph, pw, dh, dw, ho, wo,
-              n_codes, offset, static_cast<float>(lo),
-              static_cast<float>(hi), bh, bw, cc,
-              (bh - 1) * sh + (kh - 1) * dh + 1,
-              (bw - 1) * sw + (kw - 1) * dw + 1,
-              (ho + bh - 1) / bh, (wo + bw - 1) / bw, 0};
+    const float* x, const uint8_t* wcodes, const int16_t* lut,
+    const float* xs, const float* xz, const float* ws, void* out,
+    int emit_acc, int n, int c, int h, int w, int cout, int kh, int kw,
+    int sh, int sw, int ph, int pw, int dh, int dw, int ho, int wo,
+    int n_codes, int offset, int lo, int hi, int bh, int bw, int cc, int tn,
+    int c4, int cout_pad, int smem_bytes, int num_blocks, void* stream) {
+  const int bn = 32 * tn;
+  // the tilings this kernel is built for, and no other
+  if (bh < 1 || bw < 1 || bh * bw > kPixels || cc < 4 || cc % 4 || c4 < 4 ||
+      c4 % 4 ||
+      cout_pad % bn || cout_pad < cout || n_codes > 256 ||
+      (reinterpret_cast<uintptr_t>(wcodes) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Geom g{n,  c,  h,  w,  cout, kh, kw, sh, sw, ph, pw, dh, dw, ho, wo,
+         n_codes, offset, lo, hi, bh, bw, cc,
+         (bh - 1) * sh + (kh - 1) * dh + 1, (bw - 1) * sw + (kw - 1) * dw + 1,
+         c4, cout_pad, (ho + bh - 1) / bh, (wo + bw - 1) / bw,
+         cout_pad / bn, (c4 + cc - 1) / cc};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (emit_acc)
-    return launch_emit<true>(bn, x, wq, lut, xs, xz, ws, out, g, num_blocks,
-                             s);
-  return launch_emit<false>(bn, x, wq, lut, xs, xz, ws, out, g, num_blocks,
-                            s);
+    return launch_emit<true>(tn, x, wcodes, lut, xs, xz, ws, out, g,
+                             smem_bytes, num_blocks, s);
+  return launch_emit<false>(tn, x, wcodes, lut, xs, xz, ws, out, g,
+                            smem_bytes, num_blocks, s);
 }
 
 extern "C" const char* lut_error_string(int code) {

@@ -18,10 +18,14 @@ for short sequences as the reference does (``prepare_approx_attention``).
 ``row_heads`` lets the heads of one batch row share one ``rowinfo`` (and
 page-table) row, so a caller passes its (B, 3) extents as they are.
 
-A paged call with at most 8 query rows per (batch row, KV head) runs the
-kernel's decode path (:func:`decode_plan`): one work item per (batch row,
-KV head) with its ``rep`` query heads, so each page is read and quantized
-once per item.
+A call with at most 8 query rows per (batch row, KV head) runs one of the
+kernel's two decode paths (:func:`decode_plan`): one work item per (batch
+row, KV head) with its ``rep`` query heads, so each key is read and
+quantized once per item. Paged calls stream 16-key pages; contiguous calls
+stream 32 keys of K, then of V, a stage, for each of the reference's
+``bk`` blocks. Each wrapper counts its launches (``launches``) and, of those, the
+ones on the decode path (``decode_launches``); ``general=True`` pins the
+general path.
 """
 from __future__ import annotations
 
@@ -40,77 +44,116 @@ BK = 128
 FLASH_HEAD_DIMS = (64, 128)   # kernel 11's instantiations (every config's)
 
 
-DECODE_PAGE = 16        # the decode path's page: the pool's block size
-DECODE_STAGES = 4       # its cp.async ring, in pages
+DECODE_PAGE = 16        # the paged decode path's stage: one 16-key page
+DECODE_CONTIG_KEYS = 32  # the contiguous one's: 32 keys (two 16-key
+                         # tiles) of K or of V
+DECODE_STAGES = 4       # their cp.async ring, in stages
 DECODE_ITEM_WARPS = 8   # warps of one item: one a query row, the rest
-                        # copy and quantize pages
-DECODE_ITEMS = 2        # items of one block (512 threads)
+                        # copy and quantize keys
+DECODE_ITEMS = 2        # items of one block (512 threads), at most
 SMEM_LIMIT = 232_448    # dynamic shared memory one block may use (H100)
+
+
+def _r16(v: int) -> int:
+    return (v + 15) // 16 * 16
 
 
 @dataclass(frozen=True)
 class DecodePlan:
-    """Kernel 9's decode path for one call: items of ``heads`` query rows
-    of the folded layout (``b = item * heads + t``), each row with its
-    ``sq`` query positions on a warp of the item's 8, ``per_block`` items
-    in a block, ``grid`` blocks, ``smem`` bytes of shared memory."""
+    """A decode path for one call: items of ``heads`` query rows of the
+    folded layout (``b = item * heads + t``), each row with its ``sq``
+    query positions on a warp of the item's, ``per_block`` items in a
+    block, ``grid`` blocks, ``smem`` bytes of shared memory.
+    ``paged`` calls stream one 16-key page a stage; contiguous ones
+    stream the 16-key tiles of K, then of V, of each ``bk`` block of keys
+    (the reference's softmax step), two tiles a stage, on all 16 warps of
+    a block that holds one item."""
     heads: int
     sq: int
     items: int
     per_block: int
     grid: int
     smem: int
+    paged: bool = True
+    bk: int = DECODE_PAGE
 
     def rows(self, item: int, rep: int, row_heads: int, kh: int):
-        """(page-table row, KV head, query rows) of one item, as the
-        kernel maps it: ``ir = b0 // row_heads``, ``kvr = (b0 // rep) %
-        kh`` for its first row ``b0``, shared by all its rows."""
+        """(rowinfo row, KV row, query rows) of one item, as the kernel
+        maps it: ``ir = b0 // row_heads`` and ``kvr = b0 // rep`` (``%
+        kh``, the pool's heads, when paged) for its first row ``b0``,
+        shared by all its rows."""
         b0 = item * self.heads
-        return (b0 // row_heads, (b0 // rep) % kh,
+        kvr = b0 // rep
+        return (b0 // row_heads, kvr % kh if self.paged else kvr,
                 list(range(b0, b0 + self.heads)))
 
 
 def decode_smem(n_codes: int, d: int, itemsize: int, per_block: int,
-                n_kv: int) -> int:
-    """Shared memory of the decode path (``DecodeLayout`` in the source):
-    the int16 table, then per item a ring of 4 raw K/V pages, two
-    buffers each of K codes (rows of d + 8 bytes) and transposed V codes
-    (rows of 20 bytes), and its page-table row of ``n_kv`` entries."""
-    r16 = lambda v: (v + 15) // 16 * 16
-    ring = DECODE_STAGES * 2 * DECODE_PAGE * d * itemsize
-    slot = (ring + 2 * r16(DECODE_PAGE * (d + 8))
-            + 2 * r16(d * (DECODE_PAGE + 4)) + r16(4 * n_kv))
-    return r16(n_codes * n_codes * 2) + per_block * slot
+                n_kv: int, *, paged: bool = True,
+                bk: int = DECODE_PAGE) -> int:
+    """Shared memory of a decode path (``DecodeLayout`` and
+    ``ContigLayout`` in the source): the int16 table, then per item a ring
+    of 4 raw stages (a K and V page, or 32 keys of K or of V), code
+    buffers for two stages (K rows of d + 8 bytes, transposed V rows of 20
+    bytes, one of each a 16-key page or tile) and, paged, its page-table
+    row of ``n_kv`` entries or, contiguous, 8 rows of ``bk`` float
+    scores and of ``d`` Q codes (int table-row offsets)."""
+    if paged:
+        ring = DECODE_STAGES * 2 * DECODE_PAGE * d * itemsize
+        slot = (ring + 2 * _r16(DECODE_PAGE * (d + 8))
+                + 2 * _r16(d * (DECODE_PAGE + 4)) + _r16(4 * n_kv))
+    else:
+        ring = DECODE_STAGES * DECODE_CONTIG_KEYS * d * itemsize
+        sub = _r16(max(DECODE_PAGE * (d + 8), d * (DECODE_PAGE + 4)))
+        codes = DECODE_CONTIG_KEYS // DECODE_PAGE * sub
+        slot = (ring + 2 * codes + _r16(DECODE_ITEM_WARPS * bk * 4)
+                + _r16(DECODE_ITEM_WARPS * d * 4))
+    return _r16(n_codes * n_codes * 2) + per_block * slot
 
 
 def decode_plan(bh: int, sq: int, d: int, rep: int, row_heads: int,
                 bk: int, itemsize: int, n_codes: int, n_kv: int,
-                n_sm: int) -> Optional[DecodePlan]:
-    """The decode path's plan for a paged call, or None when the call
-    takes the general path (pages of other than 16 keys, a head dim other
-    than 64 or 128, or more than 8 query rows per item). The ``rep`` query
-    heads of one KV head share an item when ``row_heads`` is a multiple of
-    ``rep`` (they then share a page-table row); otherwise each query row
-    is an item of its own. Two items a block where shared memory holds
-    them, else one."""
+                n_sm: int, *, paged: bool = True,
+                bq: int = 8) -> Optional[DecodePlan]:
+    """The decode path's plan for a call, or None when the call takes the
+    general path: a head dim other than 64 or 128, more than 8 query rows
+    per item, a paged call with pages of other than 16 keys, or a
+    contiguous call whose ``bk`` is not a multiple of 32 or whose ``sq``
+    rows span more than one q tile of ``bq``. The ``rep`` query heads of
+    one KV head share an item when ``row_heads`` is a multiple of ``rep``
+    (they then share a rowinfo and page-table row); otherwise each query
+    row is an item of its own. Paged: two items a block where shared
+    memory holds them, else one. Contiguous: one item a block, on all 16
+    warps, while the items number no more than the SMs (each gets an SM
+    of its own), else two of 8 warps where they fit."""
     heads = rep if row_heads % rep == 0 else 1
-    if bk != DECODE_PAGE or d not in (64, 128) or \
-            heads * sq > DECODE_ITEM_WARPS:
+    if d not in (64, 128) or heads * sq > DECODE_ITEM_WARPS or bh % heads:
         return None
-    for per_block in range(DECODE_ITEMS, 0, -1):
-        smem = decode_smem(n_codes, d, itemsize, per_block, n_kv)
+    if paged and bk != DECODE_PAGE:
+        return None
+    if not paged and (bk <= 0 or bk % DECODE_CONTIG_KEYS or sq > bq):
+        return None
+    items = bh // heads
+    order = range(DECODE_ITEMS, 0, -1)
+    if not paged and items <= n_sm:
+        order = (1,)
+    for per_block in order:
+        smem = decode_smem(n_codes, d, itemsize, per_block, n_kv,
+                           paged=paged, bk=bk)
         if smem <= SMEM_LIMIT:
-            items = bh // heads
             return DecodePlan(heads, sq, items, per_block,
-                              min(n_sm, -(-items // per_block)), smem)
+                              min(n_sm, -(-items // per_block)), smem, paged,
+                              bk)
     return None
 
 
 def _aligned16(t: torch.Tensor) -> bool:
-    """A pool the decode path copies 16 bytes at a time."""
+    """K or V rows that the decode paths copy 16 bytes at a time: the
+    base, every stride but the last and a row of ``d`` elements all
+    multiples of 16 bytes."""
     es = t.element_size()
-    return (t.data_ptr() % 16 == 0 and t.stride(0) * es % 16 == 0
-            and t.stride(2) * es % 16 == 0 and t.shape[-1] * es % 16 == 0)
+    return (t.data_ptr() % 16 == 0 and t.shape[-1] * es % 16 == 0
+            and all(s * es % 16 == 0 for s in t.stride()[:-1]))
 
 
 def _folded(t: torch.Tensor) -> torch.Tensor:
@@ -147,8 +190,10 @@ def _per_row(t, row_heads: int):
 def _launch(q, k, v, lut_flat, info, page_table, scales, st: dict, counted,
             *, seq_k: int, n_kv: int, rep: int, row_heads: int, causal: bool,
             window: Optional[int], softcap: Optional[float],
-            paged: bool) -> torch.Tensor:
-    """Launch the kernel and add one to ``counted.launches``."""
+            paged: bool, general: bool = False) -> torch.Tensor:
+    """Launch the kernel (on the decode path where :func:`decode_plan`
+    has one, unless ``general``) and add one to ``counted.launches`` (and
+    to ``counted.decode_launches`` on the decode path)."""
     if not q.dtype == k.dtype == v.dtype or q.dtype not in (torch.float32,
                                                             torch.bfloat16):
         q, k, v = (t.to(torch.float32) for t in (q, k, v))   # exact
@@ -171,9 +216,10 @@ def _launch(q, k, v, lut_flat, info, page_table, scales, st: dict, counted,
     lib = runtime.kernel_library("approx_flash_attention")
     blocks, stream = runtime.launch_config(q)
     plan = None
-    if paged and _aligned16(k) and _aligned16(v):
+    if not general and _aligned16(k) and _aligned16(v):
         plan = decode_plan(bh, sq, d, rep, row_heads, st["bk"],
-                           k.element_size(), st["n_codes"], n_kv, blocks)
+                           k.element_size(), st["n_codes"], n_kv, blocks,
+                           paged=paged, bq=st["bq"])
     lib.check(lib.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
         info.data_ptr(),
@@ -187,6 +233,8 @@ def _launch(q, k, v, lut_flat, info, page_table, scales, st: dict, counted,
         plan.heads if plan else 0, plan.per_block if plan else 0, blocks,
         stream))
     counted.launches += 1
+    if plan is not None:
+        counted.decode_launches += 1
     return out
 
 
@@ -195,7 +243,8 @@ def approx_flash_attention(q, k, v, lut, offset: int, q_scale, k_scale,
                            window: Optional[int] = None,
                            softcap: Optional[float] = None, rowinfo=None,
                            row_heads: int = 1, bq: int = BQ,
-                           bk: int = BK) -> torch.Tensor:
+                           bk: int = BK,
+                           general: bool = False) -> torch.Tensor:
     """Approximate GQA flash attention on the ACU (kernel 8).
 
     ``q``: (B*Hq, Sq, D) or (B, Hq, Sq, D) float; ``k``/``v``: (B*Hkv, Sk,
@@ -204,8 +253,10 @@ def approx_flash_attention(q, k, v, lut, offset: int, q_scale, k_scale,
     int16 from :func:`runtime.lut_to_int16`) with shifted-code ``offset``;
     per-tensor symmetric scales (``inline_symmetric_scale``); ``rowinfo``
     optional (B*Hq / ``row_heads``, 3) int32 ``[q_base, kv_start,
-    kv_len]``, default end-aligned over the whole key sequence. Returns
-    (B*Hq, Sq, D) float32.
+    kv_len]``, default end-aligned over the whole key sequence;
+    ``general=True`` pins the general path where :func:`decode_plan`
+    would take the contiguous decode path (the CPU's plain version is the
+    same function either way). Returns (B*Hq, Sq, D) float32.
     """
     if q.device.type == "cpu":
         return approx_attention_ref(
@@ -222,10 +273,11 @@ def approx_flash_attention(q, k, v, lut, offset: int, q_scale, k_scale,
                    approx_flash_attention, seq_k=sk,
                    n_kv=-(-sk // st["bk"]), rep=st["rep"],
                    row_heads=row_heads, causal=causal, window=window,
-                   softcap=softcap, paged=False)
+                   softcap=softcap, paged=False, general=general)
 
 
 approx_flash_attention.launches = 0
+approx_flash_attention.decode_launches = 0
 
 
 def approx_flash_attention_paged(q, k_pool, v_pool, lut, offset: int,
@@ -266,6 +318,7 @@ def approx_flash_attention_paged(q, k_pool, v_pool, lut, offset: int,
 
 
 approx_flash_attention_paged.launches = 0
+approx_flash_attention_paged.decode_launches = 0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -531,6 +531,120 @@ def approx_attention_ref(q, k, v, lut, offset: int, q_scale, k_scale,
     return out[:, :sq, :d]
 
 
+def _warp_sum(p: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim in a warp's order: lane ``i`` adds entries
+    ``i, i + 32, ...`` from 0.0, then five butterfly steps add lanes
+    ``i ^ 16, ..., i ^ 1`` (every add rounded to float32)."""
+    n = p.shape[-1]
+    lanes = torch.zeros(p.shape[:-1] + (32,), dtype=torch.float32,
+                        device=p.device)
+    for j0 in range(0, n, 32):
+        part = p[..., j0:j0 + 32]
+        lanes[..., :part.shape[-1]] = lanes[..., :part.shape[-1]] + part
+    idx = torch.arange(32, device=p.device)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[..., idx ^ o]
+    return lanes[..., 0]
+
+
+def approx_decode_ref(q, k, v, lut, offset: int, q_scale, k_scale, v_scale,
+                      *, heads: int, bits: int = 8, causal: bool = True,
+                      window: Optional[int] = None,
+                      softcap: Optional[float] = None, rowinfo=None,
+                      row_heads: int = 1, bq: int = 128,
+                      bk: int = 128) -> torch.Tensor:
+    """Plain version of kernel 8's contiguous decode path, in its loop
+    order (``csrc/approx_flash_attention.cu: approx_decode_contig_kernel``).
+
+    Operands as :func:`approx_attention_ref`, with ``rowinfo`` (B*Hq /
+    ``row_heads``, 3) shared by ``row_heads`` query rows, as the wrapper
+    takes it. Items of ``heads`` consecutive query rows (the plan's) read
+    the rowinfo row of their first row ``b0 // row_heads`` and the KV row
+    ``b0 // rep``; their keys stream as 16-key tiles: for each of the
+    reference's ``bk`` blocks up to the causal bound of the whole padded q
+    tile, its K tiles (scores kept for the block), the block's softmax
+    (``l`` summed in a warp's order, :func:`_warp_sum`), then its V tiles
+    (int32 PV partials; the Sk-pad correction and the float update at the
+    block's last tile). Keys past the cache are zeros. Integer sums equal
+    the reference's; the floats differ only in the order ``l`` is summed.
+    Returns (B*Hq, Sq, D) float32."""
+    ops, st = prepare_approx_attention(
+        q, k, v, lut, offset, q_scale, k_scale, v_scale, bits=bits,
+        rowinfo=rowinfo, bq=bq, bk=bk, pad=False, row_heads=row_heads)
+    q, k, v, lut_flat, info, sqs, sks, svs, ss, pvs = ops
+    bh, sq, d = _rows(q)
+    bk, bq, rep = st["bk"], st["bq"], st["rep"]
+    n_codes, lo, hi, off = st["n_codes"], st["lo"], st["hi"], offset
+    seq_k = st["seq_k_real"]
+    if bk % 16 or bh % heads or sq > bq:
+        raise ValueError(f"no decode path for bk {bk}, {bh} rows in items "
+                         f"of {heads}, Sq {sq} over bq {bq}")
+    dev = q.device
+    lut_flat = lut_flat.reshape(-1).to(torch.int32)
+    m00 = int(lut_flat[off * n_codes + off])
+    n_kv = -(-seq_k // bk)
+    items = bh // heads
+    b0 = torch.arange(items, device=dev) * heads
+    q_base, kv_start, kv_len = (info.to(torch.int64)[b0 // row_heads, i]
+                                [:, None, None] for i in range(3))
+    kf = k.reshape(-1, k.shape[-2], d).to(torch.float32)[b0 // rep]
+    vf = v.reshape(-1, v.shape[-2], d).to(torch.float32)[b0 // rep]
+    pad_keys = n_kv * bk - seq_k              # zeros past the cache's end
+    kq = quantize_sym(torch.nn.functional.pad(kf, (0, 0, 0, pad_keys)), sks,
+                      lo, hi) + off           # (items, n_kv * bk, d)
+    vq = quantize_sym(torch.nn.functional.pad(vf, (0, 0, 0, pad_keys)), svs,
+                      lo, hi) + off
+    r_rows = heads * sq                       # item row t * sq + r
+    q_rows = (quantize_sym(q.reshape(items, r_rows, d).to(torch.float32),
+                           sqs, lo, hi) + off) * n_codes
+    q_pos = q_base + torch.arange(sq, device=dev).repeat(heads)[None, :,
+                                                                None]
+    n_eff = (torch.clamp_max(torch.div(q_base[:, 0, 0] + bq - 1, bk,
+                                       rounding_mode="floor") + 1, n_kv)
+             if causal else torch.full((items,), n_kv, device=dev))
+    m = torch.full((items, r_rows), NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((items, r_rows), dtype=torch.float32, device=dev)
+    acc = torch.zeros((items, r_rows, d), dtype=torch.float32, device=dev)
+    for ki in range(int(n_eff.max()) if items else 0):
+        s = torch.empty((items, r_rows, bk), dtype=torch.float32,
+                        device=dev)
+        for t0 in range(0, bk, 16):            # the block's K tiles
+            kt = kq[:, ki * bk + t0:ki * bk + t0 + 16]
+            sc = lut_bmm(q_rows, kt.transpose(1, 2), lut_flat).to(
+                torch.float32) * ss
+            if softcap is not None:
+                cap = torch.tensor(softcap, dtype=torch.float32, device=dev)
+                sc = cap * torch.tanh(sc / cap)
+            k_pos = ki * bk + t0 + torch.arange(16, device=dev)
+            live = (k_pos >= kv_start) & (k_pos < kv_len)
+            if causal:
+                live = live & (k_pos <= q_pos)
+            if window is not None:
+                live = live & (k_pos > q_pos - window)
+            s[..., t0:t0 + 16] = torch.where(live, sc, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))   # the block's softmax
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l_new = alpha * l + _warp_sum(p)
+        prow = (torch.clamp(torch.round(p * hi), 0, hi).to(torch.int64)
+                + off) * n_codes
+        pv_int = torch.zeros((items, r_rows, d), dtype=torch.int32,
+                             device=dev)
+        for t0 in range(0, bk, 16):            # the block's V tiles
+            pv_int += lut_bmm(prow[..., t0:t0 + 16],
+                              vq[:, ki * bk + t0:ki * bk + t0 + 16],
+                              lut_flat)
+        pv_int -= min(max((ki + 1) * bk - seq_k, 0), bk) * m00
+        acc_new = acc * alpha[..., None] + pv_int.to(torch.float32) * pvs
+        run = (ki < n_eff)[:, None]
+        m = torch.where(run, m_new, m)
+        l = torch.where(run, l_new, l)
+        acc = torch.where(run[..., None], acc_new, acc)
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(bh, sq, d)
+
+
 def approx_attention_paged_ref(q, k_pool, v_pool, lut, offset: int, q_scale,
                                k_scale, v_scale, *, rowinfo, page_table,
                                rep: int, bits: int = 8, causal: bool = True,

@@ -41,7 +41,7 @@ import torch
 from repro_torch.kernels import runtime
 from repro_torch.kernels.fused_lut_dense.ops import scale_operands
 from .ref import (fused_lut_conv_bwd_w_ref, fused_lut_conv_ref,
-                  fused_lut_conv_tiled_ref)
+                  fused_lut_conv_tiled_ref, tiled_weight_codes)
 
 # the reference's conservative per-core VMEM budget of its fused conv
 # kernels: a conv whose whole-image working set exceeds it takes the tiled
@@ -178,9 +178,11 @@ def pick_conv_spatial_tiling(c: int, h: int, w: int, cout: int, kh: int,
 
 # shared memory one block of kernel 6 may use (the H100's opt-in limit)
 SMEM_PER_BLOCK = 232_448
-# threads per block and outputs per thread of kernel 6, as lut_gemm.cuh's
-TILED_THREADS, TILED_TM, TILED_TN = 256, 4, 4
-TILED_MAX_CHUNK = 32     # input channels staged per step, at most
+# kernel 6's block: 8 warps of 8 output pixels each, every lane TN output
+# channels (TN = 1, 2 or 4: Cout tiles of 32, 64 or 128)
+TILED_PIXELS = 64
+TILED_COUT_TILES = (128, 64, 32)
+TILED_MAX_CHUNK = 64     # input channels staged per step, at most
 
 
 def _round16(n: int) -> int:
@@ -189,10 +191,11 @@ def _round16(n: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class TiledKernelTiling:
-    """Kernel 6's tiles: one block computes ``bh`` output rows x ``bw``
-    output columns x ``bn`` output channels of one image, staging ``cc``
-    input channels at a time as one-byte codes of the halo'd band
-    (``rows_in`` x ``cols_in`` input pixels per channel)."""
+    """Kernel 6's tiles: one work item computes ``bh`` output rows x ``bw``
+    output columns (at most 64 pixels, 8 a warp) x ``bn`` output channels
+    of one image, staging ``cc`` input channels a step (a multiple of 4;
+    the channels padded to ``c4``) as one-byte codes of the halo'd band
+    (``rows_in`` x ``cols_in`` input pixels)."""
 
     bh: int
     bw: int
@@ -202,71 +205,86 @@ class TiledKernelTiling:
     cols_in: int
     smem_bytes: int
     tiles: int          # tiles per image: row bands x column strips x Cout
+    c4: int = 0         # input channels padded to a multiple of 4
+    chunks: int = 1     # steps of cc channels per item
+
+    @property
+    def tn(self) -> int:
+        """Output channels of one lane."""
+        return self.bn // 32
 
     def describe(self, ho: int) -> str:
-        return (f"bands of {self.bh} output rows x {self.bw} columns "
+        return (f"tiles of {self.bh} output rows x {self.bw} columns "
                 f"({-(-ho // self.bh)} bands, {self.tiles} tiles per image), "
-                f"channel chunk {self.cc}, Cout tile {self.bn}, "
+                f"Cout tile {self.bn} ({self.tn} a lane), channel chunk "
+                f"{self.cc} ({self.chunks} steps; {self.c4} channels with the "
+                f"pad), band {self.rows_in} x {self.cols_in} input pixels, "
                 f"{self.smem_bytes} B of shared memory")
 
 
 def _tiled_smem(n_codes: int, plane: int, taps: int, cc: int, bn: int
                 ) -> int:
-    """Dynamic shared memory of one kernel-6 block: the int16 table, the
-    band's byte codes, the weight tile's byte codes (as the .cu sizes it)."""
-    return (_round16(n_codes * n_codes * 2) + _round16(cc * plane)
-            + _round16(taps * cc * bn))
+    """Dynamic shared memory of one kernel-6 block, as the source's
+    ``Layout`` sizes it: the int16 table, one chunk's raw float band and
+    its codes, two buffers of the tile's weight codes."""
+    return (_round16(n_codes * n_codes * 2) + _round16(plane * cc * 4)
+            + _round16(plane * cc) + 2 * _round16(taps * cc * bn))
 
 
 def pick_tiled_kernel_tiling(c: int, ho: int, wo: int, cout: int, kh: int,
                              kw: int, sh: int, sw: int, dh: int, dw: int,
                              n_codes: int, *, bh: int = 0, bn: int = 0
                              ) -> TiledKernelTiling:
-    """Kernel 6's banding on this card, from its shared memory alone.
+    """Kernel 6's tiling on this card, from its shared memory alone.
 
-    The Cout tile is 16, 32 or 64 wide by Cout (``bn`` pins one of them);
-    256 threads of 4 x 4 outputs then cover ``bm`` = 4096 / ``bn`` output
-    pixels, laid out as ``bh`` rows x ``bw`` columns. ``bh > 0`` pins the
-    band height (clamped to ``bm`` and Ho); otherwise the shape that computes the
-    fewest padded pixels, then stages the fewest halo'd input pixels, wins.
-    The channel chunk is the largest up to 32 whose band and weight codes
-    fit beside the 128 KiB table. Every choice gives the same bits."""
+    The Cout tile is 32, 64 or 128 wide (``bn`` pins one of them): the one
+    that pads Cout least, the widest on a tie. A tile has at most 64 output
+    pixels (8 warps of 8), laid out as ``bh`` rows x ``bw`` columns;
+    ``bh > 0`` pins the band height (clamped to 64 and Ho), otherwise the
+    shape with the fewest tiles (every tile computes 64 pixels, the ones
+    past the image or the tile's shape too), then the fewest halo'd input
+    pixels staged, wins. The channel chunk is the fewest steps of a
+    multiple of 4 channels, up to 64, whose band, codes and two weight
+    buffers fit beside the 128 KiB table, evened out over the steps. Every
+    choice gives the same bits."""
     if bn <= 0:
-        bn = 16 if cout <= 16 else 32 if cout <= 32 else 64
-    if bn not in (16, 32, 64):
-        raise ValueError(f"kernel 6's Cout tile is 16, 32 or 64, not {bn}")
-    bm = TILED_THREADS * TILED_TM * TILED_TN // bn
+        bn = min(TILED_COUT_TILES, key=lambda t: (-(-cout // t) * t, -t))
+    if bn not in TILED_COUT_TILES:
+        raise ValueError(f"kernel 6's Cout tile is 32, 64 or 128, not {bn}")
     taps = kh * kw
+    c4 = -(-c // 4) * 4
     if bh > 0:
-        rows = min(bh, bm, ho)
-        shapes = [(rows, max(1, min(bm // rows, wo)))]
+        rows = min(bh, TILED_PIXELS, ho)
+        shapes = [(rows, max(1, min(TILED_PIXELS // rows, wo)))]
     else:
-        widths = sorted({min(b, wo) for b in (4, 8, 16, 32, 64, 128, 256)
-                         if b <= bm})
-        shapes = [(min(bm // b, ho), b) for b in widths]
+        widths = sorted({min(b, wo) for b in (1, 2, 4, 8, 16, 32, 64)})
+        shapes = [(min(TILED_PIXELS // b, ho), b) for b in widths]
     best = None
     for rows, cols in shapes:
         rows_in = (rows - 1) * sh + (kh - 1) * dh + 1
         cols_in = (cols - 1) * sw + (kw - 1) * dw + 1
         plane = rows_in * cols_in
-        cc = min(c, TILED_MAX_CHUNK)
-        while cc > 1 and _tiled_smem(n_codes, plane, taps, cc, bn) \
+        cc = min(c4, TILED_MAX_CHUNK)
+        while cc > 4 and _tiled_smem(n_codes, plane, taps, cc, bn) \
                 > SMEM_PER_BLOCK:
-            cc -= 1
-        smem = _tiled_smem(n_codes, plane, taps, cc, bn)
-        if smem > SMEM_PER_BLOCK:
+            cc -= 4
+        if _tiled_smem(n_codes, plane, taps, cc, bn) > SMEM_PER_BLOCK:
             continue
+        chunks = -(-c4 // cc)
+        cc = -(-(c4 // 4) // chunks) * 4         # even the steps out
         th, tw = -(-ho // rows), -(-wo // cols)
-        key = (th * rows * tw * cols, th * rows_in * tw * cols_in, -cols)
-        tiling = TiledKernelTiling(rows, cols, cc, bn, rows_in, cols_in,
-                                   smem, th * tw * -(-cout // bn))
+        key = (th * tw, th * tw * plane, -cols)
+        tiling = TiledKernelTiling(
+            rows, cols, cc, bn, rows_in, cols_in,
+            _tiled_smem(n_codes, plane, taps, cc, bn),
+            th * tw * -(-cout // bn), c4, chunks)
         if best is None or key < best[0]:
             best = (key, tiling)
     if best is None:
         raise ValueError(
-            f"kernel 6 cannot stage one channel of a {kh}x{kw} tap window "
-            f"(dilation {dh}x{dw}) beside the table in "
-            f"{SMEM_PER_BLOCK} B of shared memory")
+            f"kernel 6 cannot stage four channels of a {kh}x{kw} tap window "
+            f"(dilation {dh}x{dw}) and its {bn}-wide weight codes beside the "
+            f"table in {SMEM_PER_BLOCK} B of shared memory")
     return best[1]
 
 
@@ -333,15 +351,19 @@ def fused_lut_conv_tiled(x: torch.Tensor, wq: torch.Tensor,
                          w_scale, *, stride=(1, 1),
                          padding=((0, 0), (0, 0)), dilation=(1, 1),
                          bits: int = 8, bh: int = 0, bn: int = 0,
-                         emit_acc: bool = False) -> torch.Tensor:
+                         emit_acc: bool = False,
+                         tiling: Optional[TiledKernelTiling] = None
+                         ) -> torch.Tensor:
     """Fused approximate conv2d forward over halo'd output-row bands
     (kernel 6): the reference's ``fused_lut_conv_tiled`` contract.
 
     Operands as :func:`fused_lut_conv`. Returns (N, Ho, Wo, Cout) float32,
     or the raw int32 accumulator with ``emit_acc=True``. ``bh > 0`` pins
-    the band height and ``bn`` the Cout tile (16, 32 or 64); 0 takes
-    :func:`pick_tiled_kernel_tiling`'s. Every band height gives the same
-    bits: integer sums do not depend on how the pixels are tiled.
+    the band height and ``bn`` the Cout tile (32, 64 or 128); 0 takes
+    :func:`pick_tiled_kernel_tiling`'s; ``tiling`` launches the CUDA
+    kernel with the one given, as given (a check's planted fault). Every
+    band height gives the same bits: integer sums do not depend on how the
+    pixels are tiled.
     """
     n_codes = int(round(lut.numel() ** 0.5))
     n, c, h, w_in = x.shape
@@ -353,9 +375,10 @@ def fused_lut_conv_tiled(x: torch.Tensor, wq: torch.Tensor,
     (ph0, ph1), (pw0, pw1) = padding
     ho = conv_out_size(h, kh, sh, dh, (ph0, ph1))
     wo = conv_out_size(w_in, kw, sw, dw, (pw0, pw1))
-    tiling = pick_tiled_kernel_tiling(c, max(ho, 1), max(wo, 1), cout, kh,
-                                      kw, sh, sw, dh, dw, n_codes, bh=bh,
-                                      bn=bn)
+    if tiling is None:
+        tiling = pick_tiled_kernel_tiling(c, max(ho, 1), max(wo, 1), cout,
+                                          kh, kw, sh, sw, dh, dw, n_codes,
+                                          bh=bh, bn=bn)
     if x.device.type == "cpu":
         return fused_lut_conv_tiled_ref(
             x, wq, lut.reshape(-1), offset, n_codes, x_scale, x_zp, w_scale,
@@ -365,11 +388,9 @@ def fused_lut_conv_tiled(x: torch.Tensor, wq: torch.Tensor,
     hi = (1 << (bits - 1)) - 1
     table = runtime.lut_to_int16(lut)
     x = x.contiguous()
-    # (kh*kw, C, Cout): each tap's (C, Cout) slab contiguous, the
-    # reference's tap-major layout
-    wtap = wq.permute(2, 3, 1, 0).reshape(kh * kw, c, cout).contiguous()
+    wcodes = tiled_weight_codes(wq, offset, n_codes, tiling.c4, tiling.bn)
     xs, xz, ws = scale_operands(x_scale, x_zp, w_scale, cout, x.device)
-    for t, name, dt in ((x, "x", torch.float32), (wtap, "wq", torch.int32),
+    for t, name, dt in ((x, "x", torch.float32), (wcodes, "wq", torch.uint8),
                         (table, "lut", torch.int16)):
         runtime.check_cuda_operand(t, name, dt, x.device)
     out = torch.empty((n, max(ho, 0), max(wo, 0), cout), device=x.device,
@@ -381,12 +402,13 @@ def fused_lut_conv_tiled(x: torch.Tensor, wq: torch.Tensor,
                          "indices")
     lib = runtime.kernel_library("fused_lut_conv_tiled")
     blocks, stream = runtime.launch_config(x)
-    lib.check(lib.launch(x.data_ptr(), wtap.data_ptr(), table.data_ptr(),
+    lib.check(lib.launch(x.data_ptr(), wcodes.data_ptr(), table.data_ptr(),
                          xs.data_ptr(), xz.data_ptr(), ws.data_ptr(),
                          out.data_ptr(), int(emit_acc), n, c, h, w_in, cout,
                          kh, kw, sh, sw, ph0, pw0, dh, dw, ho, wo, n_codes,
                          offset, lo, hi, tiling.bh, tiling.bw, tiling.cc,
-                         tiling.bn, blocks, stream))
+                         tiling.tn, tiling.c4, wcodes.shape[2],
+                         tiling.smem_bytes, blocks, stream))
     fused_lut_conv_tiled.launches += 1
     return out
 

@@ -88,6 +88,94 @@ def fused_lut_conv_tiled_ref(x: torch.Tensor, wq: torch.Tensor,
     return acc.to(torch.float32) * (xs * ws.reshape(-1))
 
 
+def tiled_weight_codes(wq: torch.Tensor, offset: int, n_codes: int,
+                       c4: int, bn: int) -> torch.Tensor:
+    """Kernel 6's weight operand: (kh*kw, c4, Cout padded to whole ``bn``
+    tiles) uint8 codes ``wq + offset``, tap-major (each tap's (C, Cout)
+    slab, the reference's layout), the channel and Cout pads the offset
+    code (the kernel corrects the channel pad as ``taps * (c4 - C) *
+    LUT[off, off]``)."""
+    cout, c, kh, kw = wq.shape
+    codes = torch.full((kh * kw, c4, -(-cout // bn) * bn), offset,
+                       dtype=torch.uint8, device=wq.device)
+    cc = min(c, c4)
+    codes[:, :cc, :cout] = (wq.permute(2, 3, 1, 0).reshape(kh * kw, c, cout)
+                            [:, :cc].to(torch.int64) + offset).clamp(
+        0, n_codes - 1).to(torch.uint8)
+    return codes
+
+
+def fused_lut_conv_tiled_plan_ref(x: torch.Tensor, wq: torch.Tensor,
+                                  lut_flat: torch.Tensor, offset: int,
+                                  n_codes: int, x_scale, x_zp, w_scale, *,
+                                  tiling, stride=(1, 1),
+                                  padding=((0, 0), (0, 0)), dilation=(1, 1),
+                                  bits: int = 8, emit_acc: bool = False
+                                  ) -> torch.Tensor:
+    """Kernel 6's loop in plain PyTorch, item by item as ``tiling``
+    (``ops.pick_tiled_kernel_tiling``) cuts the work
+    (``csrc/fused_lut_conv_tiled.cu``): for each tile of ``bh`` x ``bw``
+    output pixels (all images at once) the halo'd band of input pixels,
+    0.0 outside the image, quantized once and padded with offset codes to
+    ``c4`` channels; steps of ``cc`` channels, each summing every tap's
+    window of the band against the tap's uint8 weight codes
+    (:func:`tiled_weight_codes`, whole ``bn``-wide Cout tiles); then
+    ``taps * (c4 - C) * LUT[off, off]`` subtracted, and the tile's pixels
+    inside Ho x Wo and its channels below Cout stored. Returns (N, Ho, Wo,
+    Cout) float32 (int32 with ``emit_acc``), the reference's bits."""
+    n, c, h, w_in = x.shape
+    cout, _, kh, kw = wq.shape
+    sh, sw = stride
+    dh, dw = dilation
+    (ph0, ph1), (pw0, pw1) = padding
+    ho = (h + ph0 + ph1 - (kh - 1) * dh - 1) // sh + 1
+    wo = (w_in + pw0 + pw1 - (kw - 1) * dw - 1) // sw + 1
+    lo = -(1 << (bits - 1))
+    hi = (1 << (bits - 1)) - 1
+    dev = x.device
+    xs = torch.as_tensor(x_scale, dtype=torch.float32, device=dev)
+    xz = torch.as_tensor(x_zp, dtype=torch.float32, device=dev)
+    t = tiling
+    bh, bw, cc, c4 = t.bh, t.bw, t.cc, t.c4
+    taps = kh * kw
+    wcodes = tiled_weight_codes(wq, offset, n_codes, c4, t.bn).to(
+        torch.int64)                                    # (taps, c4, Np)
+    lut_flat = lut_flat.reshape(-1).to(torch.int32)
+    corr = taps * (c4 - c) * int(lut_flat[offset * n_codes + offset])
+    acc = torch.zeros((n, max(ho, 0), max(wo, 0), cout), dtype=torch.int32,
+                      device=dev)
+    pr = torch.arange(bh, device=dev)[:, None] * sh     # tile pixel rows
+    pc = torch.arange(bw, device=dev)[None, :] * sw     # ... and columns
+    for oh0 in range(0, ho, bh):
+        for ow0 in range(0, wo, bw):
+            ih0, iw0 = oh0 * sh - ph0, ow0 * sw - pw0
+            # the band, 0.0 outside the image, quantized once
+            band = x.new_zeros((n, c, t.rows_in, t.cols_in))
+            r0, r1 = max(ih0, 0), min(ih0 + t.rows_in, h)
+            q0, q1 = max(iw0, 0), min(iw0 + t.cols_in, w_in)
+            if r0 < r1 and q0 < q1:
+                band[:, :, r0 - ih0:r1 - ih0, q0 - iw0:q1 - iw0] = \
+                    x[:, :, r0:r1, q0:q1]
+            codes = quantize_shifted(band, xs, xz, lo, hi, offset)
+            codes = F.pad(codes, (0, 0, 0, 0, 0, c4 - c), value=offset)
+            sums = torch.zeros((n * bh * bw, wcodes.shape[2]),
+                               dtype=torch.int32, device=dev)
+            for c0 in range(0, c4, cc):                 # the steps
+                for tap in range(taps):
+                    u, v = divmod(tap, kw)
+                    win = codes[:, c0:c0 + cc, u * dh + pr, v * dw + pc]
+                    a = win.permute(0, 2, 3, 1).reshape(-1, win.shape[1])
+                    sums += lut_gather_sum(a, wcodes[tap, c0:c0 + cc],
+                                           lut_flat, n_codes)
+            sums = (sums - corr).reshape(n, bh, bw, -1)
+            nb, nw = min(bh, ho - oh0), min(bw, wo - ow0)
+            acc[:, oh0:oh0 + nb, ow0:ow0 + nw] = sums[:, :nb, :nw, :cout]
+    if emit_acc:
+        return acc
+    ws = torch.as_tensor(w_scale, dtype=torch.float32, device=dev)
+    return acc.to(torch.float32) * (xs * ws.reshape(-1))
+
+
 def fused_lut_conv_bwd_w_ref(x: torch.Tensor, g: torch.Tensor,
                              lut_flat: torch.Tensor, offset: int,
                              n_codes: int, x_scale, g_scale, *,

@@ -51,7 +51,7 @@ SIGNATURES = {
                        + [_I, _I, _I, _I, _I, _P]),
     "fused_lut_conv_tiled": ("fused_lut_conv_tiled_launch",
                              [_P] * 7 + [_I] + [_I] * 15 + [_I] * 4
-                             + [_I] * 4 + [_I, _P]),
+                             + [_I] * 7 + [_I, _P]),
     "fused_lut_bwd": ("fused_lut_bwd_launch",
                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _I, _I, _P]),

@@ -132,16 +132,16 @@ def test_tiled_plain_version_matches_reference(ref_ops, name, bh):
 
 
 def test_band_heights_past_ho_and_each_cout_tile_are_invisible():
-    """Bands taller than Ho, one-row bands and every Cout tile width give
-    the same bits; the plain version drops the last band's rows past
-    Ho."""
+    """Bands taller than Ho, one-row bands and every Cout tile width (32,
+    64 and 128, one to four channels a lane) give the same bits; the plain
+    version drops the last band's rows past Ho."""
     x, wq, xs, ws = _operands((1, 7, 12, 10), (33, 7, 3, 3), 7)
     xt, lut = torch.from_numpy(x), torch.from_numpy(BIASED_LUT)
     geom = dict(stride=(2, 2), padding=((0, 1), (0, 1)), emit_acc=True)
     want = fused_lut_conv(xt, wq, lut, OFF, xs, torch.tensor(0.0), ws,
                           **geom)
     for bh in (1, 2, 5, 6, 40):
-        for bn in (16, 32, 64):
+        for bn in (32, 64, 128):
             got = fused_lut_conv_tiled(xt, wq, lut, OFF, xs,
                                        torch.tensor(0.0), ws, bh=bh, bn=bn,
                                        **geom)
@@ -152,10 +152,15 @@ def test_band_heights_past_ho_and_each_cout_tile_are_invisible():
 
 
 def test_kernel_tiling_fits_shared_memory():
-    """Kernel 6's banding: every tile fits one block's shared memory
-    beside the 128 KiB table, covers at most 4096 / bn pixels, and at the
-    ImageNet-scale shapes stages 32-channel chunks."""
-    from repro_torch.kernels.fused_lut_conv.ops import SMEM_PER_BLOCK
+    """Kernel 6's tiling: every tile fits one block's shared memory beside
+    the 128 KiB table, covers at most 64 pixels (8 warps of 8), stages its
+    channels (padded to a multiple of 4) in the fewest steps whose buffers
+    fit, and at the ImageNet-scale shapes stages at least 32 channels a
+    step."""
+    from repro_torch.kernels.fused_lut_conv.ops import (SMEM_PER_BLOCK,
+                                                        TILED_MAX_CHUNK,
+                                                        TILED_PIXELS,
+                                                        _tiled_smem)
     for c, hw, cout, k, s, d in [(64, 224, 64, 3, 1, 1),
                                  (64, 112, 128, 3, 1, 1),
                                  (128, 112, 128, 3, 1, 1),
@@ -164,11 +169,19 @@ def test_kernel_tiling_fits_shared_memory():
         ho = conv_out_size(hw, k, s, d, ((k - 1) * d // 2,) * 2)
         t = pick_tiled_kernel_tiling(c, ho, ho, cout, k, k, s, s, d, d, 256)
         assert t.smem_bytes <= SMEM_PER_BLOCK
-        assert t.bh * t.bw <= 4096 // t.bn and t.bh <= ho
+        assert t.bh * t.bw <= TILED_PIXELS and t.bh <= ho
         assert t.rows_in == (t.bh - 1) * s + (k - 1) * d + 1
         assert t.cols_in == (t.bw - 1) * s + (k - 1) * d + 1
+        plane = t.rows_in * t.cols_in
+        assert t.smem_bytes == _tiled_smem(256, plane, k * k, t.cc, t.bn)
+        assert t.c4 == -(-c // 4) * 4 and t.cc % 4 == 0
+        assert t.chunks * t.cc >= t.c4 > (t.chunks - 1) * t.cc
+        if t.chunks > 1:     # one step fewer does not fit
+            wider = min(TILED_MAX_CHUNK, -(-t.c4 // (t.chunks - 1) // 4) * 4)
+            assert wider * (t.chunks - 1) < t.c4 or _tiled_smem(
+                256, plane, k * k, wider, t.bn) > SMEM_PER_BLOCK
         if c >= 32 and k == 3:
-            assert t.cc == 32
+            assert t.cc >= 32
     with pytest.raises(ValueError, match="cannot stage"):
         pick_tiled_kernel_tiling(1, 8, 8, 64, 61, 61, 1, 1, 1, 1, 256)
 
@@ -446,9 +459,9 @@ def test_cuda_tiled_kernel_matches_plain_version_and_kernel5():
         ((1, 5, 13, 11), (6, 5, 3, 3), (1, 1), ((1, 1), (1, 1)), (1, 1), 3,
          0),
         ((2, 8, 19, 17), (40, 8, 3, 3), (2, 2), ((1, 1), (1, 1)), (1, 1), 0,
-         32),
+         128),
         ((1, 37, 20, 20), (24, 37, 3, 3), (1, 1), ((2, 2), (2, 2)), (2, 2),
-         5, 16),
+         5, 32),
         ((2, 3, 30, 26), (70, 3, 5, 5), (3, 2), ((0, 0), (0, 0)), (1, 1), 0,
          0),
     ]
