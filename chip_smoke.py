@@ -8,13 +8,15 @@
    together);
 2. holds each forward kernel (lut_matmul, fused_lut_dense, fused_lut_conv)
    against its plain PyTorch version on the card, bitwise, at every GEMM
-   shape of a ResNet-20 wave of 256 CIFAR-sized images, and times kernel,
-   plain version and a ``torch.matmul`` yardstick there; err_matmul (the
+   shape of a ResNet-20 wave of 256 CIFAR-sized images, with each
+   shape's lut_matmul plan and fused_lut_conv tiling, and times kernel,
+   plain version and a yardstick there (``F.conv2d`` in f32, TF32 off, for
+   fused_lut_conv; ``torch.matmul`` for the others); err_matmul (the
    LOWRANK GEMM, rank 8) at the same shapes within its summation bound,
    rounding to lut_matmul's integers where the bound allows;
 3. does the same for the backward kernels (fused_lut_bwd,
-   fused_lut_conv_bwd_w, and lut_matmul with its K split at the unfused
-   route's weight-gradient shapes) at every gradient GEMM shape of one
+   fused_lut_conv_bwd_w, and lut_matmul with its stream-K plan at the
+   unfused route's weight-gradient shapes) at every gradient GEMM shape of one
    ResNet-20 training step at batch 128;
 4. serves 1024 images from ``image_task(size=32)`` through
    ``VisionServeEngine(slots=256)`` with ResNet-20 at full width (random
@@ -66,7 +68,13 @@
    planted fault (a plan with one K split dropped) caught; times the
    rwkv6-3b GEMM and f1 and f2; and measures bank conflicts: the kernel
    on real codes against codes that put a warp's 32 gathers in 32 banks,
-   beside the same measurement on the old shared core (lut_matmul);
+   beside the same measurement on the old shared core (lut_gemm.cuh,
+   still kernel 4's: fused_lut_bwd);
+6c. kernels 1 and 5 on the narrow-N core (csrc/lut_narrow.cuh) at
+   ResNet-20's widths N = 16, 32 and 64: the bank-conflict replay of each
+   and of the old core (kernel 4 at the same GEMM shapes), and a planted
+   fault of each (kernel 5: a tiling with its last channel group dropped;
+   kernel 1: a plan with a stream-K segment dropped), each caught;
 7. runs Table 4's emulation-mode ladder on ResNet-20 at full width, one
    wave of 256 images per row through ``VisionServeEngine``: native (no
    ACU), baseline LUT (the plain one-gather LUT GEMM), the LUT engine fused
@@ -127,7 +135,9 @@
    Sq < Sk and at SmolLM-135M's heads in float32, and shows that planted
    faults of the plain version (window off by one, softcap dropped, first
    KV tile dropped) lie beyond that tolerance; times kernel, plain
-   version and SDPA (which has no softcap) at the model's shapes; holds
+   version and SDPA (which has no softcap) at the model's dtype and on
+   float32 operands (naming the kernel PyTorch ran) at the model's shapes,
+   beside the TF32 and FP32 CUDA-core bounds; holds
    quantize and fused_lut_dense bitwise at every GEMM shape of the
    forward (M = 4352, full K and N; the plain GEMM on the first and last
    columns); then scores one sequence of 4352 MarkovLM tokens under
@@ -146,8 +156,10 @@
    fault, a tiling with its last channel group dropped, must be caught),
    and times kernel 6, kernel 5 (in the same call), the plain version and
    ``F.conv2d`` (f32, TF32 off) at the first three against the gather
-   bound, with each one's tiling, grid and blocks per SM, and kernel 6's
-   bank-conflict replay at c2; then serves 128 images of
+   bound, with each one's tiling (kernel 5's too), grid and blocks per SM,
+   and kernel 6's bank-conflict replay at c2; holds kernel 5 bitwise at
+   CNN-224's c1 and c3 and times it there against ``F.conv2d`` and the
+   gather bound; then serves 128 images of
    ``image_task(n_classes=1000,
    size=224)`` through ``VisionServeEngine(slots=32)`` with the CNN at
    VGG-16's stage widths (``init_cnn(width=64, img=224)``) on the fused
@@ -171,6 +183,7 @@ runs outside the repository, or when any phase fails.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -563,8 +576,8 @@ def dense_phase(torch, np, dev, check, acu, ops, lookups_per_s,
     planted fault (a plan with one K split dropped), times by regime, and
     the bank-conflict measurement: the same kernel on real codes and on
     codes that put a warp's 32 gathers in 32 banks, beside the same
-    measurement on the shared core the old kernel 3 ran (lut_matmul).
-    Returns the regime times."""
+    measurement on the shared core the old kernel 3 ran (lut_gemm.cuh,
+    still kernel 4's: fused_lut_bwd). Returns the regime times."""
     from repro_torch.configs import get_config
     from repro_torch.core import acu_operand, quantize, symmetric_qparams
     from repro_torch.kernels.fused_lut_dense.ops import (
@@ -698,25 +711,194 @@ def dense_phase(torch, np, dev, check, acu, ops, lookups_per_s,
         new = [cuda_ms(torch, lambda: ops["fused_lut_dense"](
             xx, ww, lut16, off, *a3), 10) for xx, ww in
             ((x, wq), (free_x, free_w), (x, wq))]
-        # the old core (lut_gemm.cuh, still lut_matmul's): half-warps of
-        # 16 columns on two rows; conflict-free when every row holds one
-        # code and a half-warp's 16 columns read codes 2c (banks c)
-        a = acu_operand(quantize(x, xqp), xqp).contiguous()
-        free_a = torch.zeros_like(a)
-        free_b = (2 * (col % 16) - 128).to(torch.int32)[None, :].expand(
+        # the old core (lut_gemm.cuh, still kernel 4's: fused_lut_bwd):
+        # half-warps of 16 columns on two rows; conflict-free when every
+        # row holds one code and a half-warp's 16 columns read codes 2c
+        # (banks c)
+        af = x.float()
+        bf = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+        sa, sb = inline_scale(torch, af), inline_scale(torch, bf)
+        free_a = torch.zeros_like(af)
+        free_b = (2 * (col % 16) - 128).float()[None, :].expand(
             k, n).contiguous()
-        old = [cuda_ms(torch, lambda: ops["lut_matmul"](aa, ww, lut16, off),
-                       5) for aa, ww in ((a, wq), (free_a, free_b), (a, wq))]
+        one = torch.ones((), device=dev)
+        old = [cuda_ms(torch, lambda: ops["fused_lut_bwd"](
+            aa, bb, lut16, off, s1, s2, emit_acc=True), 5)
+            for aa, bb, s1, s2 in ((af, bf, sa, sb),
+                                   (free_a, free_b, one, one),
+                                   (af, bf, sa, sb))]
         rn, ro = min(new[0], new[2]) / new[1], min(old[0], old[2]) / old[1]
         times[f"conflicts {m}"] = (rn, ro)
         print(f"    {m}x{k}x{n}: fused_lut_dense {new[0]:.4f} / {new[1]:.4f}"
               f" ms (again {new[2]:.4f}): x{rn:.2f}; the old core "
-              f"(lut_matmul) {old[0]:.4f} / {old[1]:.4f} ms (again "
+              f"(fused_lut_bwd) {old[0]:.4f} / {old[1]:.4f} ms (again "
               f"{old[2]:.4f}): x{ro:.2f}", flush=True)
-        del x, wq, a, free_a, free_b, free_w, free_x
+        del x, wq, af, bf, free_a, free_b, free_w, free_x
     torch.cuda.empty_cache()
     print(f"kernel 3 phase: {time.perf_counter() - t_phase:.1f} s")
     return times
+
+
+def conflict_free_codes(torch, dev, n: int, bn: int, tn: int, group_of):
+    """Shifted weight codes that put a warp's gathers in distinct banks on
+    the narrow-N core (lut_narrow.cuh), when every row code is one: entry
+    (a, b) lies in bank (b / 2) mod 32. At 32 columns and over lane l's
+    j-th column reads code 2l + 64 (j % 4) (word l + 32 (j % 4), bank l);
+    at 16 the two half-warps walk alternate groups of 4 k, so column c
+    reads 2c in one half's groups and 2c + 32 in the other's (banks c and
+    16 + c). ``group_of`` gives each k's group parity (a (K, 1) tensor)."""
+    col = torch.arange(n, device=dev)[None, :]
+    if bn == 16:
+        b = 2 * (col % 16) + 32 * group_of
+    else:
+        b = (2 * (col % bn // tn) + 64 * (col % tn % 4)).expand(
+            group_of.shape[0], n)
+    return (b - 128).to(torch.int32)
+
+
+def narrow_phase(torch, np, dev, check, acu, n_sm) -> dict:
+    """Kernels 1 and 5 on the narrow-N core at ResNet-20's three widths
+    (N = 16, 32, 64; stage 0, 1 and 2 of a wave of 256): the bank-conflict
+    replay (ms on real codes over ms on codes that put a warp's gathers in
+    distinct banks, same kernel, same shape) of kernel 5, kernel 1 and the
+    old core (lut_gemm.cuh, still kernel 4's: fused_lut_bwd at the same
+    GEMM shapes), and a planted fault of each: kernel 5 with a tiling
+    whose last channel group is dropped, kernel 1 with a plan whose split
+    segment is dropped (at the stem's weight gradient, K = 131,072).
+    Returns the replays."""
+    from repro_torch.core import ApproxConfig, acu_operand, quantize
+    from repro_torch.core.approx_ops import _conv_qparams, _im2col
+    from repro_torch.kernels.fused_lut_conv.ops import (
+        fused_lut_conv, pick_conv_kernel_tiling)
+    from repro_torch.kernels.fused_lut_conv.ref import fused_lut_conv_ref
+    from repro_torch.kernels.fused_lut_dense.ops import fused_lut_bwd
+    from repro_torch.kernels.lut_matmul.ops import (
+        lut_matmul, lut_matmul_planned, lut_plan)
+    from repro_torch.kernels.lut_matmul.ref import lut_matmul_ref
+
+    t_phase = time.perf_counter()
+    lut16 = acu.device_lut(dev)
+    lut32 = torch.from_numpy(acu.lut.reshape(-1)).to(dev)
+    off, n_codes = acu.offset, acu.multiplier.n_codes
+    cfg = ApproxConfig(acu=acu)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    replay = {}
+    print("narrow-N core: bank conflicts at ResNet-20's widths (ms on real "
+          "codes / ms on codes that put a warp's gathers in distinct banks; "
+          "real timed twice, the faster kept):")
+    for name, cin, hw, cout in (("stage0", 16, 32, 16), ("stage1", 32, 16, 32),
+                                ("stage2", 64, 8, 64)):
+        x = torch.relu(torch.randn((BATCH, cin, hw, hw), generator=gen,
+                                   device=dev))
+        w = torch.randn((cout, cin, 3, 3), generator=gen, device=dev)
+        xqp, wqp = _conv_qparams(x, w, cfg, None, None)
+        wq = acu_operand(quantize(w, wqp), wqp)
+        args = (xqp.scale, xqp.zero_point, wqp.scale)
+        pad = ((1, 1), (1, 1))
+        t5 = pick_conv_kernel_tiling(BATCH, cin, hw, hw, cout, 3, 3, 1, 1, 1,
+                                     1, n_codes, n_sm)
+        # kernel 5's pairs: tap t, channel group g; the slice parity of
+        # pair t * ng + g decides the half-warp at Cout 16
+        ng = t5.c4 // 4
+        tap = torch.arange(9, device=dev)
+        grp = torch.arange(cin, device=dev) // 4
+        par = ((tap[None, :] * ng + grp[:, None]) % 2).reshape(-1, 1)
+        wfree = conflict_free_codes(torch, dev, cout, t5.bn, t5.tn, par)
+        wq_free = wfree.t().reshape(cout, cin, 3, 3).contiguous()
+        x_free = torch.full_like(x, 0.5)
+        k5 = [cuda_ms(torch, lambda: fused_lut_conv(
+            xx, ww, lut16, off, *args, padding=pad), 10)
+            for xx, ww in ((x, wq), (x_free, wq_free), (x, wq))]
+        # kernel 1 on the same layer's unfused GEMM
+        cols, _ = _im2col(x, 3, 3, (1, 1), pad, (1, 1))
+        cols = cols.reshape(-1, cols.shape[-1])
+        a = acu_operand(quantize(cols, xqp), xqp)
+        wmat = wq.reshape(cout, -1).t().contiguous()
+        M, K = a.shape
+        plan = lut_plan(M, K, cout, n_sm)
+        kpar = (torch.arange(K, device=dev)[:, None] // 4) % 2
+        wm_free = conflict_free_codes(torch, dev, cout, plan.bn,
+                                      plan.bn * plan.ks // 32, kpar)
+        wm_free = wm_free.expand(K, cout).contiguous()
+        a_free = torch.zeros_like(a)
+        k1 = [cuda_ms(torch, lambda: lut_matmul(aa, ww, lut16, off), 10)
+              for aa, ww in ((a, wmat), (a_free, wm_free), (a, wmat))]
+        # the old core (kernel 4, fused_lut_bwd) at the same GEMM: warps of
+        # BN / 4 columns on 32 / (BN / 4) rows; conflict-free when every
+        # row holds one code and column n reads code 2 (n % 16)
+        af = cols.float().contiguous()
+        bf = wmat.float() * wqp.scale.reshape(1, -1)
+        sa = inline_scale(torch, af)
+        sb = inline_scale(torch, bf)
+        bf_free = (2 * (torch.arange(cout, device=dev) % 16) - 128).float()[
+            None, :].expand(K, cout).contiguous()
+        one = torch.ones((), device=dev)
+        old = [cuda_ms(torch, lambda: fused_lut_bwd(aa, bb, lut16, off, s1,
+                                                    s2, emit_acc=True), 10)
+               for aa, bb, s1, s2 in ((af, bf, sa, sb),
+                                      (torch.zeros_like(af), bf_free, one,
+                                       one), (af, bf, sa, sb))]
+        r5 = min(k5[0], k5[2]) / k5[1]
+        r1 = min(k1[0], k1[2]) / k1[1]
+        ro = min(old[0], old[2]) / old[1]
+        replay[cout] = (r5, r1, ro)
+        print(f"  N = {cout} ({name}, conv {tuple(x.shape)} -> {cout}, GEMM "
+              f"{M}x{K}x{cout}): fused_lut_conv {k5[0]:.4f} / {k5[1]:.4f} ms"
+              f" (again {k5[2]:.4f}): x{r5:.2f}; lut_matmul {k1[0]:.4f} / "
+              f"{k1[1]:.4f} (again {k1[2]:.4f}): x{r1:.2f}; the old core "
+              f"(fused_lut_bwd) {old[0]:.4f} / {old[1]:.4f} (again "
+              f"{old[2]:.4f}): x{ro:.2f}", flush=True)
+        if name == "stage0":    # planted fault: the last channel group
+            # (channels 12..15) dropped from kernel 5's tiling
+            bad = dataclasses.replace(t5, c4=t5.c4 - 4)
+            caught = [not torch.equal(
+                fused_lut_conv(x, wq, lut16, off, *args, padding=pad,
+                               emit_acc=emit, tiling=bad),
+                fused_lut_conv_ref(x, wq, lut32, off, n_codes, *args,
+                                   padding=pad, emit_acc=emit))
+                for emit in (False, True)]
+            check(all(caught), f"fused_lut_conv {name}, planted fault: a "
+                               f"tiling with its last channel group dropped "
+                               f"(c4 {bad.c4} of {t5.c4}) differs from the "
+                               f"plain version, f32 and int32: caught")
+        del x, x_free, cols, a, a_free, af, bf, bf_free, wm_free
+    # planted fault: kernel 1's plan at the stem's weight gradient with one
+    # stream-K segment dropped
+    P = TRAIN_BATCH * 32 * 32
+    qc = torch.randint(-128, 128, (27, P), generator=gen, device=dev,
+                       dtype=torch.int32)
+    qg = torch.randint(-128, 128, (P, 16), generator=gen, device=dev,
+                       dtype=torch.int32)
+    plan = lut_plan(27, P, 16, n_sm)
+    i = int(np.flatnonzero(plan.segments[:, 3] >= 0)[0])
+    bad = dataclasses.replace(
+        plan, segments=np.delete(plan.segments, i, axis=0),
+        offsets=tuple(int(o - (o > i)) for o in plan.offsets))
+    want = lut_matmul_ref(qc, qg, lut32, off, n_codes)
+    good = torch.equal(lut_matmul_planned(qc, qg, lut16, off, plan=plan),
+                       want)
+    # the tile the fault leaves short is never stored and keeps what the
+    # allocator's block held: every free block of its size is first filled
+    # with a value no sum gives
+    junk = [torch.full_like(want, -(2 ** 31)) for _ in range(4)]
+    del junk
+    check(good and not torch.equal(lut_matmul_planned(qc, qg, lut16, off,
+                                                      plan=bad), want),
+          f"lut_matmul 27x{P}x16 (stem weight gradient), planted fault: the "
+          f"plan {plan.summary()} with segment {i} (K groups "
+          f"{plan.segments[i, 1]}..{plan.segments[i, 2]}) dropped differs "
+          f"from the plain version: caught")
+    del qc, qg, want
+    torch.cuda.empty_cache()
+    print(f"narrow-N phase: {time.perf_counter() - t_phase:.1f} s")
+    return replay
+
+
+def inline_scale(torch, t):
+    """The approximate backward's per-tensor symmetric scale of ``t``."""
+    from repro_torch.core import inline_symmetric_scale
+    return inline_symmetric_scale(t.abs().amax(), 8)
 
 
 def attn_work(np, info, sq: int, hq: int, hkv: int, d: int, itemsize: int):
@@ -1628,8 +1810,8 @@ def attn_pairs(sq: int, sk: int, window) -> int:
     return i - sum(max(0, min(q + 1, sk) - window) for q in range(sq))
 
 
-def score_phase(torch, np, dev, check, acu, ops, launches,
-                account) -> dict:
+def score_phase(torch, np, dev, check, acu, ops, launches, account,
+                fma_per_s, redesign) -> dict:
     """gemma2-27b through ``loss_fn``: kernel 11 against its plain version
     (and the chunked path, and SDPA's time) at the model's shapes, then one
     scored sequence at full width and depth on the fused ACU with exact
@@ -1743,23 +1925,36 @@ def score_phase(torch, np, dev, check, acu, ops, launches,
                 j = torch.arange(sk, device=dev)[None, :]
                 mask = (j <= i) & (j > i - win)
             qd, kd, vd = (t.contiguous() for t in views)
-            lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qd, kd, vd, attn_mask=mask, is_causal=mask is None,
-                enable_gqa=True), 5)
+            sdpa = lambda q_, k_, v_: F.scaled_dot_product_attention(
+                q_, k_, v_, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True)
+            lib = cuda_ms(torch, lambda: sdpa(qd, kd, vd), 5)
+            # the same attention on float32 operands (SDPA has no softcap),
+            # the kernels line's yardstick, and the kernel PyTorch ran
+            q32, k32, v32 = (t.float() for t in (qd, kd, vd))
+            lib32 = cuda_ms(torch, lambda: sdpa(q32, k32, v32), 5)
+            rows = profile(torch, f"SDPA float32 at {label}",
+                           lambda: sdpa(q32, k32, v32), lead=2000)[2]
+            backend = rows[0][0][:60] if rows else "not measured"
             ms = cuda_ms(torch, kern, 5)
             pms = cuda_ms(torch, plain, 1, warm=0)
             pairs = attn_pairs(sq, sk, win)
             flops = 4 * nq * hd * pairs
             bytes_ = (2 * sq * nq + 2 * sk * nkv) * hd * yk.element_size()
             bound = max(bytes_ / HBM_BYTES_PER_S, flops / TF32_FLOPS) * 1e3
-            account("flash_attention", per_fwd, ms, pms, lib, bytes_, flops,
-                    float(err.max()), ops_per_s=TF32_FLOPS)
-            print(f"    {label}: {ms:.4f} ms (plain {pms:.2f}, "
-                  f"scaled_dot_product_attention without softcap {lib:.4f}),"
-                  f" bound {bound:.4f} ms (operations: {flops / 1e9:.1f} "
-                  f"GFLOP at the TF32 rate; {bytes_ / 1e6:.1f} MB), "
-                  f"x{per_fwd} per forward", flush=True)
-            del qd, kd, vd, mask
+            fp32 = flops / 2 / fma_per_s * 1e3
+            redesign[f"kernel 11 {label}"] = (ms, lib, lib32, backend,
+                                              bound, fp32)
+            account("flash_attention", per_fwd, ms, pms, lib32, bytes_,
+                    flops, float(err.max()), ops_per_s=TF32_FLOPS)
+            print(f"    {label}: {ms:.4f} ms (plain {pms:.2f}; "
+                  f"scaled_dot_product_attention without softcap: "
+                  f"{str(dt)[6:]} {lib:.4f}, float32 {lib32:.4f} on "
+                  f"{backend}), bound {bound:.4f} ms (operations: "
+                  f"{flops / 1e9:.1f} GFLOP at the TF32 rate; "
+                  f"{bytes_ / 1e6:.1f} MB); at the FP32 CUDA-core rate "
+                  f"{fp32:.4f} ms; x{per_fwd} per forward", flush=True)
+            del qd, kd, vd, q32, k32, v32, mask
         del q, k, v, views, fold, yk, yp, tol, err
     torch.cuda.empty_cache()
 
@@ -1954,9 +2149,9 @@ def conv_phase(torch, np, dev, check, acu, ops, launches, account,
     from repro_torch.kernels import runtime
     from repro_torch.kernels.fused_lut_conv.ops import (
         conv_out_size, fused_lut_conv, fused_lut_conv_tiled,
-        pick_tiled_kernel_tiling)
+        pick_conv_kernel_tiling, pick_tiled_kernel_tiling)
     from repro_torch.kernels.fused_lut_conv.ref import (
-        fused_lut_conv_tiled_ref)
+        fused_lut_conv_ref, fused_lut_conv_tiled_ref)
     from repro_torch.models.vision import cnn_forward, init_cnn
     from repro_torch.serve.engine import VisionServeEngine
 
@@ -2032,6 +2227,8 @@ def conv_phase(torch, np, dev, check, acu, ops, launches, account,
         ms6, ms5, ms6b = (cuda_ms(torch, fn, 10) for fn in (k6, k5, k6))
         ms6 = min(ms6, ms6b)
         redesign[f"kernel 6 {label}"] = (ms6, ms5)
+        t5 = pick_conv_kernel_tiling(n, c, ho, ho, cout, k, k, s, s, d, d,
+                                     n_codes, n_sm)
         msp = cuda_ms(torch, plain, 2, warm=1)
         nbytes = ((x.numel() + wq.numel() + n * ho * ho * cout) * 4
                   + lut_bytes + cout * 4 + 8)
@@ -2043,10 +2240,10 @@ def conv_phase(torch, np, dev, check, acu, ops, launches, account,
               f"ms ({bound / ms6:.0%} of it); kernel 6 {ms6:.3f} ms "
               f"({lookups / ms6 / 1e9:.3f} T lookups/s), kernel 5 "
               f"{ms5:.3f} ms ({lookups / ms5 / 1e9:.3f} T lookups/s) in the "
-              f"same call: kernel 6 {ms5 / ms6:.2f}x faster; plain "
+              f"same call: kernel 5 / kernel 6 {ms5 / ms6:.2f}; plain "
               f"{msp:.1f} ms, F.conv2d f32 {lib:.3f} ms; tile {tiling.bh} "
-              f"rows x {tiling.bw} columns, grid {grid} of {items} tiles",
-              flush=True)
+              f"rows x {tiling.bw} columns, grid {grid} of {items} tiles; "
+              f"kernel 5's tiling: {t5.describe(n)}", flush=True)
         if label == "CNN-224 c2":   # bank conflicts: real codes against
             # codes that put a warp's 32 gathers in 32 banks (lane l's
             # channel j reads code 2l + 64j: word l + 32j, bank l) on one
@@ -2068,8 +2265,49 @@ def conv_phase(torch, np, dev, check, acu, ops, launches, account,
         del wf
     torch.cuda.empty_cache()
 
-    # -- the CNN at VGG-16's widths on 224^2 images --------------------------
+    # -- kernel 5 at the CNN's c1 and c3, the convs it serves there ---------
     S, W, I = CNN_SLOTS, CNN_WIDTH, CNN_IMG
+    print("fused_lut_conv (kernel 5) at CNN-224's c1 and c3 against its plain "
+          "version, f32 and int32, bitwise; timed against F.conv2d (f32, "
+          "TF32 off) and the gather bound:")
+    for label, xs_, ws_ in (("c1", (S, 3, I, I), (W, 3, 3, 3)),
+                            ("c3", (S, 2 * W, I // 4, I // 4),
+                             (4 * W, 2 * W, 3, 3))):
+        x = torch.relu(torch.randn(xs_, generator=gen, device=dev))
+        w = torch.randn(ws_, generator=gen, device=dev)
+        xqp, wqp = _conv_qparams(x, w, cfg, None, None)
+        wq = acu_operand(quantize(w, wqp), wqp)
+        pad = ((1, 1), (1, 1))
+        (n, c, hw, _), cout = xs_, ws_[0]
+        tiling = pick_conv_kernel_tiling(n, c, hw, hw, cout, 3, 3, 1, 1, 1,
+                                         1, n_codes, n_sm)
+        l16, l32 = luts["std"]
+        args = (xqp.scale, xqp.zero_point, wqp.scale)
+        k5 = lambda emit=False: fused_lut_conv(x, wq, l16, off, *args,
+                                               padding=pad, emit_acc=emit)
+        same = [torch.equal(k5(emit), fused_lut_conv_ref(
+            x, wq, l32, off, n_codes, *args, padding=pad, emit_acc=emit))
+            for emit in (False, True)]
+        check(all(same), f"fused_lut_conv CNN-224 {label} {xs_} -> {cout}: "
+                         f"f32 and int32 bitwise equal to the plain version "
+                         f"({tiling.describe(n)})")
+        wf = wq.float()
+        lib = cuda_ms(torch, lambda: F.conv2d(x, wf, padding=1), 10)
+        ms = cuda_ms(torch, k5, 10)
+        lookups = n * hw * hw * c * 9 * cout
+        nbytes = ((x.numel() + wq.numel() + n * hw * hw * cout) * 4
+                  + lut_bytes + cout * 4 + 8)
+        bound = max(nbytes / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
+        redesign[f"kernel 5 CNN-224 {label}"] = (ms, lib, bound)
+        print(f"  {label}: {lookups / 1e9:.2f} G lookups, kernel 5 {ms:.3f} "
+              f"ms ({lookups / ms / 1e9:.3f} T lookups/s), bound "
+              f"{bound:.3f} ms ({bound / ms:.0%} of it), F.conv2d f32 "
+              f"{lib:.3f} ms",
+              flush=True)
+        del x, w, wq, wf
+    torch.cuda.empty_cache()
+
+    # -- the CNN at VGG-16's widths on 224^2 images --------------------------
     print(f"serving {CNN_IMAGES} images of image_task(n_classes="
           f"{CNN_CLASSES}, size={I}), CNN width {W} (c1 3->{W}, c2 "
           f"{W}->{2 * W}, c3 {2 * W}->{4 * W}, f1 {4 * W * (I // 8) ** 2}->"
@@ -2506,9 +2744,10 @@ def main() -> int:
         from repro_torch.core.acu import resolve_conv_padding
         from repro_torch.data.pipeline import image_task
         from repro_torch.kernels import runtime
+        import torch.nn.functional as F
         from repro_torch.kernels.fused_lut_conv.ops import (
             conv_out_size, fused_lut_conv, fused_lut_conv_bwd_w,
-            fused_lut_conv_tiled)
+            fused_lut_conv_tiled, pick_conv_kernel_tiling)
         from repro_torch.kernels.fused_lut_conv.ref import (
             fused_lut_conv_bwd_w_ref, fused_lut_conv_ref)
         from repro_torch.kernels.fused_lut_dense.ops import (fused_lut_bwd,
@@ -2522,7 +2761,7 @@ def main() -> int:
         from repro_torch.kernels.err_matmul.ref import err_matmul_ref
         from repro_torch.kernels.fused_lut_grouped.ops import (
             fused_lut_grouped)
-        from repro_torch.kernels.lut_matmul.ops import lut_matmul
+        from repro_torch.kernels.lut_matmul.ops import lut_matmul, lut_plan
         from repro_torch.kernels.lut_matmul.ref import lut_matmul_ref
         from repro_torch.kernels.quantize.ops import (
             quantize as quantize_kernel)
@@ -2661,11 +2900,22 @@ def main() -> int:
         check(torch.equal(mk, mp), f"lut_matmul {name}: int32 bitwise equal "
                                    f"to the plain version {tuple(mk.shape)}")
         M, K, N = a.shape[0], a.shape[1], cout
+        tiling = pick_conv_kernel_tiling(BATCH, cin, yk.shape[1],
+                                         yk.shape[2], cout, k, k, stride,
+                                         stride, 1, 1, n_codes, n_sm)
+        print(f"  {name:16s} fused_lut_conv tiling: "
+              f"{tiling.describe(BATCH)}; lut_matmul plan "
+              f"{lut_plan(M, K, N, n_sm).summary()}")
         af, wf = a.float(), wmat.float()
         lib = cuda_ms(torch, lambda: torch.matmul(af, wf), 10)
+        # kernel 5's yardstick: F.conv2d in f32 (TF32 off) on the same
+        # image, padded beforehand (SAME at stride 2 pads one side)
+        xpad = F.pad(x, (pad[1][0], pad[1][1], pad[0][0], pad[0][1]))
+        wcf = wq.float()
+        lib5 = cuda_ms(torch, lambda: F.conv2d(xpad, wcf, stride=st), 10)
         ms_c = cuda_ms(torch, conv_k, 10)
         ms_cp = cuda_ms(torch, conv_p, 2, warm=1)
-        account("fused_lut_conv", count, ms_c, ms_cp, lib,
+        account("fused_lut_conv", count, ms_c, ms_cp, lib5,
                 x.numel() * 4 + wq.numel() * 4 + lut_bytes + N * 12
                 + M * N * 4, M * K * N, err)
         ms_m = cuda_ms(torch, lambda: lut_matmul(a, wmat, lut16, off), 10)
@@ -2676,11 +2926,12 @@ def main() -> int:
                 M * K * N, max_err(mk, mp))
         line13 = lowrank_gemm(name, count, a, wmat, mk)
         print(f"  {name:16s} x{count} GEMM {M}x{K}x{N}: conv {ms_c:.4f} ms "
-              f"(plain {ms_cp:.3f}), lut_matmul {ms_m:.4f} ms "
-              f"(plain {ms_mp:.3f}), torch.matmul f32 {lib:.4f} ms, "
+              f"(plain {ms_cp:.3f}, F.conv2d f32 {lib5:.4f}), lut_matmul "
+              f"{ms_m:.4f} ms (plain {ms_mp:.3f}), torch.matmul f32 "
+              f"{lib:.4f} ms, "
               f"lookup bound {M * K * N / lookups_per_s * 1e3:.4f} ms; "
               f"{line13}", flush=True)
-        del cols, a, mk, mp
+        del cols, a, mk, mp, xpad
 
     M, K, N = HEAD
     x = torch.relu(torch.randn((M, K), generator=gen, device=dev))
@@ -2701,8 +2952,9 @@ def main() -> int:
     a = acu_operand(quantize(x, xqp), xqp)
     mk, mp = lut_matmul(a, wq, lut16, off), \
         lut_matmul_ref(a, wq, lut32, off, n_codes)
-    check(torch.equal(mk, mp), "lut_matmul head: int32 bitwise equal to "
-                               "the plain version")
+    check(torch.equal(mk, mp), f"lut_matmul head: int32 bitwise equal to "
+                               f"the plain version; plan "
+                               f"{lut_plan(M, K, N, n_sm).summary()}")
     af, wf = a.float(), wq.float()
     lib = cuda_ms(torch, lambda: torch.matmul(af, wf), 20)
     head_bytes = M * K * 4 + K * N * 4 + lut_bytes + M * N * 4
@@ -2758,8 +3010,9 @@ def main() -> int:
                            dtype=torch.int32)
         check(torch.equal(lut_matmul(qc, qg, lut16, off),
                           lut_matmul_ref(qc, qg, lut32, off, n_codes)),
-              f"lut_matmul {name} gw {ckk}x{P}x{cout} (K split): int32 "
-              f"bitwise equal to the plain version")
+              f"lut_matmul {name} gw {ckk}x{P}x{cout} (stream-K plan "
+              f"{lut_plan(ckk, P, cout, n_sm).summary()}): int32 bitwise "
+              f"equal to the plain version")
         ms_u = cuda_ms(torch, lambda: lut_matmul(qc, qg, lut16, off), 10)
         line = (f"  {name:16s} x{count} gw {ckk}x{P}x{cout}: bwd_w "
                 f"{ms_w:.4f} ms (plain {ms_wp:.3f}), lut_matmul {ms_u:.4f} "
@@ -2971,6 +3224,9 @@ def main() -> int:
     dense_times = dense_phase(torch, np, dev, check, acu, ops,
                               lookups_per_s, lut_bytes, n_sm)
 
+    # -- 6c. kernels 1 and 5 on the narrow-N core: conflicts, faults -------
+    replay = narrow_phase(torch, np, dev, check, acu, n_sm)
+
     # -- 7. Table 4's emulation-mode ladder ---------------------------------
     ladder = ladder_phase(torch, np, dev, check, ops, launches, params,
                           images)
@@ -2994,7 +3250,8 @@ def main() -> int:
 
     # -- 11. score gemma2-27b through loss_fn --------------------------------
     t0 = time.perf_counter()
-    scored = score_phase(torch, np, dev, check, acu, ops, launches, account)
+    scored = score_phase(torch, np, dev, check, acu, ops, launches, account,
+                         fma_per_s, redesign)
     print(f"scoring phase: {time.perf_counter() - t0:.1f} s")
 
     # -- 12. ImageNet-scale convs: kernel 6 on the CNN at 224^2 ----------
@@ -3048,9 +3305,24 @@ def main() -> int:
         "(real / conflict-free codes) " + ", ".join(
         f"M={k.split()[1]}: {v[0]:.2f} (old core {v[1]:.2f})"
         for k, v in dense_times.items() if k.startswith("conflicts")))
-    print("redesigned kernels, each against its old path in the same call: "
+    print("kernels 1 and 5 on the narrow-N core, bank-conflict replay "
+          "(real / conflict-free codes) at ResNet-20's widths: " + ", ".join(
+              f"N={n}: kernel 5 {v[0]:.2f}, kernel 1 {v[1]:.2f}, old core "
+              f"(kernel 4) {v[2]:.2f}" for n, v in replay.items())
+          + "; kernel 5 at CNN-224 " + ", ".join(
+              f"{k.split()[-1]} {v[0]:.3f} ms (F.conv2d f32 {v[1]:.3f}, "
+              f"bound {v[2]:.3f})" for k, v in redesign.items()
+              if k.startswith("kernel 5 ")))
+    print("kernel 11 at gemma2-27b (kernel / SDPA at the model's dtype / SDPA "
+          "float32 on its backend / TF32 bound / FP32 bound, ms): "
+          + ", ".join(f"{k[10:]} {v[0]:.3f} / {v[1]:.3f} / {v[2]:.3f} on "
+                      f"{v[3]} / {v[4]:.3f} / {v[5]:.3f}"
+                      for k, v in redesign.items()
+                      if k.startswith("kernel 11 ")))
+    print("kernel 6 against kernel 5 in the same call: "
           + ", ".join(
-              f"{k} {v[0]:.3f} ms vs kernel 5 {v[1]:.3f} ms ({v[1] / v[0]:.2f}x)"
+              f"{k[9:]} kernel 6 {v[0]:.3f} ms, kernel 5 {v[1]:.3f} ms "
+              f"(kernel 5 / kernel 6 {v[1] / v[0]:.2f})"
               for k, v in redesign.items() if k.startswith("kernel 6 ")
               and k != "kernel 6 conflicts")
           + f"; kernel 6 bank-conflict replay "

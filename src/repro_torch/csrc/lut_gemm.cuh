@@ -1,18 +1,18 @@
-// Shared core of four LUT-gather GEMM kernels (lut_matmul, fused_lut_conv,
-// fused_lut_bwd, fused_lut_conv_bwd_w; fused_lut_grouped takes only its
-// quantizer and round_up16):
+// Shared core of two LUT-gather GEMM kernels, fused_lut_bwd (kernel 4) and
+// fused_lut_conv_bwd_w (kernel 7), its only GEMM users; fused_lut_grouped
+// takes its quantizer and round_up16, fused_lut_conv its quantizer:
 //
 //     acc[m, n] = sum_k LUT[a(m, k), b(k, n)]      (int32)
 //
 // where a(m, k) is a row index and b(k, n) a column index into the product
-// table, each produced by a per-kernel operand loader: int32 codes
-// (lut_matmul, and fused_lut_conv's B side), float values quantized on the
-// fly (both sides of fused_lut_bwd and fused_lut_conv_bwd_w's gradient),
-// or an implicit im2col view of an NCHW image quantized pixel by pixel
-// (fused_lut_conv's A side, read tap by tap; fused_lut_conv_bwd_w's A
-// side, the same view transposed). fused_lut_dense and
-// fused_lut_conv_tiled were redesigned on their own cores (one table row
-// per warp instruction; csrc/fused_lut_dense.cu, fused_lut_conv_tiled.cu).
+// table, each produced by a per-kernel operand loader: float values
+// quantized on the fly (both sides of fused_lut_bwd and
+// fused_lut_conv_bwd_w's gradient), or an implicit im2col view of an NCHW
+// image quantized pixel by pixel (fused_lut_conv_bwd_w's A side, read tap
+// by tap, transposed). fused_lut_dense and fused_lut_conv_tiled were
+// redesigned on their own cores, lut_matmul and fused_lut_conv on the
+// narrow-N core lut_narrow.cuh (one table row per warp instruction, or two
+// at different k; csrc/fused_lut_dense.cu, fused_lut_conv_tiled.cu).
 //
 // What bounds it on Hopper: every product is one data-dependent gather from
 // the (2^b)^2 table, so the ceiling is the shared-memory gather rate (one

@@ -4,14 +4,14 @@
 (kernel 7, ``csrc/fused_lut_conv_bwd_w.cu``); the conv geometry helpers;
 and the reference's route arithmetic.
 
-Kernel 5 reads the unpadded NCHW image and treats every tap that falls
-outside it as the zero-point code, which is what the reference's quantized
-0.0 padding gives, so spatial padding needs no correction and no padded
-copy of the image. Channels are not padded, so there is no channel-pad
-correction either. Kernel 5 tiles output pixels across the whole batch,
-so no image has to fit on chip; kernel 6 tiles them by image, band of
-output rows, strip of columns and Cout tile, and quantizes each input
-pixel of its halo'd band once.
+Kernels 5 and 6 both stage a halo'd band of the NCHW image, quantize each
+of its pixels once into one-byte codes (pixels outside the image are the
+reference's quantized 0.0 padding) and pad the channels to a multiple of 4
+with the offset code, subtracting ``taps * c_pad * LUT[off, off]``. Kernel
+5's items are whole images or bands of whole output rows of every channel
+where they fit (:func:`pick_conv_kernel_tiling`), its Cout tiles as narrow
+as 16 (two K slices a warp); kernel 6's items are tiles of at most 64
+output pixels in channel steps (:func:`pick_tiled_kernel_tiling`).
 
 **Routing only.** ``CONV_VMEM_BUDGET``, ``MAX_BAND_COPIES``,
 ``pick_conv_tiling``, ``conv_vmem_bytes``, ``band_copies``,
@@ -19,8 +19,8 @@ pixel of its halo'd band once.
 the reference's TPU VMEM model. The port uses them for one thing: to send
 each conv down the route the reference sends it (``core.acu.conv_plan``).
 The 12 MiB is the reference's threshold, not a property of the H100, and
-nothing here sizes a CUDA tile with it: kernel 6's own banding comes from
-this card's shared memory (:func:`pick_tiled_kernel_tiling`).
+nothing here sizes a CUDA tile with it: kernel 5's and kernel 6's tilings
+come from this card's shared memory.
 
 The weight-gradient wrapper drops the reference's ``bh``, ``bn``, ``mc``
 and ``rmask`` arguments: they size VMEM row bands and mask band-padding
@@ -34,6 +34,7 @@ version in ``ref.py``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -288,11 +289,177 @@ def pick_tiled_kernel_tiling(c: int, ho: int, wo: int, cout: int, kh: int,
     return best[1]
 
 
+# kernel 5's block: 8 warps of 8 output pixels (a 64-pixel tile), every
+# lane TN output channels, or at Cout <= 16 one of 16 channels in one of
+# two K slices (``lut_matmul.ref.lane_map``)
+CONV_COUT_TILES = (128, 64, 32)
+CONV_NARROW = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvKernelTiling:
+    """Kernel 5's tiles. A work item is ``bh`` output rows x ``bw``
+    output columns of one image x a ``bn``-wide Cout tile; it stages the
+    halo'd band (``rows_in`` x ``cols_in`` input pixels) of ``cc``
+    channels a step (a multiple of 4; the channels padded to ``c4``) as
+    one-byte codes and walks its pixels in ``tile_px`` tiles of 64. An item
+    of several pixel tiles holds every channel (``chunks`` 1); with one
+    Cout tile too the weight codes stay resident (``wbufs`` 1), else two
+    buffers stream them."""
+
+    bh: int
+    bw: int
+    cc: int
+    bn: int
+    rows_in: int
+    cols_in: int
+    c4: int
+    chunks: int
+    tiles_h: int
+    tiles_w: int
+    tiles_n: int
+    wbufs: int
+    smem_bytes: int
+
+    @property
+    def tile_px(self) -> int:
+        """64-pixel tiles of one item."""
+        return -(-self.bh * self.bw // TILED_PIXELS)
+
+    @property
+    def ks(self) -> int:
+        """K slices of a warp (2 at the 16-wide Cout tile)."""
+        return 2 if self.bn == CONV_NARROW else 1
+
+    @property
+    def tn(self) -> int:
+        """Output channels of one lane."""
+        return self.bn * self.ks // 32
+
+    def items(self, n: int) -> int:
+        return n * self.tiles_h * self.tiles_w * self.tiles_n
+
+    def describe(self, n: int) -> str:
+        return (f"items of {self.bh} output rows x {self.bw} columns x "
+                f"Cout tile {self.bn} ({self.tn} a lane, {self.ks} K "
+                f"slice(s) a warp), {self.tile_px} pixel tile(s) of 64 an "
+                f"item, {self.items(n)} items; channel chunk {self.cc} "
+                f"({self.chunks} steps; {self.c4} channels with the pad), "
+                f"band {self.rows_in} x {self.cols_in} input pixels, weight "
+                f"codes {'resident' if self.wbufs == 1 else 'streamed'}, "
+                f"{self.smem_bytes} B of shared memory")
+
+
+def _conv_smem(n_codes: int, plane: int, taps: int, cc: int, bn: int,
+               wbufs: int) -> int:
+    """Dynamic shared memory of one kernel-5 block, as the source's
+    ``Layout`` sizes it: the int16 table, one step's raw float band and its
+    codes, the step's (tap, group of 4 channels) pairs (two ints each), one
+    or two buffers of weight codes."""
+    return (_round16(n_codes * n_codes * 2) + _round16(plane * cc * 4)
+            + _round16(plane * cc) + _round16(taps * (cc // 4) * 8)
+            + wbufs * _round16(taps * cc * bn))
+
+
+def _conv_tiling(c4, ho, wo, cout, kh, kw, sh, sw, dh, dw, n_codes, bn, bh,
+                 bw, cc):
+    rows_in = (bh - 1) * sh + (kh - 1) * dh + 1
+    cols_in = (bw - 1) * sw + (kw - 1) * dw + 1
+    chunks = -(-c4 // cc)
+    tiles_n = -(-cout // bn)
+    wbufs = 1 if chunks == 1 and tiles_n == 1 else 2
+    return ConvKernelTiling(
+        bh, bw, cc, bn, rows_in, cols_in, c4, chunks, -(-ho // bh),
+        -(-wo // bw), tiles_n, wbufs,
+        _conv_smem(n_codes, rows_in * cols_in, kh * kw, cc, bn, wbufs))
+
+
+@functools.lru_cache(maxsize=512)
+def pick_conv_kernel_tiling(n: int, c: int, ho: int, wo: int, cout: int,
+                            kh: int, kw: int, sh: int, sw: int, dh: int,
+                            dw: int, n_codes: int, n_sm: int = 132
+                            ) -> ConvKernelTiling:
+    """Kernel 5's tiling on this card, from its shared memory and SMs.
+
+    The Cout tile is 16 at Cout <= 16 (16 channels x 2 K slices a warp),
+    else the one of 32, 64 and 128 that pads Cout least, the widest on a
+    tie. Items are bands of whole output rows holding every channel when
+    one fits: the band height with the fewest pixel tiles per SM (rounds
+    of ``n_sm`` items x 64-pixel tiles an item), the tallest on a tie; a
+    whole image at every ResNet-20 conv. When not even one row fits,
+    items are single tiles of at most 64 pixels walked in channel steps,
+    as kernel 6's (:func:`pick_tiled_kernel_tiling`'s choice of tile
+    shape and step, on kernel 5's shared memory). Every choice gives the
+    same bits."""
+    bn = CONV_NARROW if cout <= CONV_NARROW else min(
+        CONV_COUT_TILES, key=lambda t: (-(-cout // t) * t, -t))
+    c4 = -(-c // 4) * 4
+    best = None
+    for bh in range(1, ho + 1):
+        t = _conv_tiling(c4, ho, wo, cout, kh, kw, sh, sw, dh, dw, n_codes,
+                         bn, bh, wo, c4)
+        if t.smem_bytes > SMEM_PER_BLOCK:
+            break
+        key = (-(-t.items(n) // n_sm) * t.tile_px, -bh)
+        if best is None or key < best[0]:
+            best = (key, t)
+    if best is not None:
+        return best[1]
+    widths = sorted({min(b, wo) for b in (1, 2, 4, 8, 16, 32, 64)})
+    for rows, cols in [(min(TILED_PIXELS // b, ho), b) for b in widths]:
+        cc = min(c4, TILED_MAX_CHUNK)
+        while cc > 4 and _conv_tiling(c4, ho, wo, cout, kh, kw, sh, sw, dh,
+                                      dw, n_codes, bn, rows, cols,
+                                      cc).smem_bytes > SMEM_PER_BLOCK:
+            cc -= 4
+        chunks = -(-c4 // cc)
+        cc = -(-(c4 // 4) // chunks) * 4         # even the steps out
+        t = _conv_tiling(c4, ho, wo, cout, kh, kw, sh, sw, dh, dw, n_codes,
+                         bn, rows, cols, cc)
+        if t.smem_bytes > SMEM_PER_BLOCK:
+            continue
+        key = (t.tiles_h * t.tiles_w, t.tiles_h * t.tiles_w * t.rows_in
+               * t.cols_in, -cols)
+        if best is None or key < best[0]:
+            best = (key, t)
+    if best is None:
+        raise ValueError(
+            f"kernel 5 cannot stage four channels of a {kh}x{kw} tap window "
+            f"(dilation {dh}x{dw}) and its {bn}-wide weight codes beside the "
+            f"table in {SMEM_PER_BLOCK} B of shared memory")
+    return best[1]
+
+
+def check_conv_tiling(t: ConvKernelTiling, cout: int, kh: int, kw: int,
+                      sh: int, sw: int, dh: int, dw: int,
+                      n_codes: int) -> None:
+    """Refuses what the launch refuses: a Cout tile other than 16, 32, 64
+    and 128, a band that is not the tile's halo, shared memory not sized as
+    the source's ``Layout`` (or over the block's limit), an item of several
+    pixel tiles in channel steps, resident weight codes that would change
+    between steps."""
+    chunks, tiles_n = -(-t.c4 // t.cc), -(-cout // t.bn)
+    ok = (t.bn in (CONV_NARROW,) + CONV_COUT_TILES and t.cc >= 4
+          and t.cc % 4 == 0 and t.c4 >= 4 and t.c4 % 4 == 0
+          and t.rows_in == (t.bh - 1) * sh + (kh - 1) * dh + 1
+          and t.cols_in == (t.bw - 1) * sw + (kw - 1) * dw + 1
+          and t.smem_bytes == _conv_smem(n_codes, t.rows_in * t.cols_in,
+                                         kh * kw, t.cc, t.bn, t.wbufs)
+          and t.smem_bytes <= SMEM_PER_BLOCK
+          and not (t.tile_px > 1 and chunks > 1)
+          and (t.wbufs == 2 or (t.wbufs == 1 and chunks == 1
+                                and tiles_n == 1)))
+    if not ok:
+        raise ValueError(f"kernel 5 is not built for the tiling {t}")
+
+
 def fused_lut_conv(x: torch.Tensor, wq: torch.Tensor, lut: torch.Tensor,
                    offset: int, x_scale, x_zp, w_scale, *, stride=(1, 1),
                    padding=((0, 0), (0, 0)), dilation=(1, 1), bits: int = 8,
-                   emit_acc: bool = False) -> torch.Tensor:
-    """Fused approximate conv2d forward.
+                   emit_acc: bool = False,
+                   tiling: Optional[ConvKernelTiling] = None
+                   ) -> torch.Tensor:
+    """Fused approximate conv2d forward (kernel 5).
 
     ``x``: (N, C, H, W) float32; ``wq``: (Cout, C, kh, kw) int32 shifted
     weight codes; ``lut``: the product table (int32, or the int16 table from
@@ -300,6 +467,9 @@ def fused_lut_conv(x: torch.Tensor, wq: torch.Tensor, lut: torch.Tensor,
     activation qparams; ``w_scale``: scalar or (Cout,) scales; ``padding``:
     explicit ((ph_lo, ph_hi), (pw_lo, pw_hi)). Returns (N, Ho, Wo, Cout)
     float32, or the raw int32 accumulator with ``emit_acc=True``.
+    ``tiling`` launches the CUDA kernel with the one given, as given (a
+    check's planted fault); it is refused (:func:`check_conv_tiling`) if
+    the kernel is not built for it. Every tiling gives the same bits.
     """
     n_codes = int(round(lut.numel() ** 0.5))
     n, c, h, w_in = x.shape
@@ -311,6 +481,8 @@ def fused_lut_conv(x: torch.Tensor, wq: torch.Tensor, lut: torch.Tensor,
     (ph0, ph1), (pw0, pw1) = padding
     ho = conv_out_size(h, kh, sh, dh, (ph0, ph1))
     wo = conv_out_size(w_in, kw, sw, dw, (pw0, pw1))
+    if tiling is not None:
+        check_conv_tiling(tiling, cout, kh, kw, sh, sw, dh, dw, n_codes)
     if x.device.type == "cpu":
         return fused_lut_conv_ref(x, wq, lut.reshape(-1), offset, n_codes,
                                   x_scale, x_zp, w_scale, stride=stride,
@@ -318,27 +490,32 @@ def fused_lut_conv(x: torch.Tensor, wq: torch.Tensor, lut: torch.Tensor,
                                   bits=bits, emit_acc=emit_acc)
     lo = -(1 << (bits - 1))
     hi = (1 << (bits - 1)) - 1
-    table = runtime.lut_to_int16(lut)
-    x = x.contiguous()
-    # (K, Cout) with k = (c, u, v), the im2col reference's channel-major order
-    wmat = wq.reshape(cout, -1).t().contiguous()
-    xs, xz, ws = scale_operands(x_scale, x_zp, w_scale, cout, x.device)
-    for t, name, dt in ((x, "x", torch.float32), (wmat, "wq", torch.int32),
-                        (table, "lut", torch.int16)):
-        runtime.check_cuda_operand(t, name, dt, x.device)
     out = torch.empty((n, max(ho, 0), max(wo, 0), cout), device=x.device,
                       dtype=torch.int32 if emit_acc else torch.float32)
     if out.numel() == 0:
         return out
-    if n * ho * wo >= 2 ** 31:
-        raise ValueError("conv output has too many pixels for 32-bit indices")
-    lib = runtime.kernel_library("fused_lut_conv")
+    if out.numel() >= 2 ** 31:
+        raise ValueError("conv output has too many elements for 32-bit "
+                         "indices")
     blocks, stream = runtime.launch_config(x)
-    lib.check(lib.launch(x.data_ptr(), wmat.data_ptr(), table.data_ptr(),
+    if tiling is None:
+        tiling = pick_conv_kernel_tiling(n, c, ho, wo, cout, kh, kw, sh, sw,
+                                         dh, dw, n_codes, blocks)
+    table = runtime.lut_to_int16(lut)
+    x = x.contiguous()
+    wcodes = tiled_weight_codes(wq, offset, n_codes, tiling.c4, tiling.bn)
+    xs, xz, ws = scale_operands(x_scale, x_zp, w_scale, cout, x.device)
+    for t, name, dt in ((x, "x", torch.float32), (wcodes, "wq", torch.uint8),
+                        (table, "lut", torch.int16)):
+        runtime.check_cuda_operand(t, name, dt, x.device)
+    lib = runtime.kernel_library("fused_lut_conv")
+    lib.check(lib.launch(x.data_ptr(), wcodes.data_ptr(), table.data_ptr(),
                          xs.data_ptr(), xz.data_ptr(), ws.data_ptr(),
                          out.data_ptr(), int(emit_acc), n, c, h, w_in, cout,
                          kh, kw, sh, sw, ph0, pw0, dh, dw, ho, wo, n_codes,
-                         offset, lo, hi, blocks, stream))
+                         offset, lo, hi, tiling.bh, tiling.bw, tiling.cc,
+                         tiling.bn, tiling.c4, wcodes.shape[2], tiling.wbufs,
+                         tiling.smem_bytes, blocks, stream))
     fused_lut_conv.launches += 1
     return out
 

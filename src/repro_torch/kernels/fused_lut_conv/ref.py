@@ -2,7 +2,9 @@
 
 The whole-image forward materialises the im2col patch tensor, then runs the
 fused dense plain version: the reference's own oracle, on the same patch
-extraction as the eager ``im2col`` route. The banded forward walks
+extraction as the eager ``im2col`` route. The plan mirrors
+(``fused_lut_conv_plan_ref``, ``fused_lut_conv_tiled_plan_ref``) walk
+the loops of kernels 5 and 6 item by item. The banded forward walks
 output-row bands as the reference's ``_tiled_kernel`` does, so that its
 band and halo arithmetic is tested by something other than im2col. The
 weight gradient is the reference's oracle for its banded kernel:
@@ -90,19 +92,24 @@ def fused_lut_conv_tiled_ref(x: torch.Tensor, wq: torch.Tensor,
 
 def tiled_weight_codes(wq: torch.Tensor, offset: int, n_codes: int,
                        c4: int, bn: int) -> torch.Tensor:
-    """Kernel 6's weight operand: (kh*kw, c4, Cout padded to whole ``bn``
-    tiles) uint8 codes ``wq + offset``, tap-major (each tap's (C, Cout)
-    slab, the reference's layout), the channel and Cout pads the offset
-    code (the kernel corrects the channel pad as ``taps * (c4 - C) *
-    LUT[off, off]``)."""
+    """Kernels 5's and 6's weight operand: (kh*kw, c4, Cout padded to whole
+    ``bn`` tiles) uint8 codes ``wq + offset``, tap-major (each tap's (C,
+    Cout) slab, the reference's layout), the channel and Cout pads the
+    offset code (the kernels correct the channel pad as ``taps * (c4 - C)
+    * LUT[off, off]``). Three elementwise passes when nothing is padded,
+    the wrappers' cost on every call."""
     cout, c, kh, kw = wq.shape
-    codes = torch.full((kh * kw, c4, -(-cout // bn) * bn), offset,
-                       dtype=torch.uint8, device=wq.device)
+    codes = (wq.permute(2, 3, 1, 0).add(offset).clamp_(0, n_codes - 1)
+             .to(torch.uint8, memory_format=torch.contiguous_format)
+             .reshape(kh * kw, c, cout))
+    cout_pad = -(-cout // bn) * bn
+    if (c4, cout_pad) == (c, cout):
+        return codes
+    out = torch.full((kh * kw, c4, cout_pad), offset, dtype=torch.uint8,
+                     device=wq.device)
     cc = min(c, c4)
-    codes[:, :cc, :cout] = (wq.permute(2, 3, 1, 0).reshape(kh * kw, c, cout)
-                            [:, :cc].to(torch.int64) + offset).clamp(
-        0, n_codes - 1).to(torch.uint8)
-    return codes
+    out[:, :cc, :cout] = codes[:, :cc]
+    return out
 
 
 def fused_lut_conv_tiled_plan_ref(x: torch.Tensor, wq: torch.Tensor,
@@ -170,6 +177,92 @@ def fused_lut_conv_tiled_plan_ref(x: torch.Tensor, wq: torch.Tensor,
             sums = (sums - corr).reshape(n, bh, bw, -1)
             nb, nw = min(bh, ho - oh0), min(bw, wo - ow0)
             acc[:, oh0:oh0 + nb, ow0:ow0 + nw] = sums[:, :nb, :nw, :cout]
+    if emit_acc:
+        return acc
+    ws = torch.as_tensor(w_scale, dtype=torch.float32, device=dev)
+    return acc.to(torch.float32) * (xs * ws.reshape(-1))
+
+
+def fused_lut_conv_plan_ref(x: torch.Tensor, wq: torch.Tensor,
+                            lut_flat: torch.Tensor, offset: int,
+                            n_codes: int, x_scale, x_zp, w_scale, *, tiling,
+                            stride=(1, 1), padding=((0, 0), (0, 0)),
+                            dilation=(1, 1), bits: int = 8,
+                            emit_acc: bool = False, drop_slice=None
+                            ) -> torch.Tensor:
+    """Kernel 5's loop in plain PyTorch, item by item as ``tiling``
+    (``ops.pick_conv_kernel_tiling``) cuts the work
+    (``csrc/fused_lut_conv.cu``): for each item of ``bh`` x ``bw`` output
+    pixels (all images and Cout tiles at once) the halo'd band, 0.0
+    outside the image, quantized once and padded with offset codes to
+    ``c4`` channels; steps of ``cc`` channels; in each, the item's pixels
+    by 64-pixel tiles (pixel ``p`` at row ``p // bw``, column ``p % bw``,
+    the slots past ``bh * bw`` dead), each K slice of a warp summing its
+    (tap, group of 4 channels) pairs (``lut_matmul.ref.slice_pairs``)
+    against the uint8 weight codes (:func:`tiled_weight_codes`), the
+    slices then added; ``taps * (c4 - C) * LUT[off, off]`` subtracted and
+    the pixels inside Ho x Wo stored. ``drop_slice`` leaves one K slice
+    out (a planted fault). Returns (N, Ho, Wo, Cout) float32 (int32 with
+    ``emit_acc``), the reference's bits."""
+    from repro_torch.kernels.lut_matmul.ref import slice_pairs
+    n, c, h, w_in = x.shape
+    cout, _, kh, kw = wq.shape
+    sh, sw = stride
+    dh, dw = dilation
+    (ph0, ph1), (pw0, pw1) = padding
+    ho = (h + ph0 + ph1 - (kh - 1) * dh - 1) // sh + 1
+    wo = (w_in + pw0 + pw1 - (kw - 1) * dw - 1) // sw + 1
+    lo = -(1 << (bits - 1))
+    hi = (1 << (bits - 1)) - 1
+    dev = x.device
+    xs = torch.as_tensor(x_scale, dtype=torch.float32, device=dev)
+    xz = torch.as_tensor(x_zp, dtype=torch.float32, device=dev)
+    t = tiling
+    bh, bw, cc, c4, ks = t.bh, t.bw, t.cc, t.c4, t.ks
+    taps = kh * kw
+    wcodes = tiled_weight_codes(wq, offset, n_codes, c4, t.bn).to(
+        torch.int64)                                    # (taps, c4, Np)
+    lut_flat = lut_flat.reshape(-1).to(torch.int32)
+    corr = taps * (c4 - c) * int(lut_flat[offset * n_codes + offset])
+    acc = torch.zeros((n, max(ho, 0), max(wo, 0), cout), dtype=torch.int32,
+                      device=dev)
+    for oh0 in range(0, ho, bh):
+        for ow0 in range(0, wo, bw):
+            ih0, iw0 = oh0 * sh - ph0, ow0 * sw - pw0
+            band = x.new_zeros((n, c, t.rows_in, t.cols_in))
+            r0, r1 = max(ih0, 0), min(ih0 + t.rows_in, h)
+            q0, q1 = max(iw0, 0), min(iw0 + t.cols_in, w_in)
+            if r0 < r1 and q0 < q1:
+                band[:, :, r0 - ih0:r1 - ih0, q0 - iw0:q1 - iw0] = \
+                    x[:, :, r0:r1, q0:q1]
+            codes = quantize_shifted(band, xs, xz, lo, hi, offset)
+            codes = F.pad(codes, (0, 0, 0, 0, 0, c4 - c), value=offset)
+            for tile in range(t.tile_px):
+                p = torch.arange(tile * 64, tile * 64 + 64, device=dev)
+                pr, pc = p // bw, p % bw
+                live = pr < bh
+                pr, pc = pr[live], pc[live]
+                if len(pr) == 0:
+                    continue
+                sums = torch.zeros((n * len(pr), wcodes.shape[2]),
+                                   dtype=torch.int32, device=dev)
+                for c0 in range(0, c4, cc):             # the steps
+                    ng = min(cc, c4 - c0) // 4
+                    for s in range(ks):
+                        if s == drop_slice:
+                            continue
+                        for tap, g in slice_pairs(taps, ng, ks, s):
+                            u, v = divmod(tap, kw)
+                            ch = c0 + 4 * g
+                            win = codes[:, ch:ch + 4, u * dh + pr * sh,
+                                        v * dw + pc * sw]   # (n, 4, P)
+                            sums += lut_gather_sum(
+                                win.permute(0, 2, 1).reshape(-1, 4),
+                                wcodes[tap, ch:ch + 4], lut_flat, n_codes)
+                sums = (sums - corr).reshape(n, len(pr), -1)
+                oh, ow = oh0 + pr, ow0 + pc
+                keep = (oh < ho) & (ow < wo)
+                acc[:, oh[keep], ow[keep]] = sums[:, keep, :cout]
     if emit_acc:
         return acc
     ws = torch.as_tensor(w_scale, dtype=torch.float32, device=dev)

@@ -107,19 +107,16 @@ def dense_tile(M: int, K: int, N: int, n_sm: int) -> tuple[int, int, int]:
     return tm, wm, tn
 
 
-@functools.lru_cache(maxsize=512)
-def dense_plan(M: int, K: int, N: int, n_sm: int) -> DensePlan:
-    """The segments each of ``n_sm`` persistent blocks runs. Whole tiles
-    go round-robin while at least two rounds of them remain; the rest (all
-    of them when there are fewer tiles than SMs) is cut along K into
-    ``n_sm`` equal runs of groups over the tiles in order (stream-K), so
-    that every SM gets the same share. A run may end or start inside a
-    tile: those tiles get a workspace slot."""
-    tm, wm, tn = dense_tile(M, K, N, n_sm)
-    bm, bn = tm * wm, 32 * tn
-    tiles_m, tiles_n = -(-M // bm), -(-N // bn)
-    n_tiles = tiles_m * tiles_n
-    groups = -(-K // DENSE_KG)
+def stream_k(n_tiles: int, groups: int, n_sm: int
+             ) -> tuple[tuple, np.ndarray, int]:
+    """The segments each persistent block runs over ``n_tiles`` output
+    tiles of ``groups`` K groups on ``n_sm`` SMs: (offsets, segments,
+    n_slots), as :class:`DensePlan` holds them. Whole tiles go round-robin
+    while at least two rounds of them remain; the rest (all of them when
+    there are fewer tiles than SMs) is cut along K into ``n_sm`` equal runs
+    of groups over the tiles in order (stream-K), so that every SM gets the
+    same share. A run may end or start inside a tile: those tiles get a
+    workspace slot. Kernels 1 and 3 run it."""
     whole = n_tiles if n_tiles % n_sm == 0 else \
         max(0, n_tiles // n_sm - 1) * n_sm
     rest = n_tiles - whole
@@ -143,8 +140,20 @@ def dense_plan(M: int, K: int, N: int, n_sm: int) -> DensePlan:
         offsets.append(len(rows))
     segments = np.asarray(rows, dtype=np.int32).reshape(-1, 4)
     segments.setflags(write=False)
+    return tuple(offsets), segments, len(split)
+
+
+@functools.lru_cache(maxsize=512)
+def dense_plan(M: int, K: int, N: int, n_sm: int) -> DensePlan:
+    """Kernel 3's tile (:func:`dense_tile`) and the segments each of
+    ``n_sm`` persistent blocks runs (:func:`stream_k`)."""
+    tm, wm, tn = dense_tile(M, K, N, n_sm)
+    bm, bn = tm * wm, 32 * tn
+    tiles_m, tiles_n = -(-M // bm), -(-N // bn)
+    groups = -(-K // DENSE_KG)
+    offsets, segments, n_slots = stream_k(tiles_m * tiles_n, groups, n_sm)
     return DensePlan(M, K, N, tm, tn, wm, tiles_m, tiles_n, groups,
-                     tuple(offsets), segments, len(split))
+                     offsets, segments, n_slots)
 
 
 @functools.lru_cache(maxsize=512)

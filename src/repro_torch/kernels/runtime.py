@@ -42,13 +42,13 @@ _L = ctypes.c_longlong
 # c_void_p: ctypes would otherwise pass them as 32-bit ints)
 SIGNATURES = {
     "lut_matmul": ("lut_matmul_launch",
-                   [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+                   [_P] * 4 + [_I] * 5 + [_P] + [_I] * 6 + [_P, _I, _P]),
     "fused_lut_dense": ("fused_lut_dense_launch",
                         [_P] * 7 + [_I] * 8 + [_P] + [_I] * 6 + [_P, _I,
                                                               _P]),
     "fused_lut_conv": ("fused_lut_conv_launch",
-                       [_P, _P, _P, _P, _P, _P, _P, _I] + [_I] * 15
-                       + [_I, _I, _I, _I, _I, _P]),
+                       [_P] * 7 + [_I] + [_I] * 15 + [_I] * 4 + [_I] * 9
+                       + [_P]),
     "fused_lut_conv_tiled": ("fused_lut_conv_tiled_launch",
                              [_P] * 7 + [_I] + [_I] * 15 + [_I] * 4
                              + [_I] * 7 + [_I, _P]),
