@@ -14,10 +14,11 @@
    fused_lut_conv; ``torch.matmul`` for the others); err_matmul (the
    LOWRANK GEMM, rank 8) at the same shapes within its summation bound,
    rounding to lut_matmul's integers where the bound allows;
-3. does the same for the backward kernels (fused_lut_bwd,
-   fused_lut_conv_bwd_w, and lut_matmul with its stream-K plan at the
-   unfused route's weight-gradient shapes) at every gradient GEMM shape of one
-   ResNet-20 training step at batch 128;
+3. does the same for the backward kernels (fused_lut_bwd, float32 and
+   emit_acc, with its plan; fused_lut_conv_bwd_w with its tiling; and
+   lut_matmul with its stream-K plan at the unfused route's weight-gradient
+   shapes) at every gradient GEMM shape of one ResNet-20 training step at
+   batch 128;
 4. serves 1024 images from ``image_task(size=32)`` through
    ``VisionServeEngine(slots=256)`` with ResNet-20 at full width (random
    weights from a seed), once with the fused ACU (fused conv + fused dense
@@ -68,13 +69,20 @@
    planted fault (a plan with one K split dropped) caught; times the
    rwkv6-3b GEMM and f1 and f2; and measures bank conflicts: the kernel
    on real codes against codes that put a warp's 32 gathers in 32 banks,
-   beside the same measurement on the old shared core (lut_gemm.cuh,
-   still kernel 4's: fused_lut_bwd);
+   beside the same measurement on kernel 4 (fused_lut_bwd);
 6c. kernels 1 and 5 on the narrow-N core (csrc/lut_narrow.cuh) at
    ResNet-20's widths N = 16, 32 and 64: the bank-conflict replay of each
-   and of the old core (kernel 4 at the same GEMM shapes), and a planted
-   fault of each (kernel 5: a tiling with its last channel group dropped;
-   kernel 1: a plan with a stream-K segment dropped), each caught;
+   and of kernel 4 at the same GEMM shapes, and a planted fault of each
+   (kernel 5: a tiling with its last channel group dropped; kernel 1: a
+   plan with a stream-K segment dropped), each caught;
+6d. kernels 4 and 7 on the narrow-N core: each one's plan or tiling at
+   CNN-224's ``approx_bwd`` conv (``CONV_BWD``), both bitwise equal to
+   their plain versions there (kernel 4 float32 and emit_acc) and timed
+   against the lookup bound and ``torch.matmul``; both on a biased table
+   at a ragged shape; a planted fault each (kernel 4: a plan whose first
+   item stops one K group short; kernel 7: a tiling that leaves its last
+   band of output rows out), each caught; the bank-conflict replay of each
+   at ResNet-20's gradient shapes of stages 0, 1 and 2;
 7. runs Table 4's emulation-mode ladder on ResNet-20 at full width, one
    wave of 256 images per row through ``VisionServeEngine``: native (no
    ACU), baseline LUT (the plain one-gather LUT GEMM), the LUT engine fused
@@ -576,12 +584,11 @@ def dense_phase(torch, np, dev, check, acu, ops, lookups_per_s,
     planted fault (a plan with one K split dropped), times by regime, and
     the bank-conflict measurement: the same kernel on real codes and on
     codes that put a warp's 32 gathers in 32 banks, beside the same
-    measurement on the shared core the old kernel 3 ran (lut_gemm.cuh,
-    still kernel 4's: fused_lut_bwd). Returns the regime times."""
+    measurement on kernel 4 (fused_lut_bwd). Returns the regime times."""
     from repro_torch.configs import get_config
     from repro_torch.core import acu_operand, quantize, symmetric_qparams
     from repro_torch.kernels.fused_lut_dense.ops import (
-        DensePlan, dense_plan, fused_lut_dense_planned)
+        DensePlan, bwd_plan, dense_plan, fused_lut_dense_planned)
     from repro_torch.kernels.fused_lut_dense.ref import fused_lut_dense_ref
 
     lut16 = acu.device_lut(dev)
@@ -711,16 +718,18 @@ def dense_phase(torch, np, dev, check, acu, ops, lookups_per_s,
         new = [cuda_ms(torch, lambda: ops["fused_lut_dense"](
             xx, ww, lut16, off, *a3), 10) for xx, ww in
             ((x, wq), (free_x, free_w), (x, wq))]
-        # the old core (lut_gemm.cuh, still kernel 4's: fused_lut_bwd):
-        # half-warps of 16 columns on two rows; conflict-free when every
-        # row holds one code and a half-warp's 16 columns read codes 2c
-        # (banks c)
+        # kernel 4 (fused_lut_bwd, on the narrow-N core): conflict-free
+        # when every row holds one code and its lanes' columns read codes
+        # in distinct banks, as kernel 3's above at kernel 4's own tile
         af = x.float()
         bf = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
         sa, sb = inline_scale(torch, af), inline_scale(torch, bf)
         free_a = torch.zeros_like(af)
-        free_b = (2 * (col % 16) - 128).float()[None, :].expand(
-            k, n).contiguous()
+        p4 = bwd_plan(m, k, n, n_sm)
+        free_b = conflict_free_codes(
+            torch, dev, n, p4.bn, p4.tn,
+            (torch.arange(k, device=dev)[:, None] // 4) % 2).expand(
+                k, n).float().contiguous()
         one = torch.ones((), device=dev)
         old = [cuda_ms(torch, lambda: ops["fused_lut_bwd"](
             aa, bb, lut16, off, s1, s2, emit_acc=True), 5)
@@ -730,7 +739,7 @@ def dense_phase(torch, np, dev, check, acu, ops, lookups_per_s,
         rn, ro = min(new[0], new[2]) / new[1], min(old[0], old[2]) / old[1]
         times[f"conflicts {m}"] = (rn, ro)
         print(f"    {m}x{k}x{n}: fused_lut_dense {new[0]:.4f} / {new[1]:.4f}"
-              f" ms (again {new[2]:.4f}): x{rn:.2f}; the old core "
+              f" ms (again {new[2]:.4f}): x{rn:.2f}; kernel 4 "
               f"(fused_lut_bwd) {old[0]:.4f} / {old[1]:.4f} ms (again "
               f"{old[2]:.4f}): x{ro:.2f}", flush=True)
         del x, wq, af, bf, free_a, free_b, free_w, free_x
@@ -760,9 +769,9 @@ def narrow_phase(torch, np, dev, check, acu, n_sm) -> dict:
     """Kernels 1 and 5 on the narrow-N core at ResNet-20's three widths
     (N = 16, 32, 64; stage 0, 1 and 2 of a wave of 256): the bank-conflict
     replay (ms on real codes over ms on codes that put a warp's gathers in
-    distinct banks, same kernel, same shape) of kernel 5, kernel 1 and the
-    old core (lut_gemm.cuh, still kernel 4's: fused_lut_bwd at the same
-    GEMM shapes), and a planted fault of each: kernel 5 with a tiling
+    distinct banks, same kernel, same shape) of kernel 5, kernel 1 and
+    kernel 4 (fused_lut_bwd at the same GEMM shapes), and a planted fault
+    of each: kernel 5 with a tiling
     whose last channel group is dropped, kernel 1 with a plan whose split
     segment is dropped (at the stem's weight gradient, K = 131,072).
     Returns the replays."""
@@ -771,7 +780,8 @@ def narrow_phase(torch, np, dev, check, acu, n_sm) -> dict:
     from repro_torch.kernels.fused_lut_conv.ops import (
         fused_lut_conv, pick_conv_kernel_tiling)
     from repro_torch.kernels.fused_lut_conv.ref import fused_lut_conv_ref
-    from repro_torch.kernels.fused_lut_dense.ops import fused_lut_bwd
+    from repro_torch.kernels.fused_lut_dense.ops import (bwd_plan,
+                                                         fused_lut_bwd)
     from repro_torch.kernels.lut_matmul.ops import (
         lut_matmul, lut_matmul_planned, lut_plan)
     from repro_torch.kernels.lut_matmul.ref import lut_matmul_ref
@@ -824,15 +834,18 @@ def narrow_phase(torch, np, dev, check, acu, n_sm) -> dict:
         a_free = torch.zeros_like(a)
         k1 = [cuda_ms(torch, lambda: lut_matmul(aa, ww, lut16, off), 10)
               for aa, ww in ((a, wmat), (a_free, wm_free), (a, wmat))]
-        # the old core (kernel 4, fused_lut_bwd) at the same GEMM: warps of
-        # BN / 4 columns on 32 / (BN / 4) rows; conflict-free when every
-        # row holds one code and column n reads code 2 (n % 16)
+        # kernel 4 (fused_lut_bwd, on the narrow-N core) at the same
+        # GEMM: conflict-free when every row holds one code and its
+        # lanes read B codes by its own plan's lane map (at 16 columns the
+        # half-warps' alternate groups of 4 k)
         af = cols.float().contiguous()
         bf = wmat.float() * wqp.scale.reshape(1, -1)
         sa = inline_scale(torch, af)
         sb = inline_scale(torch, bf)
-        bf_free = (2 * (torch.arange(cout, device=dev) % 16) - 128).float()[
-            None, :].expand(K, cout).contiguous()
+        p4 = bwd_plan(M, K, cout, n_sm)
+        bf_free = conflict_free_codes(torch, dev, cout, p4.bn, p4.tn,
+                                      kpar).expand(K, cout).float() \
+            .contiguous()
         one = torch.ones((), device=dev)
         old = [cuda_ms(torch, lambda: fused_lut_bwd(aa, bb, lut16, off, s1,
                                                     s2, emit_acc=True), 10)
@@ -846,7 +859,7 @@ def narrow_phase(torch, np, dev, check, acu, n_sm) -> dict:
         print(f"  N = {cout} ({name}, conv {tuple(x.shape)} -> {cout}, GEMM "
               f"{M}x{K}x{cout}): fused_lut_conv {k5[0]:.4f} / {k5[1]:.4f} ms"
               f" (again {k5[2]:.4f}): x{r5:.2f}; lut_matmul {k1[0]:.4f} / "
-              f"{k1[1]:.4f} (again {k1[2]:.4f}): x{r1:.2f}; the old core "
+              f"{k1[1]:.4f} (again {k1[2]:.4f}): x{r1:.2f}; kernel 4 "
               f"(fused_lut_bwd) {old[0]:.4f} / {old[1]:.4f} (again "
               f"{old[2]:.4f}): x{ro:.2f}", flush=True)
         if name == "stage0":    # planted fault: the last channel group
@@ -893,6 +906,224 @@ def narrow_phase(torch, np, dev, check, acu, n_sm) -> dict:
     torch.cuda.empty_cache()
     print(f"narrow-N phase: {time.perf_counter() - t_phase:.1f} s")
     return replay
+
+
+# kernels 4 and 7 on the old shared core (lut_gemm.cuh, since retired), ms
+# per ResNet-20 training step at batch 128, as this script measured them on
+# an NVIDIA H100 80GB HBM3 at 700 W: what the redesigned kernels are timed
+# against
+BWD_OLD_CORE_MS = {"fused_lut_bwd": 5.514, "fused_lut_conv_bwd_w": 7.061}
+
+
+def bwd_phase(torch, np, dev, check, acu, n_sm, lookups_per_s,
+              lut_bytes) -> dict:
+    """Kernels 4 (fused_lut_bwd) and 7 (fused_lut_conv_bwd_w) as
+    redesigned on the narrow-N core: kernel 4's plan and kernel 7's tiling
+    at CONV_BWD (their ResNet-20 ones are printed in step 3), both bitwise
+    equal to their plain versions there (kernel 4 float32 and emit_acc)
+    and timed against the lookup bound and torch.matmul; both on the
+    biased table at a ragged shape; a planted fault each (kernel 4: a plan
+    whose first item stops one K group short; kernel 7: a tiling that
+    leaves its last band of output rows out), each caught; and the
+    bank-conflict replay of each (ms on real codes / ms on codes that put
+    a warp's gathers in distinct banks, same kernel, same shape) at
+    ResNet-20's gradient shapes. Returns the times and replays."""
+    from repro_torch.kernels.fused_lut_conv.ops import (
+        bwd_w_tiling_for, conv_out_size, fused_lut_conv_bwd_w,
+        pick_bwd_w_tiling)
+    from repro_torch.kernels.fused_lut_conv.ref import (
+        fused_lut_conv_bwd_w_ref)
+    from repro_torch.kernels.fused_lut_dense.ops import (bwd_plan,
+                                                         fused_lut_bwd)
+    from repro_torch.kernels.fused_lut_dense.ref import fused_lut_bwd_ref
+
+    t_phase = time.perf_counter()
+    lut16 = acu.device_lut(dev)
+    lut32 = torch.from_numpy(acu.lut.reshape(-1)).to(dev)
+    b32 = torch.from_numpy(biased_lut(np)).to(dev)
+    b16 = b32.to(torch.int16)
+    off, n_codes = acu.offset, acu.multiplier.n_codes
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    out = {}
+
+    def conv_operands(xshape, cout, k, s, pad):
+        n, c, h, w = xshape
+        ho = conv_out_size(h, k, s, 1, pad[0])
+        wo = conv_out_size(w, k, s, 1, pad[1])
+        x = torch.relu(torch.randn(xshape, generator=gen, device=dev))
+        g = torch.randn((n, ho, wo, cout), generator=gen, device=dev) * 1e-3
+        return x, g, ho, wo, inline_scale(torch, x), inline_scale(torch, g)
+
+    # -- CONV_BWD: both kernels at CNN-224's approx_bwd step ----------------
+    (n, c, h, w), (cout, _, k, _) = CONV_BWD
+    pad = ((1, 1), (1, 1))
+    x, g, ho, wo, sx, sg = conv_operands((n, c, h, w), cout, k, 1, pad)
+    geo = dict(ksize=(k, k), padding=pad)
+    t7 = pick_bwd_w_tiling(n, c, ho, wo, cout, k, k, 1, 1, 1, 1, n_codes,
+                           n_sm)
+    print(f"kernel 7 (fused_lut_conv_bwd_w) at CONV_BWD {CONV_BWD}: "
+          f"{t7.describe(n, n_sm)}")
+    bw_k = lambda: fused_lut_conv_bwd_w(x, g, lut16, off, sx, sg, **geo)
+    ak = bw_k()
+    check(torch.equal(ak, fused_lut_conv_bwd_w_ref(x, g, lut32, off, n_codes,
+                                                   sx, sg, **geo)),
+          f"fused_lut_conv_bwd_w CONV_BWD {tuple(ak.shape)}: int32 bitwise "
+          f"equal to the plain version")
+    P, ckk = n * ho * wo, c * k * k
+    cols = torch.randn((ckk, P), generator=gen, device=dev)
+    g2 = g.reshape(P, cout)
+    lib7 = cuda_ms(torch, lambda: torch.matmul(cols, g2), 5)
+    ms7 = cuda_ms(torch, bw_k, 5)
+    bound7 = P * ckk * cout / lookups_per_s * 1e3
+    out["kernel 7 CONV_BWD"] = (ms7, bound7, lib7)
+    del cols, ak
+    wf = torch.randn((cout, c, k, k), generator=gen, device=dev) * 0.1
+    wfmat = wf.reshape(cout, -1)
+    sw = inline_scale(torch, wf)
+    p4 = bwd_plan(P, cout, ckk, n_sm, n_codes)
+    print(f"kernel 4 (fused_lut_bwd) at CONV_BWD's gx {P}x{cout}x{ckk}: "
+          f"{p4.describe()}")
+    same = [torch.equal(fused_lut_bwd(g2, wfmat, lut16, off, sg, sw,
+                                      emit_acc=e),
+                        fused_lut_bwd_ref(g2, wfmat, lut32, off, n_codes, sg,
+                                          sw, emit_acc=e))
+            for e in (False, True)]
+    check(all(same), f"fused_lut_bwd CONV_BWD gx {P}x{cout}x{ckk}: float32 "
+                     f"and emit_acc bitwise equal to the plain version")
+    lib4 = cuda_ms(torch, lambda: torch.matmul(g2, wfmat), 5)
+    ms4 = cuda_ms(torch, lambda: fused_lut_bwd(g2, wfmat, lut16, off, sg, sw,
+                                               emit_acc=True), 5)
+    bound4 = P * cout * ckk / lookups_per_s * 1e3
+    out["kernel 4 CONV_BWD"] = (ms4, bound4, lib4)
+    print(f"  CONV_BWD: kernel 7 {ms7:.4f} ms (torch.matmul f32 on the "
+          f"im2col matrix {lib7:.4f}, lookup bound {bound7:.4f}); kernel 4 "
+          f"gx {ms4:.4f} ms (torch.matmul f32 {lib4:.4f}, lookup bound "
+          f"{bound4:.4f})", flush=True)
+    del x, g, g2, wf, wfmat
+
+    # -- the biased table at a ragged shape each ----------------------------
+    a = torch.randn((1000, 33), generator=gen, device=dev)
+    b = torch.randn((33, 150), generator=gen, device=dev) * 0.1
+    sa, sb = inline_scale(torch, a), inline_scale(torch, b)
+    same = [torch.equal(fused_lut_bwd(a, b, b16, off, sa, sb, emit_acc=e),
+                        fused_lut_bwd_ref(a, b, b32, off, n_codes, sa, sb,
+                                          emit_acc=e)) for e in (False, True)]
+    check(all(same), f"fused_lut_bwd 1000x33x150 on the biased table "
+                     f"(LUT[off, off] = 7: the K pad shows): float32 and "
+                     f"emit_acc bitwise equal to the plain version; plan "
+                     f"{bwd_plan(1000, 33, 150, n_sm, n_codes).summary()}")
+    pad_r = ((1, 0), (0, 1))
+    x, g, ho, wo, sx, sg = conv_operands((3, 37, 13, 15), 48, 3, 2, pad_r)
+    geo = dict(ksize=(3, 3), stride=(2, 2), padding=pad_r)
+    check(torch.equal(fused_lut_conv_bwd_w(x, g, b16, off, sx, sg, **geo),
+                      fused_lut_conv_bwd_w_ref(x, g, b32, off, n_codes, sx,
+                                               sg, **geo)),
+          f"fused_lut_conv_bwd_w (3, 37, 13, 15) -> 48, stride 2, padding "
+          f"{pad_r}, on the biased table (every out-of-image tap adds 7): "
+          f"int32 bitwise equal to the plain version")
+
+    # -- planted faults ------------------------------------------------------
+    P = TRAIN_BATCH * 32 * 32
+    g2 = torch.randn((P, 16), generator=gen, device=dev) * 1e-3
+    wfmat = torch.randn((16, 144), generator=gen, device=dev) * 0.1
+    sg, sw = inline_scale(torch, g2), inline_scale(torch, wfmat)
+    plan = bwd_plan(P, 16, 144, n_sm, n_codes)
+    segs = plan.segments.copy()
+    segs[0, 2] -= 1
+    bad = dataclasses.replace(plan, segments=segs)
+    caught = [not torch.equal(
+        fused_lut_bwd(g2, wfmat, lut16, off, sg, sw, emit_acc=e, plan=bad),
+        fused_lut_bwd_ref(g2, wfmat, lut32, off, n_codes, sg, sw,
+                          emit_acc=e)) for e in (False, True)]
+    check(all(caught), f"fused_lut_bwd {P}x16x144 (stage 0's gx), planted "
+                       f"fault: its plan with item {segs[0, 0]} stopping "
+                       f"at K group {segs[0, 2]} of {plan.groups} differs "
+                       f"from the plain version, float32 and emit_acc: "
+                       f"caught")
+    x, g, ho, wo, sx, sg = conv_operands((TRAIN_BATCH, 16, 32, 32), 16, 3, 1,
+                                         ((1, 1), (1, 1)))
+    geo = dict(ksize=(3, 3), padding=((1, 1), (1, 1)))
+    t7 = pick_bwd_w_tiling(TRAIN_BATCH, 16, ho, wo, 16, 3, 3, 1, 1, 1, 1,
+                           n_codes, n_sm)
+    bad7 = dataclasses.replace(t7, tiles_h=t7.tiles_h - 1)
+    check(not torch.equal(
+        fused_lut_conv_bwd_w(x, g, lut16, off, sx, sg, tiling=bad7, **geo),
+        fused_lut_conv_bwd_w_ref(x, g, lut32, off, n_codes, sx, sg, **geo)),
+          f"fused_lut_conv_bwd_w stage 0, planted fault: its tiling with the "
+          f"last band of {t7.bh} output rows left out ({bad7.tiles_h} of "
+          f"{t7.tiles_h} bands) differs from the plain version: caught")
+    del x, g, g2
+
+    # -- bank conflicts: real codes against conflict-free ones --------------
+    print("kernels 4 and 7: bank conflicts at ResNet-20's gradient shapes "
+          "(ms on real codes / ms on codes that put a warp's gathers in "
+          "distinct banks; real timed twice, the faster kept):")
+    one = torch.ones((), device=dev)
+    for name, cin, hw, cout in (("stage0", 16, 32, 16),
+                                ("stage1", 32, 16, 32),
+                                ("stage2", 64, 8, 64)):
+        pad = ((1, 1), (1, 1))
+        x, g, ho, wo, sx, sg = conv_operands((TRAIN_BATCH, cin, hw, hw),
+                                             cout, 3, 1, pad)
+        geo = dict(ksize=(3, 3), padding=pad)
+        t7 = pick_bwd_w_tiling(TRAIN_BATCH, cin, ho, wo, cout, 3, 3, 1, 1,
+                               1, 1, n_codes, n_sm)
+        # kernel 7: every x code one (x = 0), the gradient's codes by the
+        # lane map: column o of pixel p reads 2 (o % bn) / tn ... (banks of
+        # a warp's lanes distinct), at 16 columns the half-warps' alternate
+        # groups of 4 pixels 32 apart; an item's pixel groups start at its
+        # first pixel, a multiple of 4 and 8 here
+        p = torch.arange(ho * wo, device=dev).reshape(ho, wo)
+        item_p = (p // wo % t7.bh) * min(t7.bw, wo) + p % wo % t7.bw
+        par = ((item_p // 4) % 2).reshape(-1, 1)
+        gfree = conflict_free_codes(torch, dev, cout, t7.bn, t7.tn, par)
+        gfree = gfree.float().reshape(1, ho, wo, cout).expand(
+            TRAIN_BATCH, ho, wo, cout).contiguous()
+        x0 = torch.zeros_like(x)
+        k7 = [cuda_ms(torch, lambda: fused_lut_conv_bwd_w(
+            xx, gg, lut16, off, s1, s2, **geo), 10)
+            for xx, gg, s1, s2 in ((x, g, sx, sg), (x0, gfree, one, one),
+                                   (x, g, sx, sg))]
+        # kernel 4 at the same conv's gx: every A code one (g = 0), B's
+        # codes by the lane map (at 16 columns the half-warps' alternate
+        # groups of 4 k)
+        P, ckk = TRAIN_BATCH * ho * wo, cin * 9
+        g2 = g.reshape(P, cout)
+        wfmat = torch.randn((cout, ckk), generator=gen, device=dev) * 0.1
+        sw = inline_scale(torch, wfmat)
+        p4 = bwd_plan(P, cout, ckk, n_sm, n_codes)
+        kpar = (torch.arange(cout, device=dev)[:, None] // 4) % 2
+        wfree = conflict_free_codes(torch, dev, ckk, p4.bn, p4.tn, kpar)
+        wfree = wfree.expand(cout, ckk).float().contiguous()
+        g0 = torch.zeros_like(g2)
+        k4 = [cuda_ms(torch, lambda: fused_lut_bwd(
+            aa, bb, lut16, off, s1, s2, emit_acc=True), 10)
+            for aa, bb, s1, s2 in ((g2, wfmat, sg, sw), (g0, wfree, one, one),
+                                   (g2, wfmat, sg, sw))]
+        if name == "stage2":
+            # the cost of two items an SM: the picked tiling against whole
+            # images of 32 channels (256 items, one SM in 17 gets one)
+            whole = bwd_w_tiling_for(64, ho, wo, cout, 3, 3, 1, 1, 1, 1,
+                                     n_codes, ho, wo, 32, t7.bn, t7.tw)
+            ms_w = [cuda_ms(torch, lambda: fused_lut_conv_bwd_w(
+                x, g, lut16, off, sx, sg, tiling=tl, **geo), 10)
+                for tl in (t7, whole, t7)]
+            out["kernel 7 whole images"] = (min(ms_w[0], ms_w[2]), ms_w[1])
+            print(f"  stage2: kernel 7 on its tiling ({t7.items(TRAIN_BATCH)} "
+                  f"items) {ms_w[0]:.4f} ms (again {ms_w[2]:.4f}), on whole "
+                  f"images of 32 channels ({whole.items(TRAIN_BATCH)} items) "
+                  f"{ms_w[1]:.4f} ms", flush=True)
+        r7, r4 = min(k7[0], k7[2]) / k7[1], min(k4[0], k4[2]) / k4[1]
+        out[f"conflicts {cout}"] = (r4, r7)
+        print(f"  {name}: kernel 7 gw {ckk}x{P}x{cout} {k7[0]:.4f} / "
+              f"{k7[1]:.4f} ms (again {k7[2]:.4f}): x{r7:.2f}; kernel 4 gx "
+              f"{P}x{cout}x{ckk} {k4[0]:.4f} / {k4[1]:.4f} ms (again "
+              f"{k4[2]:.4f}): x{r4:.2f}", flush=True)
+        del x, g, x0, gfree, g0, wfree
+    torch.cuda.empty_cache()
+    print(f"kernels 4 and 7 phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def inline_scale(torch, t):
@@ -2747,11 +2978,11 @@ def main() -> int:
         import torch.nn.functional as F
         from repro_torch.kernels.fused_lut_conv.ops import (
             conv_out_size, fused_lut_conv, fused_lut_conv_bwd_w,
-            fused_lut_conv_tiled, pick_conv_kernel_tiling)
+            fused_lut_conv_tiled, pick_bwd_w_tiling, pick_conv_kernel_tiling)
         from repro_torch.kernels.fused_lut_conv.ref import (
             fused_lut_conv_bwd_w_ref, fused_lut_conv_ref)
-        from repro_torch.kernels.fused_lut_dense.ops import (fused_lut_bwd,
-                                                             fused_lut_dense)
+        from repro_torch.kernels.fused_lut_dense.ops import (
+            bwd_plan, fused_lut_bwd, fused_lut_dense)
         from repro_torch.kernels.fused_lut_dense.ref import (
             fused_lut_bwd_ref, fused_lut_dense_ref)
         from repro_torch.kernels.flash_attention.ops import (
@@ -2993,7 +3224,10 @@ def main() -> int:
         ak, ap = bw_k(), bw_p()
         check(torch.equal(ak, ap),
               f"fused_lut_conv_bwd_w {name}: int32 bitwise equal to the "
-              f"plain version {tuple(ak.shape)}")
+              f"plain version {tuple(ak.shape)}; tiling "
+              + pick_bwd_w_tiling(tb, cin, ho, ho, cout, k, k, stride,
+                                  stride, 1, 1, n_codes,
+                                  n_sm).describe(tb, n_sm))
         P, ckk = tb * ho * ho, cin * k * k
         g2 = g.reshape(P, cout)
         cols_f = torch.randn((ckk, P), generator=gen, device=dev)
@@ -3020,14 +3254,16 @@ def main() -> int:
                 f"{P * ckk * cout / lookups_per_s * 1e3:.4f} ms")
         if name != "stem":      # the stem's input is the image: no gx
             wfmat = wf.reshape(cout, -1)
-            gx_k = lambda: fused_lut_bwd(g2, wfmat, lut16, off, sg, sw,
-                                         emit_acc=True)
-            gx_p = lambda: fused_lut_bwd_ref(g2, wfmat, lut32, off, n_codes,
-                                             sg, sw, emit_acc=True)
+            gx_k = lambda emit=True: fused_lut_bwd(g2, wfmat, lut16, off,
+                                                   sg, sw, emit_acc=emit)
+            gx_p = lambda emit=True: fused_lut_bwd_ref(
+                g2, wfmat, lut32, off, n_codes, sg, sw, emit_acc=emit)
             ck, cp = gx_k(), gx_p()
-            check(torch.equal(ck, cp),
-                  f"fused_lut_bwd {name} gx (emit_acc): int32 bitwise equal "
-                  f"to the plain version {tuple(ck.shape)}")
+            check(torch.equal(ck, cp) and torch.equal(gx_k(False),
+                                                      gx_p(False)),
+                  f"fused_lut_bwd {name} gx: float32 and emit_acc bitwise "
+                  f"equal to the plain version {tuple(ck.shape)}; plan "
+                  + bwd_plan(P, cout, ckk, n_sm, n_codes).describe())
             lib = cuda_ms(torch, lambda: torch.matmul(g2, wfmat), 10)
             ms_x = cuda_ms(torch, gx_k, 10)
             ms_xp = cuda_ms(torch, gx_p, 2, warm=1)
@@ -3048,9 +3284,13 @@ def main() -> int:
         yk = fused_lut_bwd(a, b, lut16, off, sa, sb)
         yp = fused_lut_bwd_ref(a, b, lut32, off, n_codes, sa, sb)
         (M, K), N = a.shape, b.shape[1]
-        check(torch.equal(yk, yp), f"fused_lut_bwd head {label} "
-                                   f"{M}x{K}x{N}: f32 bitwise equal to the "
-                                   f"plain version")
+        ak = fused_lut_bwd(a, b, lut16, off, sa, sb, emit_acc=True)
+        ap = fused_lut_bwd_ref(a, b, lut32, off, n_codes, sa, sb,
+                               emit_acc=True)
+        check(torch.equal(yk, yp) and torch.equal(ak, ap),
+              f"fused_lut_bwd head {label} {M}x{K}x{N}: float32 and "
+              f"emit_acc bitwise equal to the plain version; plan "
+              + bwd_plan(M, K, N, n_sm, n_codes).describe())
         account("fused_lut_bwd", 1,
                 cuda_ms(torch, lambda: fused_lut_bwd(a, b, lut16, off, sa,
                                                      sb), 20),
@@ -3227,6 +3467,10 @@ def main() -> int:
     # -- 6c. kernels 1 and 5 on the narrow-N core: conflicts, faults -------
     replay = narrow_phase(torch, np, dev, check, acu, n_sm)
 
+    # -- 6d. kernels 4 and 7 redesigned: CONV_BWD, faults, conflicts -------
+    bwd_times = bwd_phase(torch, np, dev, check, acu, n_sm, lookups_per_s,
+                          lut_bytes)
+
     # -- 7. Table 4's emulation-mode ladder ---------------------------------
     ladder = ladder_phase(torch, np, dev, check, ops, launches, params,
                           images)
@@ -3303,16 +3547,27 @@ def main() -> int:
         f"{k} {v:.4f} ms" for k, v in dense_times.items()
         if not k.startswith("conflicts")) + "; bank-conflict replay "
         "(real / conflict-free codes) " + ", ".join(
-        f"M={k.split()[1]}: {v[0]:.2f} (old core {v[1]:.2f})"
+        f"M={k.split()[1]}: {v[0]:.2f} (kernel 4 {v[1]:.2f})"
         for k, v in dense_times.items() if k.startswith("conflicts")))
     print("kernels 1 and 5 on the narrow-N core, bank-conflict replay "
           "(real / conflict-free codes) at ResNet-20's widths: " + ", ".join(
-              f"N={n}: kernel 5 {v[0]:.2f}, kernel 1 {v[1]:.2f}, old core "
-              f"(kernel 4) {v[2]:.2f}" for n, v in replay.items())
+              f"N={n}: kernel 5 {v[0]:.2f}, kernel 1 {v[1]:.2f}, kernel 4 "
+              f"{v[2]:.2f}" for n, v in replay.items())
           + "; kernel 5 at CNN-224 " + ", ".join(
               f"{k.split()[-1]} {v[0]:.3f} ms (F.conv2d f32 {v[1]:.3f}, "
               f"bound {v[2]:.3f})" for k, v in redesign.items()
               if k.startswith("kernel 5 ")))
+    print("kernels 4 and 7 on the narrow-N core, ms per training step "
+          "(on the old core) vs lookup bound and torch.matmul f32: " + ", ".join(
+              f"{k} {stats[k]['ms']:.3f} ({v:.3f}; x{stats[k]['ms'] / v:.2f}) "
+              f"vs {stats[k]['bound_ms']:.3f} and {stats[k]['lib_ms']:.3f}"
+              for k, v in BWD_OLD_CORE_MS.items())
+          + "; at CONV_BWD (ms, bound, torch.matmul) " + ", ".join(
+              f"{k.split()[1]} {v[0]:.3f}, {v[1]:.3f}, {v[2]:.3f}"
+              for k, v in bwd_times.items() if k.endswith("CONV_BWD"))
+          + "; bank-conflict replay (real / conflict-free codes) " + ", ".join(
+              f"N={k.split()[1]}: kernel 4 {v[0]:.2f}, kernel 7 {v[1]:.2f}"
+              for k, v in bwd_times.items() if k.startswith("conflicts")))
     print("kernel 11 at gemma2-27b (kernel / SDPA at the model's dtype / SDPA "
           "float32 on its backend / TF32 bound / FP32 bound, ms): "
           + ", ".join(f"{k[10:]} {v[0]:.3f} / {v[1]:.3f} / {v[2]:.3f} on "

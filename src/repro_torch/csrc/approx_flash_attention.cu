@@ -34,7 +34,7 @@
 //    The head-dim pad is not materialised: its (dp - d) products of
 //    LUT[0, 0] and its correction cancel exactly in the integer sum.
 //
-// What bounds it on Hopper: as in lut_gemm.cuh, every product is one
+// What bounds it on Hopper: as in lut_narrow.cuh, every product is one
 // data-dependent gather from the int16 table in shared memory; the bytes
 // (Q, the visible K/V, the output) are small beside 2 * rows * keys * d
 // lookups except at decode, where one query row reads its whole cache.

@@ -42,7 +42,7 @@
 //    buffers unless resident). Each step lists its (tap, group of 4
 //    channels) pairs once, as a band word offset and a weight byte offset,
 //    and a K slice walks every KS-th pair, two at a time. The quantizer is
-//    lut_gemm.cuh's (__fdiv_rn, rintf, separate __fadd_rn, clamp), the
+//    lut_quant.cuh's (__fdiv_rn, rintf, separate __fadd_rn, clamp), the
 //    reference's rounding.
 //  * The channel pad. C % 4 != 0 (the stem's and c1's C = 3) is padded
 //    with the offset code on both sides and taps * c_pad * LUT[off, off]
@@ -52,7 +52,7 @@
 // below does); the launch refuses any tiling it was not built for.
 // Integer adds are associative, so every tiling gives the reference's
 // accumulator bit for bit.
-#include "lut_gemm.cuh"    // lutgemm::quantize_code
+#include "lut_quant.cuh"    // lutgemm::quantize_code
 #include "lut_narrow.cuh"
 
 namespace {

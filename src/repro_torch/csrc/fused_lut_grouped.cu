@@ -20,7 +20,7 @@
 //  * what bounds it: at decode (at most 16 live rows per expert) the int32
 //    weight codes, read once per expert and column tile (all 40 experts of
 //    granite's gate projection: 126 MB); at prefill, the shared-memory
-//    gather rate, one lookup per lane per clock, as in lut_gemm.cuh;
+//    gather rate, one lookup per lane per clock, as in lut_narrow.cuh;
 //  * each thread owns one column and a quarter of every 128-deep K chunk:
 //    its weight codes go straight from device memory into registers
 //    (consecutive threads, consecutive columns), the next chunk's are in
@@ -44,7 +44,7 @@
 // every live row equals the reference's per-group accumulator bit for bit.
 #include <cuda_bf16.h>
 
-#include "lut_gemm.cuh"
+#include "lut_quant.cuh"
 
 namespace {
 

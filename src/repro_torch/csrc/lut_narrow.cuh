@@ -1,11 +1,12 @@
-// The narrow-N LUT-gather core of kernels 1 and 5 (lut_matmul.cu,
-// fused_lut_conv.cu):
+// The narrow-N LUT-gather core of kernels 1, 4, 5 and 7 (lut_matmul.cu,
+// fused_lut_bwd.cu, fused_lut_conv.cu, fused_lut_conv_bwd_w.cu):
 //
 //     acc[m, n] += LUT[a(m, k), b(k, n)]      (int32)
 //
 // summed over one group of 4 k at a time, from operands staged in shared
 // memory as one-byte table indices: 4 row codes of one output row in one
-// 32-bit word, a k row's weight codes as bytes.
+// 32-bit word; a k row's column codes as bytes (kernels 1 and 5), or the 4
+// k of one column in one word (kernels 4 and 7, load_bw).
 //
 // What bounds it on Hopper: every product is one data-dependent 16-bit
 // gather from the int16 product table in shared memory, so the ceiling is
@@ -25,7 +26,7 @@
 //    halves read two table rows at different k, hence at unrelated weight
 //    codes, which conflict only by coincidence. (16 columns on two output
 //    rows at the same k would read two rows at the same 16 codes: a
-//    conflict on every gather, as the old core lut_gemm.cuh does at BN 16.)
+//    conflict on every gather.)
 //    The halves' sums meet by one __shfl_xor before the store; integer
 //    adds associate, so this is bitwise the reference's accumulator.
 // Each lookup is one byte extract, one multiply-add (the row's byte offset
@@ -120,6 +121,34 @@ __device__ __forceinline__ void load_b(const uint8_t* row, int (&b2)[TN]) {
 #pragma unroll
     for (int j = 0; j < TN; ++j) b2[j] = ((w >> (8 * j)) & 0xff) << 1;
   }
+}
+
+// The column codes of one group of 4 k at this lane's TN columns, stored
+// one word per column (byte q: k row q of the group), as byte offsets 2b:
+// TN consecutive words, one vector load.
+template <int TN>
+__device__ __forceinline__ void load_bw(const uint32_t* p, int (&b2)[4][TN]) {
+  uint32_t w[TN];
+  if constexpr (TN == 1) {
+    w[0] = *p;
+  } else if constexpr (TN == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+  } else {
+#pragma unroll
+    for (int h = 0; h < TN / 4; ++h) {
+      const uint4 v = reinterpret_cast<const uint4*>(p)[h];
+      w[4 * h] = v.x;
+      w[4 * h + 1] = v.y;
+      w[4 * h + 2] = v.z;
+      w[4 * h + 3] = v.w;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) b2[q][j] = ((w[j] >> (8 * q)) & 0xff) << 1;
 }
 
 // A 16-bit table entry at a shared-memory byte address.

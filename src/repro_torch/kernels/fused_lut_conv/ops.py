@@ -22,11 +22,13 @@ The 12 MiB is the reference's threshold, not a property of the H100, and
 nothing here sizes a CUDA tile with it: kernel 5's and kernel 6's tilings
 come from this card's shared memory.
 
-The weight-gradient wrapper drops the reference's ``bh``, ``bn``, ``mc``
-and ``rmask`` arguments: they size VMEM row bands and mask band-padding
-rows and mesh slabs. The CUDA kernel streams output pixels straight from
-the unpadded tensors, split across blocks, so there are no bands, no
-padded rows to mask and no mesh.
+The weight-gradient wrapper (kernel 7) drops the reference's ``bh``,
+``bn``, ``mc`` and ``rmask`` arguments: they size VMEM row bands and mask
+band-padding rows and mesh slabs. Kernel 7 runs its own tiling
+(:func:`pick_bwd_w_tiling`: items of a band of output rows x a channel
+group x a Cout tile, quantized once into shared memory, at least two an SM
+at ResNet-20's and CNN-224's shapes) and masks the pixels past a slice, so
+there are no padded rows and no mesh.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
 version in ``ref.py``.
@@ -41,6 +43,7 @@ import torch
 
 from repro_torch.kernels import runtime
 from repro_torch.kernels.fused_lut_dense.ops import scale_operands
+from repro_torch.kernels.lut_matmul.ref import lane_map
 from .ref import (fused_lut_conv_bwd_w_ref, fused_lut_conv_ref,
                   fused_lut_conv_tiled_ref, tiled_weight_codes)
 
@@ -593,12 +596,200 @@ def fused_lut_conv_tiled(x: torch.Tensor, wq: torch.Tensor,
 fused_lut_conv_tiled.launches = 0
 
 
+# kernel 7's Cout tiles (the narrow-N lane map: two K slices at 16), row
+# words a warp (4 (tap, channel) rows each: 9 for a 3x3 tap set), and the
+# cost model's weights (SM cycles: a lookup issued by a warp, a quantized
+# value, an atomic add of the output, an item's fixed work; bytes a cycle
+# of one SM's share of HBM)
+BWD_W_COUT_TILES = (16, 32, 64, 128)
+BWD_W_ROW_WORDS = (9, 4)
+_CYC_LOOKUP, _CYC_QUANT, _CYC_ATOMIC, _CYC_ITEM = 8, 0.2, 0.5, 600
+_BYTES_CYC = 12.8
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdWTiling:
+    """Kernel 7's tiles. An item is ``bh`` output rows x ``bw`` output
+    columns of one image (``tiles_h`` bands, ``tiles_w`` strips), ``cg``
+    input channels (a multiple of 4; ``tiles_c`` groups over ``c4``) with
+    all kh x kw taps, and a ``bn``-wide Cout tile (``tiles_n``). Its rows
+    are (tap, channel) pairs listed as row words of 4 channels; each warp
+    owns ``tw`` row words, ``wr`` warps across them and ``8 // wr`` across
+    the item's groups of 4 pixels. ``rows_in`` x ``cols_in`` is the halo'd
+    input band of one item."""
+
+    bh: int
+    bw: int
+    tiles_h: int
+    tiles_w: int
+    cg: int
+    c4: int
+    tiles_c: int
+    bn: int
+    tiles_n: int
+    tw: int
+    wr: int
+    rows_in: int
+    cols_in: int
+    smem_bytes: int
+
+    @property
+    def ks(self) -> int:
+        """K (pixel) slices of a warp (2 at the 16-wide Cout tile)."""
+        return lane_map(self.bn)[0]
+
+    @property
+    def tn(self) -> int:
+        """Output channels of one lane."""
+        return lane_map(self.bn)[1]
+
+    @property
+    def n_slices(self) -> int:
+        """Pixel slices of an item: warps across the pixels x a warp's."""
+        return (8 // self.wr) * self.ks
+
+    def items(self, n: int) -> int:
+        return n * self.tiles_h * self.tiles_w * self.tiles_c * self.tiles_n
+
+    def n_sets(self, taps: int) -> int:
+        """Row-word sets of ``tw`` over an item's taps x cg / 4 words."""
+        return -(-(taps * self.cg // 4) // self.tw)
+
+    def describe(self, n: int, n_sm: int = 132) -> str:
+        return (f"items of {self.bh} output rows x {self.bw} columns x "
+                f"{self.cg} channels x Cout tile {self.bn} ({self.tn} a lane, "
+                f"{self.ks} pixel slice(s) a warp), {self.items(n)} items "
+                f"({self.items(n) / n_sm:.2f} an SM), {self.tw} row words a "
+                f"warp on {self.wr} warp(s) x {8 // self.wr} across the "
+                f"pixels, band {self.rows_in} x {self.cols_in} input pixels, "
+                f"{self.smem_bytes} B of shared memory")
+
+
+def _bwd_w_smem(n_codes: int, plane: int, cg: int, pgroups: int, bn: int,
+                n_sets: int, tw: int) -> int:
+    """Dynamic shared memory of one kernel-7 block, as the source's
+    ``Layout`` sizes it: the int16 table, the raw band and raw gradient
+    slice (float32), the band's and the gradient's one-byte codes, each
+    pixel's band offset, the row list (16 bytes a row word)."""
+    px = 4 * pgroups
+    return (_round16(n_codes * n_codes * 2) + _round16(plane * cg * 4)
+            + _round16(px * bn * 4) + _round16(plane * cg)
+            + _round16(pgroups * bn * 4) + _round16(px * 4)
+            + _round16(n_sets * tw * 16))
+
+
+def bwd_w_tiling_for(c4, ho, wo, cout, kh, kw, sh, sw, dh, dw, n_codes,
+                     bh, bw, cg, bn, tw) -> BwdWTiling:
+    """Kernel 7's tiling at a given item (``bh`` x ``bw`` output pixels,
+    ``cg`` channels), Cout tile and row words a warp, with the most warps
+    across the row words (1, 2, 4 or 8) that its sets fill."""
+    taps = kh * kw
+    rows_in = (bh - 1) * sh + (kh - 1) * dh + 1
+    cols_in = (bw - 1) * sw + (kw - 1) * dw + 1
+    n_sets = -(-(taps * cg // 4) // tw)
+    wr = 1 << (min(8, n_sets).bit_length() - 1)
+    return BwdWTiling(
+        bh, bw, -(-ho // bh), -(-wo // bw), cg, c4, -(-c4 // cg),
+        bn, -(-cout // bn), tw, wr, rows_in, cols_in,
+        _bwd_w_smem(n_codes, rows_in * cols_in, cg, -(-bh * bw // 4), bn,
+                    n_sets, tw))
+
+
+@functools.lru_cache(maxsize=512)
+def pick_bwd_w_tiling(n: int, c: int, ho: int, wo: int, cout: int, kh: int,
+                      kw: int, sh: int, sw: int, dh: int, dw: int,
+                      n_codes: int, n_sm: int = 132) -> BwdWTiling:
+    """Kernel 7's tiling on this card, from its shared memory and SMs.
+
+    The Cout tile is the narrowest of 16, 32, 64 and 128 that holds Cout
+    (128-wide tiles past 128). Row words a warp: 9 or 4 (4 at 128
+    columns), the one that leaves fewer dead words, 9 on a tie; ``wr``
+    warps across the row words, the most of 1, 2, 4, 8 that the sets
+    fill. Over channel groups (all channels, then halves while a multiple
+    of 4), column strips (whole rows, then halves) and band heights, the
+    tiling whose shared memory fits and whose rounds of items over the SMs
+    cost least (per item the larger of its gathers and its copy, plus its
+    quantization, its atomic adds into the output and a fixed cost) wins, among those that give every SM at
+    least two items where any does; a taller band, then a wider strip and
+    more channels, on a tie. Every choice gives the same bits."""
+    bn = next((t for t in BWD_W_COUT_TILES if cout <= t), 128)
+    ks, tn = lane_map(bn)[:2]
+    c4 = -(-c // 4) * 4
+    taps = kh * kw
+    cgs = [c4]
+    while cgs[-1] % 8 == 0:
+        cgs.append(cgs[-1] // 2)
+    bws = [wo]
+    while bws[-1] > 4:
+        bws.append(-(-bws[-1] // 2))
+    best = None
+    for cg in cgs:
+        words = taps * cg // 4
+        tw = 4 if bn == 128 else min(
+            BWD_W_ROW_WORDS, key=lambda t: (-(-words // t) * t, -t))
+        for bw in bws:
+            for bh in range(1, ho + 1):
+                t = bwd_w_tiling_for(c4, ho, wo, cout, kh, kw, sh, sw, dh,
+                                     dw, n_codes, bh, bw, cg, bn, tw)
+                if t.smem_bytes > SMEM_PER_BLOCK:
+                    break
+                pg = -(-bh * bw // 4)
+                n_sets = t.n_sets(taps)
+                passes = -(-n_sets // t.wr)
+                gather = (passes * -(-pg // (8 // t.wr * ks)) * 16 * t.tw
+                          * tn * _CYC_LOOKUP)
+                plane = t.rows_in * t.cols_in
+                copy = (plane * cg + 4 * pg * bn) * 4 / _BYTES_CYC
+                quant = (plane * cg + 4 * pg * bn) * _CYC_QUANT
+                atomics = taps * cg * min(bn, cout) * (8 // t.wr)
+                items = t.items(n)
+                cost = -(-items // n_sm) * (max(gather, copy) + quant
+                                            + atomics * _CYC_ATOMIC
+                                            + _CYC_ITEM)
+                key = (items < 2 * n_sm, cost, -bh, -bw, -cg)
+                if best is None or key < best[0]:
+                    best = (key, t)
+    if best is None:
+        raise ValueError(
+            f"kernel 7 cannot stage four channels of a {kh}x{kw} tap window "
+            f"(dilation {dh}x{dw}) of a {wo}-wide row beside the table in "
+            f"{SMEM_PER_BLOCK} B of shared memory")
+    return best[1]
+
+
+def check_bwd_w_tiling(t: BwdWTiling, c: int, ho: int, wo: int, cout: int,
+                       kh: int, kw: int, sh: int, sw: int, dh: int, dw: int,
+                       n_codes: int) -> None:
+    """Refuses what the launch refuses: a Cout tile other than 16, 32, 64
+    and 128, row words other than 9 or 4 (4 at 128 columns), warps across
+    them other than 1, 2, 4, 8, channel groups not a multiple of 4, a band
+    that is not the item's halo, a strip wider than the image, shared
+    memory not sized as the source's ``Layout`` (or over the block's
+    limit). A tiling that leaves bands out is well formed and runs."""
+    taps = kh * kw
+    ok = (t.bn in BWD_W_COUT_TILES and t.tw in BWD_W_ROW_WORDS
+          and not (t.tw == 9 and t.bn == 128) and t.wr in (1, 2, 4, 8)
+          and t.cg >= 4 and t.cg % 4 == 0 and t.c4 >= 4 and t.c4 % 4 == 0
+          and t.tiles_c == -(-t.c4 // t.cg) and t.tiles_n == -(-cout // t.bn)
+          and 1 <= t.bw <= wo and t.tiles_w == -(-wo // t.bw)
+          and t.bh >= 1 and t.tiles_h >= 1
+          and t.rows_in == (t.bh - 1) * sh + (kh - 1) * dh + 1
+          and t.cols_in == (t.bw - 1) * sw + (kw - 1) * dw + 1
+          and t.smem_bytes == _bwd_w_smem(
+              n_codes, t.rows_in * t.cols_in, t.cg, -(-t.bh * t.bw // 4),
+              t.bn, t.n_sets(taps), t.tw)
+          and t.smem_bytes <= SMEM_PER_BLOCK)
+    if not ok:
+        raise ValueError(f"kernel 7 is not built for the tiling {t}")
+
+
 def fused_lut_conv_bwd_w(x: torch.Tensor, g: torch.Tensor, lut: torch.Tensor,
                          offset: int, x_scale, g_scale, *,
                          ksize: tuple[int, int], stride=(1, 1),
                          padding=((0, 0), (0, 0)), dilation=(1, 1),
-                         bits: int = 8) -> torch.Tensor:
-    """Approximate conv weight gradient (the ApproxTrain regime).
+                         bits: int = 8,
+                         tiling: Optional[BwdWTiling] = None) -> torch.Tensor:
+    """Approximate conv weight gradient (kernel 7, the ApproxTrain regime).
 
     ``x``: (N, C, H, W) float residual (the saved fake-quantized input);
     ``g``: (N, Ho, Wo, Cout) float incoming gradient, the fused forward's
@@ -607,7 +798,10 @@ def fused_lut_conv_bwd_w(x: torch.Tensor, g: torch.Tensor, lut: torch.Tensor,
     ``clip(round(v / s))``; an out-of-image tap is code 0 and contributes
     ``LUT[off, qg + off]``, as the reference's quantized 0.0 pad does.
     Returns the raw int32 (kh*kw, C, Cout) tap-major accumulator; the
-    caller dequants once, ``acc * (sx * sg)``.
+    caller dequants once, ``acc * (sx * sg)``. ``tiling`` launches the
+    CUDA kernel with the one given, as given (a check's planted fault); it
+    is refused (:func:`check_bwd_w_tiling`) if the kernel is not built for
+    it. Every tiling gives the same bits.
     """
     n_codes = int(round(lut.numel() ** 0.5))
     n, c, h, w_in = x.shape
@@ -621,6 +815,9 @@ def fused_lut_conv_bwd_w(x: torch.Tensor, g: torch.Tensor, lut: torch.Tensor,
     if tuple(g.shape) != (n, ho, wo, cout):
         raise ValueError(f"g has shape {tuple(g.shape)}, expected "
                          f"{(n, ho, wo, cout)} for this geometry")
+    if tiling is not None:
+        check_bwd_w_tiling(tiling, c, ho, wo, cout, kh, kw, sh, sw, dh, dw,
+                           n_codes)
     if x.device.type == "cpu":
         return fused_lut_conv_bwd_w_ref(
             x, g, lut.reshape(-1), offset, n_codes, x_scale, g_scale,
@@ -637,16 +834,22 @@ def fused_lut_conv_bwd_w(x: torch.Tensor, g: torch.Tensor, lut: torch.Tensor,
     for t, name, dt in ((x, "x", torch.float32), (g, "g", torch.float32),
                         (table, "lut", torch.int16)):
         runtime.check_cuda_operand(t, name, dt, x.device)
-    # blocks add partial sums over slices of the pixels into it
+    # items add their partial sums into it
     out = torch.zeros((kh * kw, c, cout), device=x.device, dtype=torch.int32)
     if g.numel() == 0 or out.numel() == 0:
         return out
-    lib = runtime.kernel_library("fused_lut_conv_bwd_w")
     blocks, stream = runtime.launch_config(x)
+    if tiling is None:
+        tiling = pick_bwd_w_tiling(n, c, ho, wo, cout, kh, kw, sh, sw, dh, dw,
+                                   n_codes, blocks)
+    t = tiling
+    lib = runtime.kernel_library("fused_lut_conv_bwd_w")
     lib.check(lib.launch(x.data_ptr(), g.data_ptr(), table.data_ptr(),
                          sx.data_ptr(), sg.data_ptr(), out.data_ptr(), n, c,
                          h, w_in, cout, kh, kw, sh, sw, ph0, pw0, dh, dw, ho,
-                         wo, n_codes, offset, lo, hi, blocks, stream))
+                         wo, n_codes, offset, lo, hi, t.bh, t.bw, t.tiles_h,
+                         t.cg, t.c4, t.bn, t.tw, t.wr, t.smem_bytes, blocks,
+                         stream))
     fused_lut_conv_bwd_w.launches += 1
     return out
 

@@ -291,3 +291,80 @@ def fused_lut_conv_bwd_w_ref(x: torch.Tensor, g: torch.Tensor,
     acc = lut_gather_sum(cols, qg.reshape(-1, cout).to(torch.int64) + offset,
                          lut_flat, n_codes)             # (C*kh*kw, Cout)
     return acc.reshape(c, kh * kw, cout).transpose(0, 1).contiguous()
+
+
+def fused_lut_conv_bwd_w_plan_ref(x: torch.Tensor, g: torch.Tensor,
+                                  lut_flat: torch.Tensor, offset: int,
+                                  n_codes: int, x_scale, g_scale, *, tiling,
+                                  ksize: tuple[int, int], stride=(1, 1),
+                                  padding=((0, 0), (0, 0)), dilation=(1, 1),
+                                  bits: int = 8, drop_slice=None
+                                  ) -> torch.Tensor:
+    """Kernel 7's loop in plain PyTorch, item by item as ``tiling``
+    (``ops.pick_bwd_w_tiling``) cuts the work
+    (``csrc/fused_lut_conv_bwd_w.cu``): for each item of ``bh`` x ``bw``
+    output pixels (all images at once), ``cg`` channels and a ``bn``-wide
+    Cout tile, the halo'd input band quantized once (code 0 outside the
+    image), the gradient slice quantized once; the item's pixels in
+    groups of 4 (pixel ``p`` at row ``p // nw``, column ``p % nw`` of the
+    item), group ``i`` summed by pixel slice ``i % n_slices`` (the warps
+    across the pixels x a warp's half-warps), each slice summing every
+    (tap, channel) row of the item against the Cout tile's columns; the
+    slices' sums added into the output rows of channels below C and the
+    columns below Cout. ``drop_slice`` leaves one pixel slice out (a
+    planted fault); a tiling that leaves a band out leaves its pixels out.
+    Returns the int32 (kh*kw, C, Cout) tap-major accumulator, the
+    reference's bits."""
+    from repro_torch.core.quantization import quantize_symmetric
+    n, c, h, w_in = x.shape
+    cout = g.shape[3]
+    kh, kw = ksize
+    sh, sw = stride
+    dh, dw = dilation
+    (ph0, _), (pw0, _) = padding
+    ho, wo = g.shape[1], g.shape[2]
+    dev = x.device
+    t = tiling
+    qx = quantize_symmetric(x, torch.as_tensor(x_scale), bits).to(
+        torch.int64) + offset
+    qg = quantize_symmetric(g, torch.as_tensor(g_scale), bits).to(
+        torch.int64) + offset
+    lut_flat = lut_flat.reshape(-1).to(torch.int32)
+    out = torch.zeros((kh * kw, c, cout), dtype=torch.int32, device=dev)
+    for band in range(t.tiles_h):
+        for strip in range(t.tiles_w):
+            oh0, ow0 = band * t.bh, strip * t.bw
+            nb, nw = min(t.bh, ho - oh0), min(t.bw, wo - ow0)
+            if nb <= 0 or nw <= 0:
+                continue
+            ih0, iw0 = oh0 * sh - ph0, ow0 * sw - pw0
+            # the band's codes, code 0 (index off) outside the image
+            codes = torch.full((n, c, t.rows_in, t.cols_in), offset,
+                               dtype=torch.int64, device=dev)
+            r0, r1 = max(ih0, 0), min(ih0 + t.rows_in, h)
+            q0, q1 = max(iw0, 0), min(iw0 + t.cols_in, w_in)
+            if r0 < r1 and q0 < q1:
+                codes[:, :, r0 - ih0:r1 - ih0, q0 - iw0:q1 - iw0] = \
+                    qx[:, :, r0:r1, q0:q1]
+            p = torch.arange(nb * nw, device=dev)
+            pr, pc = p // nw, p % nw
+            if drop_slice is not None:
+                keep = (p // 4) % t.n_slices != drop_slice
+                pr, pc = pr[keep], pc[keep]
+            if len(pr) == 0:
+                continue
+            gs = qg[:, oh0 + pr, ow0 + pc].reshape(-1, cout)   # (n*P, Cout)
+            for c0 in range(0, t.c4, t.cg):
+                ch = torch.arange(c0, min(c0 + t.cg, c), device=dev)
+                if len(ch) == 0:
+                    continue
+                for tap in range(kh * kw):
+                    u, v = divmod(tap, kw)
+                    win = codes[:, ch][:, :, u * dh + pr * sh,
+                                       v * dw + pc * sw]       # (n, cg, P)
+                    a = win.permute(1, 0, 2).reshape(len(ch), -1)
+                    for co0 in range(0, cout, t.bn):
+                        cs = slice(co0, min(co0 + t.bn, cout))
+                        out[tap, ch, cs] += lut_gather_sum(
+                            a, gs[:, cs], lut_flat, n_codes)
+    return out

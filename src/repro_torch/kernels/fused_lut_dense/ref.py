@@ -105,3 +105,73 @@ def fused_lut_bwd_ref(a: torch.Tensor, b: torch.Tensor,
     if emit_acc:
         return acc
     return acc.to(torch.float32) * (sa * sb)
+
+
+def fused_lut_bwd_plan_ref(a: torch.Tensor, b: torch.Tensor,
+                           lut_flat: torch.Tensor, offset: int, n_codes: int,
+                           a_scale, b_scale, *, plan, bits: int = 8,
+                           emit_acc: bool = False,
+                           drop_slice=None) -> torch.Tensor:
+    """:func:`fused_lut_bwd_ref` summed as kernel 4 sums over its plan
+    (``ops.bwd_plan``): each segment's int32 partial over its item (a row
+    tile and ``nt`` column tiles) and its K groups of 4, chunk by chunk of
+    ``kc``, each column tile's groups split among the lanes' K slices (at
+    16 columns the half-warps' alternate groups); the slots past K hold
+    the offset code on both sides and ``pad * LUT[off, off]`` is
+    subtracted; a segment with slot -1 stores its item, the others add
+    into their slot, taken when its groups are complete; one dequant
+    ``acc * (sa * sb)``. ``drop_slice`` leaves K group ``drop_slice`` out
+    of every segment that walks it (a planted fault); a plan that leaves a
+    group out leaves its item short."""
+    from repro_torch.core.quantization import quantize_symmetric
+    dev = a.device
+    sa = torch.as_tensor(a_scale, dtype=torch.float32, device=dev)
+    sb = torch.as_tensor(b_scale, dtype=torch.float32, device=dev)
+    M, K = a.shape
+    N = b.shape[1]
+    kp = plan.groups * 4
+    qa = torch.full((M, kp), offset, dtype=torch.int64, device=dev)
+    qa[:, :K] = quantize_symmetric(a, sa, bits).to(torch.int64) + offset
+    qb = torch.full((kp, N), offset, dtype=torch.int64, device=dev)
+    qb[:K] = quantize_symmetric(b, sb, bits).to(torch.int64) + offset
+    lut_flat = lut_flat.reshape(-1).to(torch.int32)
+    m00 = int(lut_flat[offset * n_codes + offset])
+    bm, bn, width = plan.bm, plan.bn, plan.nt * plan.bn
+    acc = torch.zeros((M, N), dtype=torch.int32, device=dev)
+    sums = torch.zeros((max(plan.n_slots, 1), bm, width), dtype=torch.int32,
+                       device=dev)
+    arrived = [0] * plan.n_slots
+    for tile, g0, g1, slot in plan.segments.tolist():
+        m0 = (tile // plan.tiles_c) * bm
+        c0 = (tile % plan.tiles_c) * width
+        rs, cs = slice(m0, min(M, m0 + bm)), slice(c0, min(N, c0 + width))
+        part = torch.zeros((rs.stop - m0, cs.stop - c0), dtype=torch.int32,
+                           device=dev)
+        kb, ke = 4 * g0, min(K, 4 * g1)
+        for k0 in range(kb, max(ke, kb + 1), plan.kc):
+            ng = -(-min(plan.kc, ke - k0) // 4)
+            for t in range(plan.nt):
+                ts = slice(t * bn, min(t * bn + bn, cs.stop - c0))
+                if ts.start >= ts.stop:
+                    continue
+                for s in range(plan.ks):
+                    ks = [k0 + 4 * g + q for g in range(s, ng, plan.ks)
+                          if k0 // 4 + g != drop_slice
+                          for q in range(4)]
+                    if ks:
+                        idx = torch.tensor(ks, device=dev)
+                        part[:, ts] += lut_gather_sum(
+                            qa[rs][:, idx], qb[idx][:, c0 + ts.start:
+                                                    c0 + ts.stop],
+                            lut_flat, n_codes)
+        part -= (4 * (g1 - g0) - (ke - kb)) * m00
+        if slot < 0:
+            acc[rs, cs] = part
+            continue
+        sums[slot, :part.shape[0], :part.shape[1]] += part
+        arrived[slot] += g1 - g0
+        if arrived[slot] == plan.groups:
+            acc[rs, cs] = sums[slot, :part.shape[0], :part.shape[1]]
+    if emit_acc:
+        return acc
+    return acc.to(torch.float32) * (sa * sb)

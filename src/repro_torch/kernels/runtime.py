@@ -53,10 +53,11 @@ SIGNATURES = {
                              [_P] * 7 + [_I] + [_I] * 15 + [_I] * 4
                              + [_I] * 7 + [_I, _P]),
     "fused_lut_bwd": ("fused_lut_bwd_launch",
-                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       _I, _I, _P]),
+                      [_P] * 6 + [_I] * 8 + [_P] + [_I] * 9 + [_P]
+                      + [_I] * 2 + [_P]),
     "fused_lut_conv_bwd_w": ("fused_lut_conv_bwd_w_launch",
-                             [_P] * 6 + [_I] * 15 + [_I] * 5 + [_P]),
+                             [_P] * 6 + [_I] * 15 + [_I] * 4 + [_I] * 10
+                             + [_P]),
     "approx_flash_attention": ("approx_flash_attention_launch",
                                [_P] * 12 + [_I] * 12 + [_L] * 9 + [_I] * 7
                                + [ctypes.c_float] + [_I] * 4 + [_P]),

@@ -358,7 +358,8 @@ def test_cuda_kernels_match_plain_versions(cuda):
 @pytest.mark.parametrize("table", sorted(TABLES))
 def test_cuda_backward_kernels_match_plain_versions(cuda, table):
     """On a card: fused_lut_bwd (f32 and emit_acc) and fused_lut_conv_bwd_w
-    launch and equal their plain versions bitwise, at two shapes each."""
+    launch and equal their plain versions bitwise, at two shapes each, and
+    their plans' mirrors at ResNet-20's stage shapes."""
     g = torch.Generator(device=cuda)
     g.manual_seed(1)
     lut = torch.from_numpy(TABLES[table])
@@ -388,6 +389,46 @@ def test_cuda_backward_kernels_match_plain_versions(cuda, table):
             fused_lut_conv_bwd_w(x, gr, l16, OFF, sx, sg, **kw),
             fused_lut_conv_bwd_w_ref(x, gr, l32, OFF, 256, sx, sg, **kw))
         assert fused_lut_conv_bwd_w.launches == n0 + 1
+    # the redesigned kernels' plans at ResNet-20's stage shapes (8 images):
+    # kernel 4 at each stage's input gradient with its own plan and another
+    # tile, equal to the plan's mirror; kernel 7 at each stage's weight
+    # gradient with its tiling, equal to the tiling's mirror, and a tiling
+    # that leaves its last band out caught
+    from repro_torch.kernels.fused_lut_conv.ops import pick_bwd_w_tiling
+    from repro_torch.kernels.fused_lut_conv.ref import (
+        fused_lut_conv_bwd_w_plan_ref)
+    from repro_torch.kernels.fused_lut_dense.ops import (bwd_plan,
+                                                         bwd_plan_for)
+    from repro_torch.kernels.fused_lut_dense.ref import (
+        fused_lut_bwd_plan_ref)
+    n_sm = runtime.sm_count(0)
+    for c, hw, cout in ((16, 32, 16), (32, 16, 32), (64, 8, 64)):
+        m, k, n = 8 * hw * hw, cout, c * 9
+        a = torch.randn((m, k), generator=g, device=cuda) * 1e-3
+        b = torch.randn((k, n), generator=g, device=cuda) * 0.1
+        sa, sb = a.abs().amax() / 127, b.abs().amax() / 127
+        for plan in (bwd_plan(m, k, n, n_sm), bwd_plan_for(m, k, n, n_sm, 4,
+                                                           32, 2)):
+            for emit in (False, True):
+                assert torch.equal(
+                    fused_lut_bwd(a, b, l16, OFF, sa, sb, emit_acc=emit,
+                                  plan=plan),
+                    fused_lut_bwd_plan_ref(a, b, l32, OFF, 256, sa, sb,
+                                           plan=plan, emit_acc=emit))
+        x = torch.relu(torch.randn((8, c, hw, hw), generator=g, device=cuda))
+        gr = torch.randn((8, hw, hw, cout), generator=g, device=cuda) * 1e-3
+        sx, sg = x.abs().amax() / 127, gr.abs().amax() / 127
+        kw = dict(ksize=(3, 3), padding=((1, 1), (1, 1)))
+        t = pick_bwd_w_tiling(8, c, hw, hw, cout, 3, 3, 1, 1, 1, 1, 256, n_sm)
+        want = fused_lut_conv_bwd_w_plan_ref(x, gr, l32, OFF, 256, sx, sg,
+                                             tiling=t, **kw)
+        assert torch.equal(fused_lut_conv_bwd_w(x, gr, l16, OFF, sx, sg,
+                                                tiling=t, **kw), want)
+        if t.tiles_h > 1:
+            import dataclasses
+            bad = dataclasses.replace(t, tiles_h=t.tiles_h - 1)
+            assert not torch.equal(fused_lut_conv_bwd_w(
+                x, gr, l16, OFF, sx, sg, tiling=bad, **kw), want)
     torch.cuda.synchronize()
 
 

@@ -16,7 +16,8 @@ full):
   activation's rounding boundary one code of the next GEMM flips. So at most
   ``FLIP_ROWS`` = 1 row per call may exceed ``LOGIT_TOL``, by at most
   ``FLIP_ROW_TOL`` of the logits' scale; every argmax is equal.
-* the engines: the reference engines' greedy tokens, request for request,
+* the engines (``test_torch_moe_engine_{wave,continuous,paged}.py``, one
+  file each): the reference engines' greedy tokens, request for request,
   at the reduced config's ample capacity (8.0) and at 1.0, where tokens
   drop. MoE outputs depend on the batch (capacity is per dispatch block,
   padding rows are routed too), so equal tokens also show that the engines
@@ -42,7 +43,6 @@ from repro_torch.models.transformer import (apply_model,  # noqa: E402
 from test_torch_lm import (LOGIT_TOL, _acfgs, _cfgs, _np,  # noqa: E402
                            _params, _prefill_decode, ref)
 from test_torch_lm_archs import FLIP_ROW_TOL, FLIP_ROWS  # noqa: E402
-from test_torch_lm_serve import ENGINES, engine_parity  # noqa: E402
 
 MOE_ARCHS = ["granite-moe-3b-a800m", "olmoe-1b-7b"]
 
@@ -127,14 +127,3 @@ def test_apply_model_moe_float32_logits(ref, route, arch):
         assert flips <= (0 if route == "exact" else FLIP_ROWS)
         assert err.max() <= FLIP_ROW_TOL * scale
         assert np.array_equal(g.argmax(-1), w.argmax(-1))
-
-
-@pytest.mark.parametrize("capacity", [8.0, 1.0])
-@pytest.mark.parametrize("engine", list(ENGINES))
-def test_moe_engines_give_reference_tokens(engine, capacity, monkeypatch):
-    """Five requests of mixed lengths and budgets through each engine with
-    the fused ACU, granite-moe-3b-a800m reduced: the reference engine's
-    greedy tokens, with ample capacity and with dropping capacity (against
-    the reference run op by op, module docstring)."""
-    engine_parity(engine, "float32", "granite-moe-3b-a800m", monkeypatch,
-                  op_by_op=capacity < 8.0, moe_capacity=capacity)
