@@ -12,8 +12,13 @@
    shape's lut_matmul plan and fused_lut_conv tiling, and times kernel,
    plain version and a yardstick there (``F.conv2d`` in f32, TF32 off, for
    fused_lut_conv; ``torch.matmul`` for the others); err_matmul (the
-   LOWRANK GEMM, rank 8) at the same shapes within its summation bound,
-   rounding to lut_matmul's integers where the bound allows;
+   LOWRANK GEMM, rank 8, on the tensor cores in 3xTF32) at the same shapes
+   within its summation bound, rounding to lut_matmul's integers where the
+   bound allows, with its FMA and TF32 bounds and how far one plain TF32
+   pass (emulated) lies from the summation bound at each shape; at stage
+   0 a planted fault (one tile's exact term without its last k) that the
+   hold must catch, and its bank-conflict replay (real codes against code
+   0 everywhere);
 3. does the same for the backward kernels (fused_lut_bwd, float32 and
    emit_acc, with its plan; fused_lut_conv_bwd_w with its tiling; and
    lut_matmul with its stream-K plan at the unfused route's weight-gradient
@@ -108,7 +113,12 @@
    groups of 1 capacity row) and of prefills of 128 and 512 tokens (2 and
    8 rows), with counts from layer 0's routing and synthetic ones (empty
    experts, all tokens to one expert), and under a biased table with the
-   raw accumulator (dead rows 0); holds kernel 8's decode path at the
+   raw accumulator (dead rows 0), printing each shape's work plan; at the
+   decode gate it pins the host's copy of the kernel's split
+   (bitwise equal) and a planted fault (the split with one K split
+   dropped, which must differ), and replays the bank conflicts (real codes
+   against codes that put a warp's gathers in 32 banks); holds kernel 8's
+   decode path at the
    model's attention as step 6 does; then serves 32 requests (16 to 200
    prompt tokens, 8 sharing a 128-token prefix, 32 new tokens each)
    through the three engines with the counters checked against 96
@@ -254,6 +264,7 @@ KERNELS = {
 }
 RANK = 8                   # the LOWRANK rung's factorisation rank
 FP32_LANES = 128           # FP32 FMA lanes per SM (Hopper)
+TF32_FLOP_PER_S = 495e12   # H100 SXM dense TF32 tensor-core rate
 # the launches one wave of each Table 4 ladder row makes (native: none):
 # every row with an ACU quantizes its 22 weights on every call, and every
 # unfused row its 22 activations too
@@ -913,6 +924,10 @@ def narrow_phase(torch, np, dev, check, acu, n_sm) -> dict:
 # an NVIDIA H100 80GB HBM3 at 700 W: what the redesigned kernels are timed
 # against
 BWD_OLD_CORE_MS = {"fused_lut_bwd": 5.514, "fused_lut_conv_bwd_w": 7.061}
+# kernels 10 and 13 before their redesign, as this script measured them on
+# an NVIDIA H100 80GB HBM3 at 700 W: ms per granite-moe-3b-a800m decode step
+# (kernel 10) and per ResNet-20 LOWRANK wave of 256 (kernel 13)
+K10_K13_BEFORE_MS = {"fused_lut_grouped": 17.770, "err_matmul": 9.925}
 
 
 def bwd_phase(torch, np, dev, check, acu, n_sm, lookups_per_s,
@@ -1545,8 +1560,10 @@ def moe_phase(torch, np, dev, check, acu, ops, launches, account,
     from repro_torch.core import (ApproxConfig, QParams, acu_operand,
                                   inline_symmetric_scale, quantize)
     from repro_torch.core.quantization import device_scalar
+    from repro_torch.kernels.fused_lut_grouped.ops import (
+        fused_lut_grouped_planned, grouped_plan, split_segments)
     from repro_torch.kernels.fused_lut_grouped.ref import (
-        fused_lut_grouped_ref, live_rows)
+        fused_lut_grouped_ref, live_rows, packed_rows)
     from repro_torch.kernels.runtime import lut_to_int16
     from repro_torch.models import moe as M
     from repro_torch.models import transformer as T
@@ -1589,10 +1606,12 @@ def moe_phase(torch, np, dev, check, acu, ops, launches, account,
 
     weights = {n: codes(mlp0[n]) for n in ("w_gate", "w_up", "w_down")}
 
-    def hold(label, x, wname, counts, per_step=0, table=None, emit=False):
+    def hold(label, x, wname, counts, per_step=0, table=None, emit=False,
+             times=None):
         """Kernel 10 against its plain version at one shape, bitwise;
         times kernel, plain version and torch.bmm (f32) at (E, nb*C, K) x
-        (E, K, N); accounts ``per_step`` calls of one decode step."""
+        (E, K, N); accounts ``per_step`` calls of one decode step and puts
+        (ms, torch.bmm ms, bound ms) into ``times`` under ``label``."""
         wq, ws = weights[wname]
         G, C, K = x.shape
         N = wq.shape[2]
@@ -1630,11 +1649,23 @@ def moe_phase(torch, np, dev, check, acu, ops, launches, account,
         if per_step:
             account("fused_lut_grouped", per_step, ms, pms, lib, bytes_,
                     lookups, 0.0 if ok else float("inf"))
+        if times is not None:
+            times[label] = (ms, lib, bound)
         return yk
 
     # -- kernel 10 at granite's shapes -------------------------------------
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"  fused_lut_grouped (kernel 10) work plans on {n_sm} SMs:")
+    for t, label in ((LM_SLOTS, "decode"), (128, "prefill 128"),
+                     (512, "prefill 512")):
+        geo = M.dispatch_geometry(cfg, t)
+        for name, kk, nn in (("gate/up", d, f), ("down", f, d)):
+            plan = grouped_plan(n_exp, geo["n_blocks"], geo["capacity"], kk,
+                                nn, n_sm, n_codes, 2)
+            print(f"    {label} {name}: {plan.describe()}")
     print("  fused_lut_grouped against its plain version (counts from layer "
           "0's routing of random hidden states, and synthetic):")
+    step_ms = {}
     for t, label in ((LM_SLOTS, "decode"), (128, "prefill 128"),
                      (512, "prefill 512")):
         geo = M.dispatch_geometry(cfg, t)
@@ -1644,14 +1675,15 @@ def moe_phase(torch, np, dev, check, acu, ops, launches, account,
         G, C = geo["n_blocks"] * n_exp, geo["capacity"]
         xg, cnt = xe.reshape(G, C, d), counts.reshape(G)
         step = 2 * cfg.n_layers if label == "decode" else 0
-        gate = hold(f"{label} gate", xg, "w_gate", cnt, step)
-        up = hold(f"{label} up", xg, "w_up", cnt)
+        gate = hold(f"{label} gate", xg, "w_gate", cnt, step, times=step_ms)
+        up = hold(f"{label} up", xg, "w_up", cnt, times=step_ms)
         h = silu(gate.to(bf)) * up.to(bf)
-        hold(f"{label} down", h, "w_down", cnt, step // 2)
+        hold(f"{label} down", h, "w_down", cnt, step // 2, times=step_ms)
         if label == "decode":
             b32 = torch.from_numpy(biased_lut(np)).to(dev)
             hold("decode gate, biased", xg, "w_gate", cnt,
                  table=(lut_to_int16(b32), b32), emit=True)
+            decode_ops = (xg, cnt)
     geo = M.dispatch_geometry(cfg, 512)
     nb, C = geo["n_blocks"], geo["capacity"]
     G = nb * n_exp
@@ -1667,6 +1699,57 @@ def moe_phase(torch, np, dev, check, acu, ops, launches, account,
         for wname, width in (("w_gate", d), ("w_down", f)):
             x = torch.randn((G, C, width), generator=gen, device=dev).to(bf)
             hold(f"{label} {wname[2:]}", x * live.to(bf), wname, cnt)
+
+    # -- kernel 10: a planted fault, the bank-conflict replay --------------
+    xg, cnt = decode_ops
+    geo = M.dispatch_geometry(cfg, LM_SLOTS)
+    nb, C = geo["n_blocks"], geo["capacity"]
+    wq, ws = weights["w_gate"]
+    xs = act_scale(xg)
+    plan = grouped_plan(n_exp, nb, C, d, f, n_sm, n_codes, 2)
+    offsets, segs = split_segments(plan, cnt)
+    rows = packed_rows(cnt.cpu(), n_exp, C)
+    i = next(i for i, (tl, _, _, slot) in enumerate(segs.tolist())
+             if slot >= 0 and rows[plan.tile(tl)[0]].numel())
+    bad = (tuple(int(o - (o > i)) for o in offsets),
+           np.delete(segs, i, axis=0))
+    same, caught = [], []
+    for emit in (False, True):
+        want = fused_lut_grouped_ref(xg, wq, lut32, off, n_codes, xs, zero,
+                                     ws, cnt, emit_acc=emit)
+        # poison: the dropped split's tile is never stored
+        poison = torch.full_like(want, -2 ** 31 if emit else float("nan"))
+        for pinned, got in (((offsets, segs), same), (bad, caught)):
+            yk = fused_lut_grouped_planned(xg, wq, lut16, off, xs, zero, ws,
+                                           cnt, plan=plan, segments=pinned,
+                                           out=poison.clone(), emit_acc=emit)
+            got.append(torch.equal(yk, want))
+    e_i, _, nt_i = plan.tile(int(segs[i, 0]))
+    check(all(same), f"fused_lut_grouped decode gate: the host's split "
+                     f"({len(segs)} segments on {plan.grid} blocks), pinned, "
+                     f"gives the plain version bit for bit, float32 and "
+                     f"emit_acc")
+    check(not any(caught), f"fused_lut_grouped decode gate, planted fault: "
+                           f"the split with segment {i} (expert {e_i}, "
+                           f"column tile {nt_i}, K chunks {segs[i, 1]}.."
+                           f"{segs[i, 2]}) dropped differs from the plain "
+                           f"version, float32 and emit_acc")
+    # conflict-free: every row one code, and lane l's column j of a tile
+    # code 2l + 64 j (word l + 32 j, bank l)
+    col = torch.arange(f, device=dev)
+    free_w = (2 * (col % plan.bn // plan.tn) + 64 * (col % plan.tn % 4)
+              - 128).to(torch.int32)[None, None, :].expand(n_exp, d,
+                                                            f).contiguous()
+    free_x = torch.full_like(xg, 0.5)
+    rep = [cuda_ms(torch, lambda: ops["fused_lut_grouped"](
+        xx, ww, lut16, off, xs, zero, ws, cnt), 20)
+        for xx, ww in ((xg, wq), (free_x, free_w), (xg, wq))]
+    step_ms["replay"] = min(rep[0], rep[2]) / rep[1]
+    print(f"  fused_lut_grouped decode gate bank-conflict replay: real codes "
+          f"{rep[0]:.4f} ms (again {rep[2]:.4f}), conflict-free codes "
+          f"{rep[1]:.4f} ms: x{step_ms['replay']:.2f}")
+    redesign["kernel 10"] = step_ms
+    del free_w, free_x
 
     # -- kernel 8's decode path at granite's attention --------------------
     redesign["kernel 8 " + cfg.name] = hold_decode_path(
@@ -2680,11 +2763,17 @@ def conv_phase(torch, np, dev, check, acu, ops, launches, account,
             "seconds": took}
 
 
-def hold_err_matmul(torch, check, label, a, w, yk, yp, lut_int, acu):
-    """Kernel 13 against its plain version: every element within the
-    summation bound; ``round(y)`` equal to lut_matmul's integer wherever
-    that bound is below 0.5, and wherever the (tighter) LUT agreement
-    bound is. Returns the largest difference."""
+def share_of(torch, diff, bound) -> float:
+    """The largest ``diff / bound``, an element with both 0 counting 0."""
+    return float(torch.where(diff == 0, 0.0, diff / bound).max())
+
+
+def err_matmul_holds(torch, a, w, yk, yp, lut_int, acu):
+    """Whether ``yk`` (kernel 13's output) holds against ``yp`` (its plain
+    version): every element within the summation bound, finite, and
+    ``round(y)`` equal to lut_matmul's integer wherever that bound is below
+    0.5 and wherever the (tighter) LUT agreement bound is. Returns (ok,
+    the numbers a report prints)."""
     from repro_torch.kernels.err_matmul.ref import (lut_agreement_bound,
                                                     summation_bound)
     f, g = acu.device_factors(a.device)
@@ -2698,16 +2787,26 @@ def hold_err_matmul(torch, check, label, a, w, yk, yp, lut_int, acu):
     ok = (bool((diff <= bound).all()) and bool(torch.isfinite(yk).all())
           and torch.equal(rounded[small], lut_int[small])
           and torch.equal(rounded[near], lut_int[near]))
+    return ok, dict(max_diff=float(diff.max()), bound=float(bound.max()),
+                    of_bound=share_of(torch, diff, bound),
+                    small=float(small.double().mean()),
+                    near=float(near.double().mean()),
+                    same=float((rounded == lut_int).double().mean()))
+
+
+def hold_err_matmul(torch, check, label, a, w, yk, yp, lut_int, acu):
+    """Kernel 13 against its plain version (:func:`err_matmul_holds`),
+    checked. Returns the largest difference."""
+    ok, st = err_matmul_holds(torch, a, w, yk, yp, lut_int, acu)
     (m, k), n = a.shape, w.shape[1]
     check(ok, f"err_matmul {label} {m}x{k}x{n}: max |diff| "
-              f"{float(diff.max()):.3e} within the summation bound (up to "
-              f"{float(bound.max()):.3e}); round(y) == lut_matmul where "
-              f"it is below 0.5 ({float(small.double().mean()):.4f} of "
-              f"elements) and where the LUT agreement bound is "
-              f"({float(near.double().mean()):.4f}); "
-              f"{float((rounded == lut_int).double().mean()):.6f} of all "
+              f"{st['max_diff']:.3e} within the summation bound (up to "
+              f"{st['bound']:.3e}; at most {st['of_bound']:.2e} of it); "
+              f"round(y) == lut_matmul where it is below 0.5 "
+              f"({st['small']:.4f} of elements) and where the LUT agreement "
+              f"bound is ({st['near']:.4f}); {st['same']:.6f} of all "
               f"elements round to lut_matmul")
-    return float(diff.max())
+    return st["max_diff"]
 
 
 def ladder_phase(torch, np, dev, check, ops, launches, params, images):
@@ -2988,8 +3087,9 @@ def main() -> int:
         from repro_torch.kernels.flash_attention.ops import (
             approx_flash_attention, approx_flash_attention_paged,
             flash_attention)
-        from repro_torch.kernels.err_matmul.ops import err_matmul
-        from repro_torch.kernels.err_matmul.ref import err_matmul_ref
+        from repro_torch.kernels.err_matmul.ops import err_matmul, err_tile
+        from repro_torch.kernels.err_matmul.ref import (
+            err_matmul_ref, err_matmul_tf32_ref, summation_bound)
         from repro_torch.kernels.fused_lut_grouped.ops import (
             fused_lut_grouped)
         from repro_torch.kernels.lut_matmul.ops import lut_matmul, lut_plan
@@ -3078,15 +3178,46 @@ def main() -> int:
     lr_acu = make_acu(MULT, "lowrank", rank=RANK, use_kernels=True)
     f13, g13 = lr_acu.device_factors(dev)
     table_bytes = 2 * f13.numel() * 4
+    lowrank_stats = {"tf32_bound": 0.0}
 
     def lowrank_gemm(label, count, a, wmat, lut_int):
         """Holds err_matmul against its plain version at one GEMM shape
-        and accounts its time; returns the line to print."""
+        and accounts its time; prints how far one plain TF32 pass (the
+        3xTF32 split's lo terms dropped, emulated) lies from the summation
+        bound, beside the kernel; at the stage 0 shape also a planted fault
+        (one tile's exact term without its last k, which the hold must
+        catch) and the bank-conflict replay. Returns the line to print."""
         (M, K), N = a.shape, wmat.shape[1]
         em_k = lambda: err_matmul(a, wmat, f13, g13, off)
         em_p = lambda: err_matmul_ref(a, wmat, f13, g13, off)
-        err = hold_err_matmul(torch, check, label, a, wmat, em_k(), em_p(),
-                              lut_int, lr_acu)
+        yk, yp = em_k(), em_p()
+        err = hold_err_matmul(torch, check, label, a, wmat, yk, yp, lut_int,
+                              lr_acu)
+        bound = summation_bound(a, wmat, f13, g13, off)
+        y1 = err_matmul_tf32_ref(a, wmat, f13, g13, off, passes=1)
+        tf32_of = share_of(torch, (y1.double() - yp.double()).abs(), bound)
+        k_of = share_of(torch, (yk.double() - yp.double()).abs(), bound)
+        lowrank_stats[label] = (k_of, tf32_of)
+        del y1, bound
+        if label == "stage0":
+            bn, wm = err_tile(M, N, n_sm)
+            bm = (4 if bn == 64 else 8) * wm
+            bad = yk.clone()
+            bad[:bm, :bn] -= (a[:bm, K - 1:].double()
+                              * wmat[K - 1:, :bn].double()).float()
+            caught, _ = err_matmul_holds(torch, a, wmat, bad, yp, lut_int,
+                                         lr_acu)
+            check(not caught, f"err_matmul {label}, planted fault: tile 0 "
+                              f"({bm} x {bn}) with its exact term's last k "
+                              f"left out fails the hold")
+            zeros = (torch.zeros_like(a), torch.zeros_like(wmat))
+            t = [cuda_ms(torch, lambda: err_matmul(aa, ww, f13, g13, off), 10)
+                 for aa, ww in ((a, wmat), zeros, (a, wmat))]
+            lowrank_stats["replay"] = min(t[0], t[2]) / t[1]
+            print(f"  err_matmul {label} bank-conflict replay: real codes "
+                  f"{t[0]:.4f} ms (again {t[2]:.4f}), code 0 everywhere "
+                  f"{t[1]:.4f} ms: x{lowrank_stats['replay']:.2f}")
+            del bad
         fa = torch.randn((M, K * RANK), generator=gen, device=dev)
         gw = torch.randn((K * RANK, N), generator=gen, device=dev)
         lib = cuda_ms(torch, lambda: torch.matmul(fa, gw), 10)
@@ -3096,9 +3227,14 @@ def main() -> int:
         account("err_matmul", count, ms, pms, lib,
                 (M * K + K * N) * 4 + table_bytes + M * N * 4,
                 M * K * N * RANK, err, ops_per_s=fma_per_s)
+        tf32_ms = 2 * M * K * N * RANK / TF32_FLOP_PER_S * 1e3
+        lowrank_stats["tf32_bound"] += count * tf32_ms
         return (f"err_matmul {ms:.4f} ms (plain {pms:.3f}, torch.matmul "
                 f"f32 at K*r {lib:.4f}, FMA bound "
-                f"{M * K * N * RANK / fma_per_s * 1e3:.4f} ms)")
+                f"{M * K * N * RANK / fma_per_s * 1e3:.4f} ms, TF32 bound "
+                f"{tf32_ms:.4f} ms, 3xTF32 {3 * tf32_ms:.4f}; of the "
+                f"summation bound: kernel {k_of:.2e}, one plain TF32 pass "
+                f"{tf32_of:.2e})")
 
     print("kernel checks at ResNet-20 wave shapes (batch 256):")
     for name, cin, hw, cout, k, stride, padding, count in CONVS:
@@ -3568,6 +3704,26 @@ def main() -> int:
           + "; bank-conflict replay (real / conflict-free codes) " + ", ".join(
               f"N={k.split()[1]}: kernel 4 {v[0]:.2f}, kernel 7 {v[1]:.2f}"
               for k, v in bwd_times.items() if k.startswith("conflicts")))
+    k10, s10, s13 = (redesign["kernel 10"], stats["fused_lut_grouped"],
+                     stats["err_matmul"])
+    print(f"kernels 10 and 13 redesigned: fused_lut_grouped "
+          f"{s10['ms']:.3f} ms per granite decode step (before "
+          f"{K10_K13_BEFORE_MS['fused_lut_grouped']:.3f}) vs torch.bmm f32 "
+          f"{s10['lib_ms']:.3f} and bound {s10['bound_ms']:.3f}; by call "
+          f"(ms, torch.bmm, bound): " + ", ".join(
+              f"{k} {v[0]:.4f}, {v[1]:.4f}, {v[2]:.4f}"
+              for k, v in k10.items() if k != "replay")
+          + f"; bank-conflict replay x{k10['replay']:.2f}. err_matmul "
+          f"{s13['ms']:.3f} ms per ResNet-20 LOWRANK wave (before "
+          f"{K10_K13_BEFORE_MS['err_matmul']:.3f}) vs torch.matmul f32 "
+          f"{s13['lib_ms']:.3f}, FMA bound {s13['bound_ms']:.3f}, TF32 bound "
+          f"{lowrank_stats['tf32_bound']:.3f} (3xTF32 "
+          f"{3 * lowrank_stats['tf32_bound']:.3f}); largest share of the "
+          f"summation bound, kernel / one plain TF32 pass: " + ", ".join(
+              f"{k} {v[0]:.2e} / {v[1]:.2e}"
+              for k, v in lowrank_stats.items()
+              if k not in ("tf32_bound", "replay"))
+          + f"; bank-conflict replay x{lowrank_stats['replay']:.2f}")
     print("kernel 11 at gemma2-27b (kernel / SDPA at the model's dtype / SDPA "
           "float32 on its backend / TF32 bound / FP32 bound, ms): "
           + ", ".join(f"{k[10:]} {v[0]:.3f} / {v[1]:.3f} / {v[2]:.3f} on "

@@ -44,6 +44,40 @@ def err_matmul_ref(a: torch.Tensor, w: torch.Tensor, f: torch.Tensor,
     return exact + error_correction(a, w, f, g, offset)
 
 
+def tf32_split(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``t = hi + lo`` as the kernel splits each gathered value: ``hi`` is
+    ``t`` rounded to its top 11 significant bits by Veltkamp's split
+    (``s = t * 8193; hi = s - (s - t)``, each operation rounded in
+    float32), a TF32 value; ``lo = t - hi`` (exact) with its low 13 bits
+    dropped, as the tensor core reads a TF32 operand. float32 out."""
+    t = t.to(torch.float32)
+    s = t * 8193.0
+    hi = s - (s - t)
+    bits = (t - hi).contiguous().view(torch.int32)
+    return hi, (bits & ~0x1FFF).view(torch.float32)
+
+
+def err_matmul_tf32_ref(a: torch.Tensor, w: torch.Tensor, f: torch.Tensor,
+                        g: torch.Tensor, offset: int, *,
+                        passes: int = 3) -> torch.Tensor:
+    """What the kernel's tensor-core correction computes, in float32:
+    every gathered table value split into TF32 ``hi + lo``
+    (:func:`tf32_split`; splitting the tables splits every gathered
+    value), then ``(lo.hi + hi.lo) + hi.hi`` (``passes=3``, the kernel's
+    3xTF32), or ``hi.hi`` alone (``passes=1``, one plain TF32 pass). A
+    product of two TF32 values is exact in float32, so each term is
+    :func:`error_correction` on the split tables. The exact term is the
+    int32 sum; the two meet once. Run it with TF32 off on a card."""
+    fh, fl = tf32_split(f)
+    gh, gl = tf32_split(g)
+    terms = [(fl, gh), (fh, gl), (fh, gh)] if passes == 3 else [(fh, gh)]
+    corr = None
+    for ft, gt in terms:
+        c = error_correction(a, w, ft, gt, offset)
+        corr = c if corr is None else corr + c
+    return exact_int_product(a, w).to(torch.float32) + corr
+
+
 _U = 2.0 ** -24     # unit roundoff of float32
 
 

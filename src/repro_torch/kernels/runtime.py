@@ -61,9 +61,10 @@ SIGNATURES = {
     "approx_flash_attention": ("approx_flash_attention_launch",
                                [_P] * 12 + [_I] * 12 + [_L] * 9 + [_I] * 7
                                + [ctypes.c_float] + [_I] * 4 + [_P]),
-    "err_matmul": ("err_matmul_launch", [_P] * 5 + [_I] * 7 + [_P]),
+    "err_matmul": ("err_matmul_launch", [_P] * 5 + [_I] * 9 + [_P]),
     "fused_lut_grouped": ("fused_lut_grouped_launch",
-                          [_P, _I] + [_P] * 7 + [_I] * 11 + [_P]),
+                          [_P, _I] + [_P] * 7 + [_I] * 10 + [_P] + [_I] * 8
+                          + [_P, _I, _P]),
     "quantize": ("quantize_launch",
                  [_P, _I, _P, _P, _P, _I] + [_L] * 16 + [_L, _I, _I, _I,
                                                          _P]),

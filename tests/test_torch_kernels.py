@@ -469,3 +469,85 @@ def test_cuda_fused_lut_dense_split_shapes(cuda, table):
                     x, wq, l32, OFF, 256, xs, xz, ws, plan=plan,
                     emit_acc=emit))
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", sorted(TABLES))
+def test_cuda_grouped_and_err_mma_kernels(cuda, table):
+    """On a card, the two kernels redesigned last. Kernel 10
+    (fused_lut_grouped): one launch a call, bitwise equal to its plain
+    version and to the plain version walked over the host's copy of its
+    split (``split_segments``), float32 and emit_acc, at decode-like
+    (one row group, bfloat16) and prefill-like (several row groups,
+    float32) shapes with empty groups; the same segments pinned give the
+    same bits, and with one K split dropped they differ. Kernel 13
+    (err_matmul) on the tensor cores at ranks 8 (the pre-split tables), 4
+    and 12 (k * r in groups of 8): within the summation bound of its plain
+    version."""
+    from repro_torch.kernels.err_matmul.ops import err_matmul
+    from repro_torch.kernels.err_matmul.ref import (err_matmul_ref,
+                                                    summation_bound)
+    from repro_torch.kernels.fused_lut_grouped.ops import (
+        fused_lut_grouped, fused_lut_grouped_planned, grouped_plan,
+        split_segments)
+    from repro_torch.kernels.fused_lut_grouped.ref import (
+        fused_lut_grouped_plan_ref, fused_lut_grouped_ref)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    lut = torch.from_numpy(TABLES[table])
+    l16 = runtime.lut_to_int16(lut).to(cuda)
+    l32 = lut.reshape(-1).to(cuda)
+    n_sm = runtime.sm_count(0)
+    for G, E, C, K, N, dt in ((160, 10, 1, 300, 256, torch.bfloat16),
+                              (48, 3, 1, 45, 40, torch.bfloat16),
+                              (32, 4, 12, 130, 70, torch.float32)):
+        x = torch.randn((G, C, K), generator=g, device=cuda).to(dt)
+        wq = torch.randint(-128, 128, (E, K, N), generator=g, device=cuda,
+                           dtype=torch.int32)
+        ws = torch.rand((E, N), generator=g, device=cuda) * 0.01
+        counts = torch.randint(0, C + 1, (G,), generator=g, device=cuda,
+                               dtype=torch.int32)
+        counts[::7] = 0
+        xs = x.float().abs().amax() / 127
+        xz = torch.tensor(0.0, device=cuda)
+        plan = grouped_plan(E, G // E, C, K, N, n_sm, 256, x.element_size())
+        offsets, segs = split_segments(plan, counts)
+        for emit in (False, True):
+            n0 = fused_lut_grouped.launches
+            got = fused_lut_grouped(x, wq, l16, OFF, xs, xz, ws, counts,
+                                    emit_acc=emit)
+            assert fused_lut_grouped.launches == n0 + 1
+            want = fused_lut_grouped_ref(x, wq, l32, OFF, 256, xs, xz, ws,
+                                         counts, emit_acc=emit)
+            assert torch.equal(got, want), (G, E, C, K, N, emit)
+            assert torch.equal(want, fused_lut_grouped_plan_ref(
+                x, wq, l32, OFF, 256, xs, xz, ws, counts, plan=plan,
+                emit_acc=emit))
+            pinned = fused_lut_grouped_planned(
+                x, wq, l16, OFF, xs, xz, ws, counts, plan=plan,
+                segments=(offsets, segs), emit_acc=emit)
+            assert torch.equal(pinned, want)
+        split = [i for i, s in enumerate(segs.tolist()) if s[3] >= 0]
+        if split:   # the dropped split's tile is never stored: poison
+            i = split[0]
+            bad = (tuple(int(o - (o > i)) for o in offsets),
+                   np.delete(segs, i, axis=0))
+            poison = torch.full((G, C, N), float("nan"), device=cuda)
+            assert not torch.equal(fused_lut_grouped_planned(
+                x, wq, l16, OFF, xs, xz, ws, counts, plan=plan,
+                segments=bad, out=poison), fused_lut_grouped_ref(
+                    x, wq, l32, OFF, 256, xs, xz, ws, counts))
+    for rank in (8, 4, 12):
+        acu = make_acu(MULT, "lowrank", rank=rank, use_kernels=True)
+        f, gt = acu.device_factors(cuda)
+        for m, k, n in ((4096, 144, 16), (1000, 77, 40), (300, 27, 70)):
+            a = torch.randint(-128, 128, (m, k), generator=g, device=cuda,
+                              dtype=torch.int32)
+            w = torch.randint(-128, 128, (k, n), generator=g, device=cuda,
+                              dtype=torch.int32)
+            y = err_matmul(a, w, f, gt, acu.offset)
+            yp = err_matmul_ref(a, w, f, gt, acu.offset)
+            bound = summation_bound(a, w, f, gt, acu.offset)
+            assert bool(((y.double() - yp.double()).abs() <= bound).all()), \
+                (rank, m, k, n)
+    torch.cuda.synchronize()

@@ -484,3 +484,36 @@ def test_cuda_err_matmul_matches_plain_version(cuda):
     assert err_matmul.launches == n0 + 3
     assert bool(torch.isfinite(x.grad).all() and torch.isfinite(wt.grad).all())
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank", [1, 4, 5, 12])
+def test_cuda_err_matmul_other_ranks(cuda, rank):
+    """On a card: kernel 13 at ranks other than 8 walks k * r in groups of
+    8 (the MMA's depth) with the tail zeroed; one launch a call, within
+    the summation bound of its plain version, and at ResNet-20's stem
+    (K = 27, the LUT agreement bound below 0.5 almost everywhere) it
+    rounds to lut_matmul's integers where the bound says it must."""
+    from repro_torch.core.approx_ops import exact_f32
+    acu = make_acu("mul8s_1L2H", "lowrank", rank=rank, use_kernels=True)
+    lut_acu = make_acu("mul8s_1L2H", "lut", use_kernels=True)
+    f, g = acu.device_factors(cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(rank)
+    for m, k, n in ((2048, 27, 16), (513, 130, 33)):
+        a = torch.randint(-128, 128, (m, k), generator=gen, device=cuda,
+                          dtype=torch.int32)
+        w = torch.randint(-128, 128, (k, n), generator=gen, device=cuda,
+                          dtype=torch.int32)
+        n0 = err_matmul.launches
+        y = err_matmul(a, w, f, g, acu.offset)
+        assert err_matmul.launches == n0 + 1
+        with exact_f32():
+            yp = err_matmul_ref(a, w, f, g, acu.offset)
+            bound = summation_bound(a, w, f, g, acu.offset)
+            near = lut_agreement_bound(y, a, w, f, g, acu.offset,
+                                       acu.lowrank.max_abs_err) < 0.5
+        assert bool(((y.double() - yp.double()).abs() <= bound).all())
+        lut = lut_acu.matmul(a, w)
+        assert torch.equal(torch.round(y)[near].to(torch.int32), lut[near])
+    torch.cuda.synchronize()
