@@ -133,10 +133,15 @@
    first holds the WKV recurrence kernel (wkv) against its plain version on
    the card at the decode shape and the engines' prefill shapes (the state
    bitwise, the output within the k-sum's summation-order bound), and the
-   quantize kernel bitwise at every weight shape of rwkv6-3b,
+   quantize kernel (kernel 2) bitwise at every weight shape of rwkv6-3b,
    granite-moe-3b-a800m and ResNet-20 in each broadcast form, in float32
-   and bfloat16, with values on half-code boundaries and past the clip;
-   then serves 32 requests (16 to 200 prompt tokens, 32 new tokens each)
+   and bfloat16, with values on half-code boundaries and past the clip,
+   each on a vector path of ``quantize_plan`` (``vector_launches`` checked
+   against the plan), timed per rwkv6-3b decode step against its bytes
+   bound and its time before the redesign, then a ragged per-tensor x
+   that starts off a 16-byte boundary (the flat path's head and tail) and
+   a planted fault (the plan with its last vector dropped, on an output
+   poisoned outside the codes); then serves 32 requests (16 to 200 prompt tokens, 32 new tokens each)
    through the wave and continuous engines with the counters checked
    against 257 dense, 257 quantize and 32 wkv launches per model call;
    checks a short request's tokens against the CPU on the model cut to 2
@@ -152,10 +157,12 @@
    with q scaled 10x (scores where the softcap bites), at a ragged S, at
    Sq < Sk and at SmolLM-135M's heads in float32, and shows that planted
    faults of the plain version (window off by one, softcap dropped, first
-   KV tile dropped) lie beyond that tolerance; times kernel, plain
-   version and SDPA (which has no softcap) at the model's dtype and on
-   float32 operands (naming the kernel PyTorch ran) at the model's shapes,
-   beside the TF32 and FP32 CUDA-core bounds; holds
+   KV tile dropped) lie beyond that tolerance, and so does the kernel
+   run on its plan with the heaviest item's last KV tile dropped; times
+   kernel, plain version and SDPA (which has no softcap) at the model's
+   dtype and on float32 operands (naming the kernel PyTorch ran) at the
+   model's shapes, beside the TF32, split-TF32 and FP32 CUDA-core bounds
+   and the kernel's time before its redesign; holds
    quantize and fused_lut_dense bitwise at every GEMM shape of the
    forward (M = 4352, full K and N; the plain GEMM on the first and last
    columns); then scores one sequence of 4352 MarkovLM tokens under
@@ -928,6 +935,10 @@ BWD_OLD_CORE_MS = {"fused_lut_bwd": 5.514, "fused_lut_conv_bwd_w": 7.061}
 # an NVIDIA H100 80GB HBM3 at 700 W: ms per granite-moe-3b-a800m decode step
 # (kernel 10) and per ResNet-20 LOWRANK wave of 256 (kernel 13)
 K10_K13_BEFORE_MS = {"fused_lut_grouped": 17.770, "err_matmul": 9.925}
+# kernels 2 and 11 before their redesign, as this script measured them on
+# an NVIDIA H100 80GB HBM3 at 700 W: ms per rwkv6-3b decode step (kernel 2)
+# and per gemma2-27b forward of 4352 tokens (kernel 11, 46 layers)
+K2_K11_BEFORE_MS = {"quantize": 10.639, "flash_attention": 344.173}
 
 
 def bwd_phase(torch, np, dev, check, acu, n_sm, lookups_per_s,
@@ -1881,6 +1892,17 @@ def quantize_operands(torch, gen, dev, shape, form, dtype):
     return x.to(dtype), s, z
 
 
+def quantize_plan_for(torch, x, s, z):
+    """The plan kernel 2's wrapper makes for these operands."""
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.quantize.ops import VEC_BYTES, quantize_plan
+    shape = tuple(x.shape)
+    return quantize_plan(shape, x.stride(), s.expand(shape).stride(),
+                         z.expand(shape).stride(), x.element_size(),
+                         x.data_ptr() % VEC_BYTES,
+                         runtime.launch_config(x)[0])
+
+
 def perturb_rwkv(torch, params, gen) -> None:
     """Draws, in place, the rwkv leaves that the reference's init leaves at
     one value (``lora_B_*`` and ``bonus`` at 0, one decay, mixes at 0.5),
@@ -1990,21 +2012,31 @@ def rwkv_phase(torch, np, dev, check, acu, ops, launches, account,
          for name, cin, _, cout, k, _, _, _ in CONVS]
     print("  quantize against its plain version, bitwise, float32 and "
           "bfloat16 (a third of the values on half-code boundaries, 3 % "
-          "past the clip):")
+          "past the clip), on the path quantize_plan picks (strip, flat or "
+          "strided; every weight on a vector path):")
+    step_ms = step_bound = step_copy = 0.0
     for label, shape, form, per_step in shapes:
-        same = []
+        same, paths = [], []
         for dtype in (torch.float32, bf):
             x, s, z = quantize_operands(torch, gen, dev, shape, form, dtype)
+            path = quantize_plan_for(torch, x, s, z).path
+            v0 = ops["quantize"].vector_launches
             qk, qp = ops["quantize"](x, s, z), quantize_ref(x, s, z)
             same.append(torch.equal(qk, qp) and int(qk.min()) == -128
-                        and int(qk.max()) == 127)
-        check(all(same), f"quantize {label} {shape}, "
-                         f"{'per tensor' if form == 'tensor' else form}: "
-                         f"bitwise equal in float32 and bfloat16, both clip "
-                         f"edges reached")
+                        and int(qk.max()) == 127
+                        and ops["quantize"].vector_launches - v0
+                        == int(path != "strided"))
+            paths.append(path)
+        check(all(same) and "strided" not in paths,
+              f"quantize {label} {shape}, "
+              f"{'per tensor' if form == 'tensor' else form}: bitwise equal "
+              f"in float32 and bfloat16, both clip edges reached, path "
+              f"{'/'.join(dict.fromkeys(paths))} (vector_launches as the "
+              f"plan says)")
         if per_step:                      # the JSON row: one decode step
             kern = lambda: ops["quantize"](x, s, z)
             ms = cuda_ms(torch, kern, 10)
+            step_ms += per_step * ms
             t0 = time.perf_counter()
             for _ in range(20):
                 kern()
@@ -2018,14 +2050,57 @@ def rwkv_phase(torch, np, dev, check, acu, ops, launches, account,
             bytes_ = x.numel() * 6 + shape[1] * 8
             account("quantize", per_step, ms, pms, lib, bytes_, 0,
                     0.0 if all(same) else float("inf"))
-            print(f"    {label:28s} {shape}: {ms:.4f} ms (plain {pms:.3f}, "
+            step_bound += per_step * bytes_ / HBM_BYTES_PER_S * 1e3
+            # the card's own rate for these bytes: a PyTorch copy of the
+            # bfloat16 bits into int32, 2 bytes read and 4 written each
+            y32 = torch.empty(shape, dtype=torch.int32, device=dev)
+            copy_ms = cuda_ms(torch, lambda: y32.copy_(x.view(torch.int16)),
+                              10)
+            step_copy += per_step * copy_ms
+            del y32
+            print(f"    {label:28s} {shape} bfloat16, {paths[-1]}: "
+                  f"{ms:.4f} ms (plain {pms:.3f}, "
                   f"torch.quantize_per_channel f32 {lib:.4f}, not "
-                  f"bit-identical), bytes bound "
+                  f"bit-identical; a copy of the same bytes "
+                  f"{copy_ms:.4f}), bytes bound "
                   f"{bytes_ / HBM_BYTES_PER_S * 1e3:.4f} ms, x{per_step} "
                   f"per decode step; host dispatch {host_ms:.4f} ms per "
                   f"call", flush=True)
             del xf
         del x, s, z, qk, qp
+    print(f"  quantize per rwkv6-3b decode step: {step_ms:.3f} ms (before "
+          f"the redesign {K2_K11_BEFORE_MS['quantize']:.3f}), bytes bound "
+          f"{step_bound:.3f} ms ({step_bound / step_ms:.3f} of it); a "
+          f"PyTorch copy of the same bytes (bfloat16 bits into int32) "
+          f"{step_copy:.3f} ms ({step_bound / step_copy:.3f} of the bound)")
+
+    # a ragged per-tensor x that starts off a 16-byte boundary: the flat
+    # path's head, whole vectors and tail; then a planted fault, the plan
+    # with its last vector dropped on an output poisoned past the codes
+    for dtype in (torch.float32, bf):
+        base, s, z = quantize_operands(torch, gen, dev, (1_000_016,),
+                                       "tensor", dtype)
+        x = base[3:3 + 1_000_003]
+        plan = quantize_plan_for(torch, x, s, z)
+        qp = quantize_ref(x, s, z)
+        v0 = ops["quantize"].vector_launches
+        same = torch.equal(ops["quantize"](x, s, z), qp)
+        check(same and plan.path == "flat" and plan.head > 0
+              and plan.tail < x.numel()
+              and ops["quantize"].vector_launches - v0 == 1,
+              f"quantize ragged {x.numel()} elements 3 past a 16-byte "
+              f"boundary, {str(dtype)[6:]}: flat path (head {plan.head}, "
+              f"{plan.vectors} vectors, tail from {plan.tail}), bitwise "
+              f"equal")
+        poison = torch.full(x.shape, 1 << 20, dtype=torch.int32, device=dev)
+        bad = ops["quantize"](x, s, z, plan=plan.drop_last_vector(),
+                              out=poison)
+        left = int((bad != qp).sum())
+        check(left == plan.vec and not torch.equal(bad, qp),
+              f"quantize planted fault, {str(dtype)[6:]}: the plan with its "
+              f"last vector dropped leaves {left} codes poisoned and fails "
+              f"the bitwise check")
+        del base, x, qp, poison, bad
 
     # -- serve 32 requests through the wave and continuous engines --------
     t0 = time.perf_counter()
@@ -2140,6 +2215,7 @@ def score_phase(torch, np, dev, check, acu, ops, launches, account,
                                   symmetric_qparams)
     from repro_torch.core.approx_ops import approx_dense
     from repro_torch.data.pipeline import MarkovLM
+    from repro_torch.kernels.flash_attention.ops import flash_plan
     from repro_torch.kernels.flash_attention.ref import (
         FLASH_BK, flash_attention_ref, flash_tolerance)
     from repro_torch.kernels.fused_lut_dense.ref import fused_lut_dense_ref
@@ -2224,6 +2300,21 @@ def score_phase(torch, np, dev, check, acu, ops, launches, account,
                   f"rows beyond)")
             del bad, fe
         if per_fwd:
+            # a planted fault of the kernel: the heaviest item's last KV
+            # tile dropped from its plan
+            plan = flash_plan(nq, sq, sk, nq // nkv, True, win, hd,
+                              k.element_size())
+            bad = ops["flash_attention"](*views, plan=plan.drop_last_tile(0),
+                                         **kw)
+            fe = (bad.reshape(yp.shape).double() - yp.double()).abs() / tol
+            check(bool((fe > 1).any()),
+                  f"flash_attention {label}: the plan with its heaviest "
+                  f"item's last KV tile dropped lies beyond the tolerance "
+                  f"(largest |diff| / tolerance {float(fe.max()):.1f}; plan: "
+                  f"{len(plan.items)} items of {plan.heads} heads x "
+                  f"{plan.bq} rows, {plan.warps} warps, {plan.smem} B of "
+                  f"shared memory)")
+            del bad, fe
             yc = gqa_attention(q, k, v, impl="chunked", **kw)
             ec = (yk.transpose(1, 2).double() - yc.double()).abs()
             ec = ec.transpose(1, 2).reshape(err.shape)
@@ -2257,8 +2348,13 @@ def score_phase(torch, np, dev, check, acu, ops, launches, account,
             bytes_ = (2 * sq * nq + 2 * sk * nkv) * hd * yk.element_size()
             bound = max(bytes_ / HBM_BYTES_PER_S, flops / TF32_FLOPS) * 1e3
             fp32 = flops / 2 / fma_per_s * 1e3
+            # the split's own floor: 2 TF32 products at bfloat16 K and V,
+            # 3 at float32
+            passes = 2 if dt == torch.bfloat16 else 3
+            split = passes * flops / TF32_FLOPS * 1e3
+            before = K2_K11_BEFORE_MS["flash_attention"] / cfg.n_layers
             redesign[f"kernel 11 {label}"] = (ms, lib, lib32, backend,
-                                              bound, fp32)
+                                              bound, fp32, split)
             account("flash_attention", per_fwd, ms, pms, lib32, bytes_,
                     flops, float(err.max()), ops_per_s=TF32_FLOPS)
             print(f"    {label}: {ms:.4f} ms (plain {pms:.2f}; "
@@ -2266,8 +2362,12 @@ def score_phase(torch, np, dev, check, acu, ops, launches, account,
                   f"{str(dt)[6:]} {lib:.4f}, float32 {lib32:.4f} on "
                   f"{backend}), bound {bound:.4f} ms (operations: "
                   f"{flops / 1e9:.1f} GFLOP at the TF32 rate; "
-                  f"{bytes_ / 1e6:.1f} MB); at the FP32 CUDA-core rate "
-                  f"{fp32:.4f} ms; x{per_fwd} per forward", flush=True)
+                  f"{bytes_ / 1e6:.1f} MB); {passes}xTF32 split bound "
+                  f"{split:.4f} ms; at the FP32 CUDA-core rate "
+                  f"{fp32:.4f} ms; x{per_fwd} per forward; before the "
+                  f"redesign {before:.3f} ms a layer on average "
+                  f"({K2_K11_BEFORE_MS['flash_attention']:.3f} per "
+                  f"forward, PERF.md)", flush=True)
             del qd, kd, vd, q32, k32, v32, mask
         del q, k, v, views, fold, yk, yp, tol, err
     torch.cuda.empty_cache()
@@ -3724,10 +3824,18 @@ def main() -> int:
               for k, v in lowrank_stats.items()
               if k not in ("tf32_bound", "replay"))
           + f"; bank-conflict replay x{lowrank_stats['replay']:.2f}")
-    print("kernel 11 at gemma2-27b (kernel / SDPA at the model's dtype / SDPA "
-          "float32 on its backend / TF32 bound / FP32 bound, ms): "
+    s2, s11 = stats["quantize"], stats["flash_attention"]
+    print(f"kernels 2 and 11 redesigned: quantize {s2['ms']:.3f} ms per "
+          f"rwkv6-3b decode step (before "
+          f"{K2_K11_BEFORE_MS['quantize']:.3f}) vs bytes bound "
+          f"{s2['bound_ms']:.3f} ({s2['bound_ms'] / s2['ms']:.3f} of it); "
+          f"flash_attention {s11['ms']:.3f} ms per gemma2-27b forward "
+          f"(before {K2_K11_BEFORE_MS['flash_attention']:.3f}) vs TF32 "
+          f"bound {s11['bound_ms']:.3f}; by layer (kernel / SDPA at the "
+          f"model's dtype / SDPA float32 on its backend / TF32 bound / "
+          f"split bound / FP32 bound, ms): "
           + ", ".join(f"{k[10:]} {v[0]:.3f} / {v[1]:.3f} / {v[2]:.3f} on "
-                      f"{v[3]} / {v[4]:.3f} / {v[5]:.3f}"
+                      f"{v[3]} / {v[4]:.3f} / {v[6]:.3f} / {v[5]:.3f}"
                       for k, v in redesign.items()
                       if k.startswith("kernel 11 ")))
     print("kernel 6 against kernel 5 in the same call: "

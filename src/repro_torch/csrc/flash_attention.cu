@@ -13,34 +13,51 @@
 //     l' = alpha * l + sum_j p,  acc' = alpha * acc + p @ v
 //   out = acc / max(l, 1e-30), in q's dtype
 //
-// A block where every key of a row is masked gives that row p = exp(0);
+// A tile where every key of a row is masked gives that row p = exp(0);
 // the first visible key's alpha = exp(-1e30 - m') = 0 washes it out, as in
-// the reference. The reference asserts whole tiles; here query rows past
-// Sq are not written and keys past Sk get -inf (p = 0, as if absent), so
-// any S runs. KV tiles are walked from the first up to the reference's
-// causal block bound.
+// the reference. So the plan (kernels/flash_attention/ops.py: flash_plan)
+// lets an item start at the first KV tile any of its rows can see: the
+// tiles it skips would have been wiped out exactly. It ends at the tile of
+// its last real row's own key (the reference may walk one tile more, which
+// masks every key: p = 0, alpha = 1, no change). Query rows past Sq are not
+// written and keys past Sk get -inf (p = 0, as if absent), so any S runs.
 //
-// What bounds it on Hopper: operations. 2 * Hq * D * S(S+1)/2
-// multiply-adds per layer for QK and PV (gemma2-27b at S = 4352: 1.55e11
-// flops) against a few MB of Q, K, V and output.
+// What bounds it on Hopper: operations. 2 * Hq * D multiply-adds per
+// visible (query, key) pair for QK and PV (gemma2-27b at S = 4352: 1.55e11
+// flops a layer), at most 495 TFLOP/s on TF32 tensor cores, against a few
+// MB of Q, K, V and output; and the float32 contract, which one TF32 pass
+// (11 significant bits) misses by about 1000x (flash_tolerance). A float32
+// CUDA-core version of this kernel ran at 31 % of the FP32 rate.
 //
-// What the design does about it (a simple design that is right first):
-//  * one block of 256 threads per (query row b, q tile of 64 rows),
-//    heaviest (last) tiles first; Q is scaled and widened to float32 once
-//    into shared memory, K and V tiles of 64 keys are staged the same way,
-//    each operand read in its own dtype (float32 or bfloat16) through its
-//    strides, so a (B, S, H, D) tensor is read where it lies;
-//  * thread (ty, tx) of 16 x 16 owns query rows 4 ty .. 4 ty + 3: their
-//    online-softmax state (m, l) and a 4 x D/16 slice of the output
-//    accumulator stay in registers for the whole KV walk; QK gives it the
-//    scores of keys tx + 16 j, reduced across the 16 lanes of a row group
-//    with shuffles; p goes through shared memory to PV, where the thread
-//    owns columns 4 tx + 64 g;
-//  * shared rows are padded by 4 floats so that the float4 reads of
-//    different rows fall in different banks;
-//  * float32 FMAs on the CUDA cores (no tensor cores: the reference's
-//    float32 result is the contract), expf and tanhf without fast math,
-//    IEEE division for s / c and the final normalisation.
+// What the design does about it:
+//  * Split TF32 on the tensor cores (mma.sync m16n8k8, float32
+//    accumulators). Each operand x is split as hi + lo (Veltkamp: hi is x
+//    rounded to 11 significant bits, lo = x - hi read as TF32), a TF32
+//    product being exact in float32. bfloat16 K and V are exact in TF32,
+//    so QK is (q_hi + q_lo) . k and PV is (p_hi + p_lo) . v, two products
+//    each, q scaled first (f32(q) * f32(1/sqrt(D))) as the reference does;
+//    float32 K and V take 3xTF32: hi.hi + (hi.lo + lo.hi). The emulation
+//    is kernels/flash_attention/ref.py: flash_attention_tf32_ref.
+//  * P stays in registers. The MMA's k index is permuted: in every 8-wide
+//    k step, k = t is element 2t and k = t + 4 element 2t + 1. For PV
+//    (k = keys) that makes the QK product's C fragment, which holds the
+//    scores of keys 2t and 2t + 1 of rows g and g + 8, exactly the A
+//    fragment of P: no shuffles and no trip through shared memory. For QK
+//    (k = head dims) it makes each lane's two K values adjacent, so one
+//    ldmatrix gives a bfloat16 K fragment; ldmatrix.trans gives V's.
+//  * One block an item of the plan: a KV row with its query heads (all rep
+//    where they fit) and a q tile, 16 query rows a warp; each K/V tile is
+//    staged once for all of them. Items come heaviest first.
+//  * K and V tiles of 64 keys are copied in their own dtype by cp.async
+//    through the operands' strides into a two-stage ring (rows padded by
+//    16 bytes, so ldmatrix's eight rows fall in distinct banks): the next
+//    tile lands while this one is multiplied, one block barrier a tile.
+//    The scaled, split Q lives in shared memory in fragment order (each
+//    lane's four values one 16-byte load), staged by its own warp.
+//  * The per-score softmax is the reference's in float32: expf and tanhf
+//    without fast math, IEEE division for s / c and acc / max(l, 1e-30),
+//    the -1e30 mask; the mask test is skipped on tiles that a warp's 16
+//    rows see whole.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -48,12 +65,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBQ = 64;          // query rows per block
-constexpr int kBK = 64;          // keys per KV tile
-constexpr int kRows = 4;         // query rows per thread
-constexpr int kCols = kBK / 16;  // scores per thread and row
-constexpr int kPS = kBK + 4;     // padded row of the p tile
+constexpr int kBK = 64;          // keys of a KV tile
+constexpr int kMaxWarps = 8;     // 128 query rows an item
+constexpr int kSmemLimit = 232448;
 constexpr float kNegInf = -1e30f;
 
 // (heads per batch row, batch stride, head stride, position stride), in
@@ -67,10 +81,6 @@ __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-__device__ __forceinline__ void narrow(float* p, float x) { *p = x; }
-__device__ __forceinline__ void narrow(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 template <typename T>
 __device__ __forceinline__ const T* row_base(const T* p, const Addr& a,
@@ -78,199 +88,354 @@ __device__ __forceinline__ const T* row_base(const T* p, const Addr& a,
   return p + (row / a.heads) * a.b + (row % a.heads) * a.h;
 }
 
-template <int D>
-constexpr size_t smem_bytes() {
-  return (size_t)((kBQ + 2 * kBK) * (D + 4) + kBQ * kPS) * sizeof(float);
+// Shared memory: the split Q (hi then lo, float4 a lane and k step), then
+// two stages of a K and a V tile. The same on the host, and in ops.py
+// (flash_smem).
+template <int D, typename T>
+struct Layout {
+  static constexpr int kPitch = D + 16 / (int)sizeof(T);   // a staged row
+  static constexpr int kTile = kBK * kPitch;               // elements
+  __host__ __device__ static size_t q_bytes(int warps) {
+    return (size_t)warps * 16 * D * 8;
+  }
+  __host__ __device__ static size_t bytes(int warps) {
+    return q_bytes(warps) + 4 * (size_t)kTile * sizeof(T);
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// x = hi + lo: hi is x rounded to its top 11 significant bits (Veltkamp's
+// split by 2^13 + 1, a TF32 value), lo = x - hi exactly, of which the
+// tensor core reads the top 11 bits
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  const float t = __fmul_rn(x, 8193.0f);
+  const float h = __fsub_rn(t, __fsub_rn(t, x));
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(__fsub_rn(x, h));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// a bfloat16 pair from ldmatrix as two TF32 values (exact): low half is
+// element 2t (k = t), high half element 2t + 1 (k = t + 4)
+__device__ __forceinline__ void unpack_pair(uint32_t r, uint32_t (&b)[2]) {
+  b[0] = r << 16;
+  b[1] = r & 0xffff0000u;
+}
+
+__device__ __forceinline__ void store_pair(float* o, float a, float b) {
+  *reinterpret_cast<float2*>(o) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* o, float a,
+                                           float b) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
 }
 
 template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int sq, int sk,
-             int rep, Addr qa, Addr ka, Addr va, Addr oa, int causal,
-             int window, int has_cap, float cap, float scale) {
-  constexpr int S = D + 4;        // padded row of the Q, K and V tiles
-  constexpr int NG = D / 64;      // float4 column groups per thread in PV
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + kBQ * S;
-  float* vs = ks + kBK * S;
-  float* ps = vs + kBK * S;
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ out,
+                 const int4* __restrict__ items, int sq, int sk, int rep,
+                 int bq, Addr qa, Addr ka, Addr va, Addr oa, int causal,
+                 int window, int has_cap, float cap, float scale) {
+  using L = Layout<D, T>;
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int KS = D / 8;      // k steps of QK, column tiles of PV
+  constexpr int NT = kBK / 8;    // column tiles of QK, k steps of PV
+  constexpr int kChunks = D * (int)sizeof(T) / 16;   // 16 B pieces a row
+  constexpr int kPitch = L::kPitch;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warps = blockDim.x / 32;
+  const float4* q_hi = reinterpret_cast<const float4*>(smem);
+  const float4* q_lo = q_hi + warps * KS * 32;
+  T* stages = reinterpret_cast<T*>(smem + L::q_bytes(warps));
 
-  const int row = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
-  const int kv_row = row / rep;
-  const T* qp = row_base(q, qa, row);
+  const int4 item = items[blockIdx.x];   // (first query row, q0, tiles)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int per_head = bq / 16;
+  const int row = item.x + warp / per_head;          // folded query row
+  const int r0 = item.y + 16 * (warp % per_head);    // its first position
+  const int kv_row = item.x / rep;
   const T* kp = row_base(k, ka, kv_row);
   const T* vp = row_base(v, va, kv_row);
-  T* op = out + (row / oa.heads) * oa.b + (row % oa.heads) * oa.h;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int r0 = ty * kRows;
 
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int r = e / D, c = e % D, pos = q0 + r;
-    qs[r * S + c] = pos < sq ? widen(qp[pos * qa.s + c]) * scale : 0.f;
-  }
-
-  float m[kRows], l[kRows], acc[kRows][4 * NG];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * NG; ++c) acc[i][c] = 0.f;
-  }
-
-  const int last = min(q0 + kBQ, sq) - 1;   // the tile's last real row
-  const int n_kv = (sk + kBK - 1) / kBK;
-  const int kv_hi = causal ? min(n_kv, last / kBK + 1) : n_kv;
-
-  for (int kb = 0; kb < kv_hi; ++kb) {
-    const int k0 = kb * kBK;
-    __syncthreads();   // the last tile's readers are done (and Q is staged)
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int r = e / D, c = e % D, pos = k0 + r;
+  const int t_lo = item.z, t_hi = item.w;
+  auto stage = [&](int tile, int st) {
+    T* ks = stages + 2 * st * L::kTile;
+    T* vs = ks + L::kTile;
+    const int k0 = tile * kBK;
+    for (int i = threadIdx.x; i < kBK * kChunks; i += blockDim.x) {
+      const int r = i / kChunks, c = (i % kChunks) * (16 / (int)sizeof(T));
+      const int pos = k0 + r;
       const bool in = pos < sk;
-      ks[r * S + c] = in ? widen(kp[pos * ka.s + c]) : 0.f;
-      vs[r * S + c] = in ? widen(vp[pos * va.s + c]) : 0.f;
+      const long long p = in ? pos : 0;
+      cp_async16(ks + r * kPitch + c, kp + p * ka.s + c, in ? 16 : 0);
+      cp_async16(vs + r * kPitch + c, vp + p * va.s + c, in ? 16 : 0);
     }
-    __syncthreads();
+    cp_commit();
+  };
 
-    float s[kRows][kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; c += 4) {
-      float4 qv[kRows], kv[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(qs + (r0 + i) * S + c);
-#pragma unroll
-      for (int j = 0; j < kCols; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * S + c);
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          float a = s[i][j];
-          a = fmaf(qv[i].x, kv[j].x, a);
-          a = fmaf(qv[i].y, kv[j].y, a);
-          a = fmaf(qv[i].z, kv[j].z, a);
-          a = fmaf(qv[i].w, kv[j].w, a);
-          s[i][j] = a;
-        }
+  if (t_lo < t_hi) stage(t_lo, 0);   // lands while Q is staged
+
+  // -- the warp's 16 query rows, scaled, split, in fragment order -------
+  {
+    const T* qp = row_base(q, qa, row);
+    float* hi = reinterpret_cast<float*>(smem) + warp * KS * 128;
+    float* lo = hi + warps * KS * 128;
+    for (int e = lane; e < 16 * D; e += 32) {
+      const int i = e / D, d = e % D, pos = r0 + i;
+      const float x =
+          pos < sq ? __fmul_rn(widen(qp[pos * qa.s + d]), scale) : 0.f;
+      uint32_t h, l;
+      split(x, h, l);
+      // lane (i % 8) * 4 + (d % 8) / 2 of k step d / 8, component
+      // i / 8 + 2 (d % 2): a0 (g, 2t), a1 (g + 8, 2t), a2 (g, 2t + 1), a3
+      const int at = ((d / 8) * 32 + (i % 8) * 4 + (d % 8) / 2) * 4 +
+                     i / 8 + 2 * (d % 2);
+      hi[at] = __uint_as_float(h);
+      lo[at] = __uint_as_float(l);
     }
+  }
 
+  float o[KS][4];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qpos = q0 + r0 + i;
-      float bmax = -INFINITY;
+  for (int j = 0; j < KS; ++j)
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        float x = s[i][j];
-        if (has_cap) x = cap * tanhf(x / cap);
-        const bool vis = (!causal || kpos <= qpos) &&
-                         (window < 0 || kpos > qpos - window);
-        x = kpos >= sk ? -INFINITY : (vis ? x : kNegInf);
-        s[i][j] = x;
-        bmax = fmaxf(bmax, x);
-      }
-#pragma unroll
-      for (int o = 8; o; o >>= 1)
-        bmax = fmaxf(bmax, __shfl_xor_sync(0xffffffffu, bmax, o));
-      const float m_new = fmaxf(m[i], bmax);
-      const float alpha = expf(m[i] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        ps[(r0 + i) * kPS + tx + 16 * j] = p;
-        psum += p;
-      }
-#pragma unroll
-      for (int o = 8; o; o >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, o);
-      l[i] = alpha * l[i] + psum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4 * NG; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  for (int tile = t_lo; tile < t_hi; ++tile) {
+    const int st = (tile - t_lo) & 1;
+    cp_wait_all();
+    __syncthreads();   // this tile landed; the last one's readers are done
+    if (tile + 1 < t_hi) stage(tile + 1, st ^ 1);
+    const T* ks = stages + 2 * st * L::kTile;
+    const T* vs = ks + L::kTile;
+    const int k0 = tile * kBK;
 
-#pragma unroll 2
-    for (int j = 0; j < kBK; j += 4) {
-      float4 pv[kRows];
+    // -- s = q_hi . k + q_lo . k (+ q_hi . k_lo at float32) ----------------
+    float sh[NT][4], sl[NT][4];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(ps + (r0 + i) * kPS + j);
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int e = 0; e < 4; ++e) sh[j][e] = sl[j][e] = 0.f;
 #pragma unroll
-        for (int g = 0; g < NG; ++g) {
-          const float4 vv = *reinterpret_cast<const float4*>(
-              vs + (j + jj) * S + 4 * tx + 64 * g);
+    for (int kk = 0; kk < KS; ++kk) {
+      const float4 fh = q_hi[(warp * KS + kk) * 32 + lane];
+      const float4 fl = q_lo[(warp * KS + kk) * 32 + lane];
+      const uint32_t ah[4] = {__float_as_uint(fh.x), __float_as_uint(fh.y),
+                              __float_as_uint(fh.z), __float_as_uint(fh.w)};
+      const uint32_t al[4] = {__float_as_uint(fl.x), __float_as_uint(fl.y),
+                              __float_as_uint(fl.z), __float_as_uint(fl.w)};
+      if constexpr (kBf16) {
 #pragma unroll
-          for (int i = 0; i < kRows; ++i) {
-            const float p = jj == 0 ? pv[i].x : jj == 1 ? pv[i].y
-                          : jj == 2 ? pv[i].z : pv[i].w;
-            float* a = acc[i] + 4 * g;
-            a[0] = fmaf(p, vv.x, a[0]);
-            a[1] = fmaf(p, vv.y, a[1]);
-            a[2] = fmaf(p, vv.z, a[2]);
-            a[3] = fmaf(p, vv.w, a[3]);
+        for (int n4 = 0; n4 < NT; n4 += 4) {
+          // matrix lane / 8: keys (n4 + lane / 8) * 8 + lane % 8, dims kk * 8
+          uint32_t r[4];
+          ldmatrix_x4(r, ks + ((n4 + lane / 8) * 8 + lane % 8) * kPitch +
+                             kk * 8);
+#pragma unroll
+          for (int mi = 0; mi < 4; ++mi) {
+            uint32_t b[2];
+            unpack_pair(r[mi], b);
+            mma_tf32(sh[n4 + mi], ah, b);
+            mma_tf32(sl[n4 + mi], al, b);
           }
         }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const float2 kv = *reinterpret_cast<const float2*>(
+              ks + (nt * 8 + g) * kPitch + kk * 8 + 2 * t);
+          uint32_t bh[2], bl[2];
+          split(kv.x, bh[0], bl[0]);
+          split(kv.y, bh[1], bl[1]);
+          mma_tf32(sh[nt], ah, bh);
+          mma_tf32(sl[nt], ah, bl);
+          mma_tf32(sl[nt], al, bh);
+        }
+      }
+    }
+
+    // -- softcap, masks, online softmax (rows g and g + 8) ---------------
+    const bool whole = k0 + kBK <= sk && (!causal || k0 + kBK - 1 <= r0) &&
+                       (window < 0 || k0 > r0 + 15 - window);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sh[j][e] + sl[j][e];
+        if (has_cap) x = cap * tanhf(x / cap);
+        if (!whole) {
+          const int kpos = k0 + j * 8 + 2 * t + (e & 1);
+          const int qpos = r0 + g + 8 * (e >> 1);
+          const bool vis = (!causal || kpos <= qpos) &&
+                           (window < 0 || kpos > qpos - window);
+          x = kpos >= sk ? -INFINITY : (vis ? x : kNegInf);
+        }
+        sh[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2], mnew[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      mnew[i] = fmaxf(m[i], mx[i]);
+      alpha[i] = expf(m[i] - mnew[i]);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(sh[j][e] - mnew[e >> 1]);
+        sh[j][e] = p;
+        psum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 1);
+      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 2);
+      l[i] = alpha[i] * l[i] + psum[i];
+      m[i] = mnew[i];
+    }
+#pragma unroll
+    for (int j = 0; j < KS; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+
+    // -- acc += p_lo . v + p_hi . v (+ p_hi . v_lo at float32) -------------
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      // the C fragment of scores j is the A fragment of P (see header)
+      uint32_t ph[4], pl[4];
+      split(sh[j][0], ph[0], pl[0]);
+      split(sh[j][2], ph[1], pl[1]);
+      split(sh[j][1], ph[2], pl[2]);
+      split(sh[j][3], ph[3], pl[3]);
+      if constexpr (kBf16) {
+#pragma unroll
+        for (int d4 = 0; d4 < KS; d4 += 4) {
+          // matrix lane / 8: keys j * 8 + lane % 8, dims (d4 + lane / 8) * 8
+          uint32_t r[4];
+          ldmatrix_x4_trans(r, vs + (j * 8 + lane % 8) * kPitch +
+                                   (d4 + lane / 8) * 8);
+#pragma unroll
+          for (int mi = 0; mi < 4; ++mi) {
+            uint32_t b[2];
+            unpack_pair(r[mi], b);
+            mma_tf32(o[d4 + mi], pl, b);
+            mma_tf32(o[d4 + mi], ph, b);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int dn = 0; dn < KS; ++dn) {
+          const T* vr = vs + (j * 8 + 2 * t) * kPitch + dn * 8 + g;
+          uint32_t bh[2], bl[2];
+          split(vr[0], bh[0], bl[0]);
+          split(vr[kPitch], bh[1], bl[1]);
+          mma_tf32(o[dn], ph, bl);
+          mma_tf32(o[dn], pl, bh);
+          mma_tf32(o[dn], ph, bh);
+        }
       }
     }
   }
 
+  // -- out = acc / max(l, 1e-30), in the operands' dtype ------------------
+  T* op = out + (row / oa.heads) * oa.b + (row % oa.heads) * oa.h;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int pos = q0 + r0 + i;
+  for (int i = 0; i < 2; ++i) {
+    const int pos = r0 + g + 8 * i;
     if (pos >= sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* o = op + pos * oa.s;
+    T* orow = op + pos * oa.s;
 #pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        narrow(o + 4 * tx + 64 * g + e, acc[i][4 * g + e] / den);
+    for (int j = 0; j < KS; ++j)
+      store_pair(orow + j * 8 + 2 * t, o[j][2 * i] / den,
+                 o[j][2 * i + 1] / den);
   }
 }
 
 template <int D, typename T>
 cudaError_t launch_t(const void* q, const void* k, const void* v, void* out,
-                     int bh, int sq, int sk, int rep, const Addr* a,
-                     int causal, int window, int has_cap, float cap,
-                     float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
+                     const int4* items, int n_items, int sq, int sk, int rep,
+                     int bq, int warps, const Addr* a, int causal,
+                     int window, int has_cap, float cap, float scale,
+                     int smem_model, cudaStream_t stream) {
+  const size_t smem = Layout<D, T>::bytes(warps);
+  if (smem > (size_t)kSmemLimit || (int)smem != smem_model)
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_mma_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (sq + kBQ - 1) / kBQ);
-  flash_kernel<D, T><<<grid, kThreads, smem, stream>>>(
+  flash_mma_kernel<D, T><<<n_items, warps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, sk, rep, a[0],
-      a[1], a[2], a[3], causal, window, has_cap, cap, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), items, sq, sk, rep, bq,
+      a[0], a[1], a[2], a[3], causal, window, has_cap, cap, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_dtype(int d, const void* q, const void* k, const void* v,
-                         void* out, int bh, int sq, int sk, int rep,
-                         const Addr* a, int causal, int window, int has_cap,
-                         float cap, float scale, cudaStream_t stream) {
+                         void* out, const int4* items, int n_items, int sq,
+                         int sk, int rep, int bq, int warps, const Addr* a,
+                         int causal, int window, int has_cap, float cap,
+                         float scale, int smem, cudaStream_t stream) {
   switch (d) {
     case 64:
-      return launch_t<64, T>(q, k, v, out, bh, sq, sk, rep, a, causal,
-                             window, has_cap, cap, scale, stream);
+      return launch_t<64, T>(q, k, v, out, items, n_items, sq, sk, rep, bq,
+                             warps, a, causal, window, has_cap, cap, scale,
+                             smem, stream);
     case 128:
-      return launch_t<128, T>(q, k, v, out, bh, sq, sk, rep, a, causal,
-                              window, has_cap, cap, scale, stream);
+      return launch_t<128, T>(q, k, v, out, items, n_items, sq, sk, rep, bq,
+                              warps, a, causal, window, has_cap, cap, scale,
+                              smem, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -280,26 +445,36 @@ cudaError_t launch_dtype(int d, const void* q, const void* k, const void* v,
 
 // q, out: (bh, sq, d) rows addressed as (qh heads per batch row, batch,
 // head and position strides); k, v: (bh / rep, sk, d) rows, kh heads per
-// batch row. Strides in elements, the last dim dense. window < 0: none.
+// batch row, 16-byte aligned. Strides in elements, the last dim dense.
+// items: n_items x (first query row, q0, first KV tile, end KV tile) of
+// warps * 16 / bq query rows and bq positions each (ops.py: flash_plan);
+// smem: the plan's shared-memory model, checked against this source's.
+// window < 0: none.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, int is_bf16,
-    int bh, int sq, int sk, int d, int rep, int qh, int kh, long long qsb,
-    long long qsh, long long qss, long long ksb, long long ksh,
-    long long kss, long long vsb, long long vsh, long long vss,
-    long long osb, long long osh, long long oss, int causal, int window,
-    int has_cap, float cap, float scale, void* stream) {
-  if (bh <= 0 || sq <= 0 || sk < 0 || rep <= 0 || qh <= 0 || kh <= 0 ||
-      bh % rep != 0 || (sq + kBQ - 1) / kBQ > 65535)
+    const void* q, const void* k, const void* v, void* out, const void* items,
+    int n_items, int is_bf16, int bh, int sq, int sk, int d, int rep, int qh,
+    int kh, int bq, int warps, long long qsb, long long qsh, long long qss,
+    long long ksb, long long ksh, long long kss, long long vsb,
+    long long vsh, long long vss, long long osb, long long osh,
+    long long oss, int causal, int window, int has_cap, float cap,
+    float scale, int smem, void* stream) {
+  if (n_items <= 0 || bh <= 0 || sq <= 0 || sk < 0 || rep <= 0 || qh <= 0 ||
+      kh <= 0 || bh % rep != 0 || bq <= 0 || bq % 16 != 0 || warps <= 0 ||
+      warps > kMaxWarps || (warps * 16) % bq != 0 ||
+      rep % (warps * 16 / bq) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Addr a[4] = {{qh, qsb, qsh, qss}, {kh, ksb, ksh, kss},
                      {kh, vsb, vsh, vss}, {qh, osb, osh, oss}};
+  const int4* it = static_cast<const int4*>(items);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch_dtype<__nv_bfloat16>(d, q, k, v, out, bh, sq, sk, rep,
-                                            a, causal, window, has_cap, cap,
-                                            scale, s)
-              : launch_dtype<float>(d, q, k, v, out, bh, sq, sk, rep, a,
-                                    causal, window, has_cap, cap, scale, s);
+      is_bf16 ? launch_dtype<__nv_bfloat16>(d, q, k, v, out, it, n_items, sq,
+                                            sk, rep, bq, warps, a, causal,
+                                            window, has_cap, cap, scale,
+                                            smem, s)
+              : launch_dtype<float>(d, q, k, v, out, it, n_items, sq, sk,
+                                    rep, bq, warps, a, causal, window,
+                                    has_cap, cap, scale, smem, s);
   return static_cast<int>(err);
 }
 

@@ -29,7 +29,8 @@ general path.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import functools
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import torch
@@ -42,6 +43,8 @@ from .ref import (_rows, approx_attention_paged_ref, approx_attention_ref,
 BQ = 128
 BK = 128
 FLASH_HEAD_DIMS = (64, 128)   # kernel 11's instantiations (every config's)
+FLASH_KV_TILE = 64      # keys of one staged K/V tile (kernel 11's kBK)
+FLASH_MAX_ROWS = 128    # query rows of one item: 8 warps of 16
 
 
 DECODE_PAGE = 16        # the paged decode path's stage: one 16-key page
@@ -145,6 +148,117 @@ def decode_plan(bh: int, sq: int, d: int, rep: int, row_heads: int,
                               min(n_sm, -(-items // per_block)), smem, paged,
                               bk)
     return None
+
+
+def flash_smem(d: int, itemsize: int, rows: int) -> int:
+    """Kernel 11's shared memory (``smem_bytes`` in the source): the
+    scaled q of ``rows`` query rows split into TF32 hi and lo (float32
+    each, in fragment order), then two stages of a K and a V tile of
+    ``FLASH_KV_TILE`` keys in the operands' dtype, each row padded by 16
+    bytes (ldmatrix's eight rows then fall in distinct banks)."""
+    pitch = d + 16 // itemsize
+    return rows * d * 8 + 4 * FLASH_KV_TILE * pitch * itemsize
+
+
+@dataclass(frozen=True)
+class FlashPlan:
+    """Kernel 11's schedule for one call. A work item is one KV row with
+    ``heads`` of its query heads (all ``rep`` where they fit) and a q tile
+    of ``bq`` positions: ``(first query row, q0, first KV tile, end KV
+    tile)`` in the folded layout (query row ``b`` reads KV row ``b //
+    rep``), so each K/V tile is staged once for all of them; one block of
+    ``heads * bq / 16`` warps an item, ``smem`` bytes of shared memory,
+    items heaviest (most KV tiles) first."""
+    heads: int
+    bq: int
+    smem: int
+    items: tuple
+    bk = FLASH_KV_TILE
+
+    @property
+    def warps(self) -> int:
+        return self.heads * self.bq // 16
+
+    def kv_range(self) -> tuple[list[int], list[int]]:
+        """(first, end) KV tile of each q tile, in q tile order (every KV
+        row's items of a q tile share it)."""
+        rng = {q0 // self.bq: (lo, hi) for _, q0, lo, hi in self.items}
+        return ([rng[i][0] for i in sorted(rng)],
+                [rng[i][1] for i in sorted(rng)])
+
+    def drop_last_tile(self, index: int = 0) -> "FlashPlan":
+        """The same plan with item ``index``'s last KV tile dropped (a
+        planted fault)."""
+        items = list(self.items)
+        b0, q0, lo, hi = items[index]
+        items[index] = (b0, q0, lo, hi - 1)
+        return replace(self, items=tuple(items))
+
+
+def flash_shape(rep: int, d: int, itemsize: int) -> tuple[int, int]:
+    """(heads, bq) of an item: the most of a KV row's ``rep`` query heads
+    (a divisor of ``rep``, at most 8), then the longest q tile of 128, 64,
+    32 or 16 positions, that give at most ``FLASH_MAX_ROWS`` rows and fit
+    ``SMEM_LIMIT``."""
+    for heads in range(min(rep, 8), 0, -1):
+        if rep % heads:
+            continue
+        for bq in (128, 64, 32, 16):
+            rows = heads * bq
+            if (rows <= FLASH_MAX_ROWS
+                    and flash_smem(d, itemsize, rows) <= SMEM_LIMIT):
+                return heads, bq
+    raise ValueError(f"no kernel 11 item fits head dim {d}")
+
+
+@functools.lru_cache(maxsize=64)
+def flash_plan(bh: int, sq: int, sk: int, rep: int, causal: bool,
+               window: Optional[int], d: int, itemsize: int) -> FlashPlan:
+    """Kernel 11's work items for ``bh`` folded query rows of ``sq``
+    positions over ``sk`` keys, ``rep`` query rows a KV row, head dim
+    ``d``, K and V of ``itemsize`` bytes.
+
+    Each item walks KV tiles from the first that any of its rows can see
+    to the causal bound (the tile of its last real row's own key; every
+    tile without ``causal``). Skipping the leading tiles is exact: where
+    the reference walks a tile that masks every key of a row, that row
+    holds ``m = -1e30``, ``p = 1``, ``l = 64``, and the row's first
+    visible tile wipes it out with ``alpha = exp(-1e30 - m') = 0``. So an
+    item starts at tile 0 only where one of its rows sees no key at all
+    (its output is the mean of the keys the reference walks). The
+    reference's causal bound may add one tile past the diagonal; it masks
+    every key of the item (``p = 0``, ``alpha = 1``), so stopping before it
+    is exact too. Items are ordered heaviest first, so the card's block
+    scheduler starts the longest walks first."""
+    heads, bq = flash_shape(rep, d, itemsize)
+    bk = FLASH_KV_TILE
+    n_kv = -(-sk // bk)
+    ranges = []
+    for q0 in range(0, sq, bq):
+        last = min(q0 + bq, sq) - 1
+        end = min(n_kv, last // bk + 1) if causal else n_kv
+        # row i sees keys [lo_i, hi_i]; lo_i - hi_i falls, holds, then
+        # rises as i grows, so the first and last rows decide whether
+        # every row sees one
+        first = 0
+        if window is not None and all(
+                max(0, i - window + 1) <= (min(i, sk - 1) if causal
+                                           else sk - 1) for i in (q0, last)):
+            first = min(max(0, q0 - window + 1) // bk, end)
+        ranges.append((q0, first, end))
+    items = [(kv * rep + h0, q0, first, end)
+             for q0, first, end in ranges
+             for kv in range(bh // rep) for h0 in range(0, rep, heads)]
+    items.sort(key=lambda it: it[2] - it[3])        # stable: heaviest first
+    return FlashPlan(heads, bq, flash_smem(d, itemsize, heads * bq),
+                     tuple(items))
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_items(plan: FlashPlan, device: torch.device) -> torch.Tensor:
+    """The plan's items as the (n, 4) int32 tensor the kernel reads."""
+    return torch.tensor(plan.items, dtype=torch.int32,
+                        device=device).reshape(-1, 4)
 
 
 def _aligned16(t: torch.Tensor) -> bool:
@@ -323,14 +437,19 @@ approx_flash_attention_paged.decode_launches = 0
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    softcap: Optional[float] = None) -> torch.Tensor:
+                    softcap: Optional[float] = None,
+                    plan: Optional[FlashPlan] = None) -> torch.Tensor:
     """Exact GQA flash attention (kernel 11), float32 inside.
 
     ``q``: (B*Hq, Sq, D) or (B, Hq, Sq, D); ``k``/``v``: (B*Hkv, Sk, D) or
     (B, Hkv, Sk, D), ``Hq % Hkv == 0`` (query row ``b`` of the folded
     layout reads KV row ``b // rep``), any strides with a dense last dim.
     Queries are aligned to key 0: query row ``i`` sits at position ``i``.
-    Returns q's shape and dtype, laid out as q (``torch.empty_like``)."""
+    Returns q's shape and dtype, laid out as q (``torch.empty_like``).
+    ``plan`` pins a :class:`FlashPlan` (a planted fault); by default
+    :func:`flash_plan` makes it. K and V rows that are not 16-byte aligned
+    (the kernel copies them 16 bytes at a time) are copied contiguous
+    first."""
     rows_q = q.shape[0] * (q.shape[1] if q.dim() == 4 else 1)
     rows_k = k.shape[0] * (k.shape[1] if k.dim() == 4 else 1)
     if v.shape != k.shape or rows_k == 0 or rows_q % rows_k:
@@ -352,6 +471,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for t, name in ((k, "k"), (v, "v")):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, expected {q.device}")
+    k, v = (t if _aligned16(t) else t.contiguous() for t in (k, v))
     out = torch.empty_like(q)
     qh, *q_addr = _addressing(q, "q")
     kh, *k_addr = _addressing(k, "k")
@@ -360,15 +480,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sq, sk = q.shape[-2], k.shape[-2]
     if out.numel() == 0:
         return out.to(dtype)
+    if plan is None:
+        plan = flash_plan(rows_q, sq, sk, rep, bool(causal), window, d,
+                          k.element_size())
+    items = _plan_items(plan, q.device)
     lib = runtime.kernel_library("flash_attention")
     _, stream = runtime.launch_config(q)
     lib.check(lib.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), rows_q, sq, sk, d, rep, qh, kh,
-        *q_addr, *k_addr, *v_addr, *o_addr, int(causal),
+        items.data_ptr(), items.shape[0], int(q.dtype == torch.bfloat16),
+        rows_q, sq, sk, d, rep, qh, kh, plan.bq, plan.warps, *q_addr,
+        *k_addr, *v_addr, *o_addr, int(causal),
         -1 if window is None else int(window), int(softcap is not None),
         0.0 if softcap is None else float(softcap), float(flash_scale(d)),
-        stream))
+        plan.smem, stream))
     flash_attention.launches += 1
     return out.to(dtype)
 

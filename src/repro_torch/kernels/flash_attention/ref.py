@@ -87,7 +87,8 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         v.to(torch.float32)).to(q.dtype)
 
 
-# the CUDA kernel's q and KV tiles (csrc/flash_attention.cu)
+# the plain version's q and KV tiles; the CUDA kernel's KV tile (its q
+# tile is its plan's, ``ops.py: flash_plan``)
 FLASH_BQ = 64
 FLASH_BK = 64
 
@@ -98,21 +99,13 @@ def flash_scale(d: int) -> torch.Tensor:
     return torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True,
-                        window: Optional[int] = None,
-                        softcap: Optional[float] = None, rep: int = 1,
-                        bq: int = FLASH_BQ,
-                        bk: int = FLASH_BK) -> torch.Tensor:
-    """Exact flash attention (kernel 11). q: (BH, Sq, D); k/v: (BH / rep,
-    Sk, D); query row ``b`` reads KV row ``b // rep``. Returns (BH, Sq, D)
-    in q's dtype.
-
-    Every q tile runs at once; KV tiles of ``bk`` keys are walked to the
-    largest causal block bound, ``min(n_kv, (qi + 1) * bq // bk + 1)`` as
-    the reference computes it, and a tile's state is frozen past its own.
-    (A causal row has seen its own key by its bound, so the blocks past it
-    would add exactly nothing; the freeze mirrors the reference's loop.)"""
+def _flash_walk(q, k, v, *, causal, window, softcap, rep, bq, bk, kv_range,
+                qk, pv) -> torch.Tensor:
+    """The online softmax of :func:`flash_attention_ref` over KV tiles, with
+    the two products ``qk(q_scaled, k_tile)`` -> scores and ``pv(p,
+    v_tile)`` -> the tile's ``p @ v`` given. ``kv_range``: per q tile its
+    first and end KV tile (default 0 and the reference's causal bound); a
+    tile's state is frozen outside its range."""
     from repro_torch.core.approx_ops import exact_f32
     bh, sq, d = q.shape
     sk = k.shape[1]
@@ -130,16 +123,21 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vf[:, :sk] = v.to(torch.float32)[rows]
     n_q, n_kv = sq_p // bq, sk_p // bk
     tiles = torch.arange(n_q, device=dev)
-    bound = (torch.clamp_max((tiles + 1) * bq // bk + 1, n_kv) if causal
-             else torch.full((n_q,), n_kv, device=dev))
+    if kv_range is None:
+        start = torch.zeros((n_q,), dtype=torch.long, device=dev)
+        bound = (torch.clamp_max((tiles + 1) * bq // bk + 1, n_kv) if causal
+                 else torch.full((n_q,), n_kv, device=dev))
+    else:
+        start, bound = (torch.as_tensor(t, dtype=torch.long, device=dev)
+                        for t in kv_range)
     q_pos = torch.arange(sq_p, device=dev)[:, None]
     m = torch.full((bh, sq_p), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((bh, sq_p), dtype=torch.float32, device=dev)
     acc = torch.zeros((bh, sq_p, d), dtype=torch.float32, device=dev)
     with exact_f32():
-        for ki in range(int(bound.max()) if n_kv else 0):
+        for ki in range(int(bound.max()) if n_kv and n_q else 0):
             k_pos = ki * bk + torch.arange(bk, device=dev)[None, :]
-            s = qf @ kf[:, ki * bk:(ki + 1) * bk].transpose(1, 2)
+            s = qk(qf, kf[:, ki * bk:(ki + 1) * bk])
             if softcap is not None:
                 s = softcap * torch.tanh(s / softcap)
             mask = torch.ones((sq_p, bk), dtype=torch.bool, device=dev)
@@ -153,13 +151,82 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             p = torch.exp(s - m_new[..., None])
             alpha = torch.exp(m - m_new)
             l_new = alpha * l + p.sum(-1)
-            acc_new = acc * alpha[..., None] + p @ vf[:, ki * bk:(ki + 1) * bk]
-            live = (ki < bound).repeat_interleave(bq)          # (sq_p,)
+            acc_new = acc * alpha[..., None] + pv(
+                p, vf[:, ki * bk:(ki + 1) * bk])
+            live = ((ki >= start) & (ki < bound)).repeat_interleave(bq)
             m = torch.where(live, m_new, m)
             l = torch.where(live, l_new, l)
             acc = torch.where(live[:, None], acc_new, acc)
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out[:, :sq].to(q.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None, rep: int = 1,
+                        bq: int = FLASH_BQ, bk: int = FLASH_BK,
+                        kv_range=None) -> torch.Tensor:
+    """Exact flash attention (kernel 11). q: (BH, Sq, D); k/v: (BH / rep,
+    Sk, D); query row ``b`` reads KV row ``b // rep``. Returns (BH, Sq, D)
+    in q's dtype.
+
+    Every q tile runs at once; KV tiles of ``bk`` keys are walked to the
+    largest causal block bound, ``min(n_kv, (qi + 1) * bq // bk + 1)`` as
+    the reference computes it, and a tile's state is frozen past its own.
+    (A causal row has seen its own key by its bound, so the blocks past it
+    would add exactly nothing; the freeze mirrors the reference's loop.)
+    ``kv_range`` = (first, end) KV tile per q tile walks those instead, as
+    the kernel's plan does (``ops.py: flash_plan``)."""
+    return _flash_walk(
+        q, k, v, causal=causal, window=window, softcap=softcap, rep=rep,
+        bq=bq, bk=bk, kv_range=kv_range,
+        qk=lambda qf, kt: qf @ kt.transpose(1, 2), pv=lambda p, vt: p @ vt)
+
+
+def flash_attention_tf32_ref(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True,
+                             window: Optional[int] = None,
+                             softcap: Optional[float] = None, rep: int = 1,
+                             passes: Optional[int] = None,
+                             plan=None) -> torch.Tensor:
+    """What kernel 11's tensor-core products compute, in float32 on the
+    CPU: every operand of QK and PV split as the kernel splits it
+    (``err_matmul/ref.py: tf32_split``, Veltkamp's hi and the rest read as
+    TF32; a TF32 product is exact in float32), walked on the kernel's
+    ``plan`` (default ``ops.py: flash_plan``'s): its q tile and each q
+    tile's KV range.
+
+    ``passes=2`` (bfloat16 k and v, exact in TF32): scores ``(q_hi . k) +
+    (q_lo . k)`` of the scaled q, ``p_hi . v + p_lo . v``. ``passes=3``
+    (float32 k and v): ``q_hi . k_hi + (q_hi . k_lo + q_lo . k_hi)``, and
+    so for PV. ``passes=1``: one plain TF32 pass, the hi terms alone.
+    Default: 2 for bfloat16 k and v, else 3. The emulation sums each
+    product in its own order, as the tensor core does in another: it is
+    held within ``flash_tolerance``, not bit for bit."""
+    from repro_torch.kernels.err_matmul.ref import tf32_split
+    from .ops import flash_plan
+    if passes is None:
+        passes = 2 if k.dtype == v.dtype == torch.bfloat16 else 3
+    if plan is None:
+        plan = flash_plan(q.shape[0], q.shape[1], k.shape[1], rep, causal,
+                          window, q.shape[2], k.element_size())
+
+    def product(a, b):
+        """``a @ b`` on split operands: b (k or v) exact in TF32 at 2
+        passes, split at 3."""
+        ah, al = tf32_split(a)
+        if passes == 1:
+            return ah @ tf32_split(b)[0]
+        if passes == 2:
+            return ah @ b + al @ b
+        bh_, bl = tf32_split(b)
+        return ah @ bh_ + (ah @ bl + al @ bh_)
+
+    return _flash_walk(
+        q, k, v, causal=causal, window=window, softcap=softcap, rep=rep,
+        bq=plan.bq, bk=plan.bk, kv_range=plan.kv_range(),
+        qk=lambda qf, kt: product(qf, kt.transpose(1, 2)), pv=product)
 
 
 def flash_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -66,12 +66,12 @@ SIGNATURES = {
                           [_P, _I] + [_P] * 7 + [_I] * 10 + [_P] + [_I] * 8
                           + [_P, _I, _P]),
     "quantize": ("quantize_launch",
-                 [_P, _I, _P, _P, _P, _I] + [_L] * 16 + [_L, _I, _I, _I,
-                                                         _P]),
+                 [_P, _I, _P, _P, _P, _I, _I] + [_L] * 17 + [_I] * 7
+                 + [_L] * 3 + [_P]),
     "wkv": ("wkv_launch", [_P] * 8 + [_I] * 4 + [_L] * 12 + [_P]),
     "flash_attention": ("flash_attention_launch",
-                        [_P] * 4 + [_I] * 8 + [_L] * 12 + [_I] * 3
-                        + [ctypes.c_float] * 2 + [_P]),
+                        [_P] * 5 + [_I] * 11 + [_L] * 12 + [_I] * 3
+                        + [ctypes.c_float] * 2 + [_I, _P]),
 }
 
 
