@@ -197,7 +197,29 @@
    launch counts checked); a separable block (depthwise 3x3 on
    8x32x112^2, then 1x1 -> 64) and a groups=4 conv on the fused ACU,
    bitwise equal to the CPU's, launch counts checked;
-13. prints the redesigned kernels against their old paths, one
+13. trains SmolLM-135M at full width and depth (bf16, the vocabulary cut
+   to 4096 as ``launch/train.py`` cuts it) through ``loss_fn`` with the
+   port's ``Trainer`` at batch 8 x 256 tokens on the fused ACU: first
+   holds quantize and fused_lut_dense bitwise at every GEMM shape of a
+   training step (M = 2048; the tied head's transposed weight view) and
+   fused_lut_bwd at every dense gradient shape of an ``approx_bwd`` step
+   (the 4096-column head's too), each timed against its plain version, a
+   PyTorch call and its bound; runs one step twice from one state
+   (gradients bitwise equal, both regimes); then, with AdamW as the
+   launcher builds it and a ``Prefetcher`` on the card, an uninterrupted
+   run with async checkpoints, the same run with two failures planted
+   between checkpoints (the rolled-back batches replay) and a fresh
+   restart (a new ``Trainer`` and iterator), all three bitwise equal in
+   parameters, optimizer state and consumed count, with exactly the
+   planted restores in ``history``; a damped run whose ``accum`` grows,
+   and the same with failures planted mid-schedule, bitwise equal; launch
+   counts per step (kernels 3 and 2 per GEMM, kernel 4 twice under
+   ``approx_bwd``); steps/s and trained tokens/s in both regimes with a
+   profile of one step, peak memory, checkpoint bytes and every save's
+   and restore's seconds; and the card against the CPU on a two-layer
+   float32 cut without the ACU (losses and updates within
+   ``SCORE_CPU_TOL``, a planted CPU fault beyond it);
+14. prints the redesigned kernels against their old paths, one
    ``{"kernels": [...]}`` line, then the result line.
 
 Every weight of every approximate GEMM is quantized on every call through
@@ -210,6 +232,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -325,6 +348,28 @@ SCORE_COLS = 64          # kernel 3's plain check: first and last columns
 # the CPU side (the attention softcap dropped, a window that binds) are
 # read on every run, and the script fails unless they lie beyond it.
 SCORE_CPU_TOL = 1e-4
+# the LM training phase: SmolLM-135M at full width and depth, bf16, with
+# launch/train.py's vocabulary cut (4096, padded to 16), batch 8 x 256
+# tokens (M = 2048 rows a GEMM), the launcher's AdamW; three runs of
+# TRAIN_LM_STEPS steps, checkpoints every TRAIN_LM_EVERY, the failures
+# planted before step TRAIN_LM_FAIL_AT (after the first checkpoint)
+TRAIN_LM_BATCH, TRAIN_LM_SEQ = 8, 256
+TRAIN_LM_STEPS, TRAIN_LM_EVERY, TRAIN_LM_FAIL_AT = 4, 2, 3
+# throughput: one step to start the prefetcher, then a window of
+# TRAIN_LM_WINDOW steps timed by wall clock (steps / wall, tokens / wall)
+TRAIN_LM_WINDOW = 10
+# the damped run: the schedule grows accum from its first estimate on
+TRAIN_LM_DAMPING = dict(accum_max=4, warmup_updates=1, ema=0.5)
+TRAIN_LM_DAMPED_STEPS = 3
+# card vs CPU: a 2-layer float32 cut without the ACU, SGD (its update is
+# linear in the gradient: AdamW's first step is lr * sign(g), which a
+# gradient entry at the rounding level flips by 2 lr), held to
+# SCORE_CPU_TOL: losses relative; each parameter within SCORE_CPU_TOL of
+# its leaf's largest update, plus one float32 rounding of the parameter a
+# step (p - lr * g rounds to the parameter's own ulp: a norm weight near
+# 1.0 moved by 1e-4 carries 1e-3 of its update in that rounding alone)
+TRAIN_LM_CPU_LAYERS, TRAIN_LM_CPU_BATCH, TRAIN_LM_CPU_SEQ = 2, 2, 32
+TRAIN_LM_CPU_STEPS, TRAIN_LM_CPU_LR = 3, 0.1
 # the ImageNet-scale conv phase: kernel 6 (fused_lut_conv_tiled) against
 # its plain version and kernel 5 at (label, x shape, w shape, stride,
 # dilation, pinned band height, table, timed); SAME padding throughout
@@ -3156,6 +3201,503 @@ def table2_phase(torch, np, dev, check):
     return rows
 
 
+def lm_train_phase(torch, np, dev, check, acu, ops, launches, lookups_per_s,
+                   lut_bytes, n_sm) -> dict:
+    """SmolLM-135M trained through ``loss_fn`` at full width and depth
+    (``launch/train.py``'s configuration): kernels 2 and 3 bitwise at every
+    GEMM shape of a training step and kernel 4 at every dense gradient
+    shape of an ``approx_bwd`` step, each timed; a step run twice from
+    one state (gradients bitwise equal); an uninterrupted run with async
+    checkpoints, the same run with failures planted between checkpoints
+    and a fresh restart, bitwise equal with exactly the planted restores;
+    a damped run whose ``accum`` grows, resumed mid-schedule bitwise;
+    launch counts per step; steps/s and tokens/s in both regimes, a
+    profile of one step, peak memory, checkpoint bytes and save and restore
+    seconds; the card against the CPU on a two-layer cut. Returns the
+    numbers for the summary."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import (ApproxConfig, acu_operand,
+                                  inline_symmetric_scale, quantize,
+                                  symmetric_qparams)
+    from repro_torch.data.pipeline import MarkovLM, Prefetcher
+    from repro_torch.kernels.fused_lut_dense.ops import bwd_plan
+    from repro_torch.kernels.fused_lut_dense.ref import (fused_lut_bwd_ref,
+                                                         fused_lut_dense_ref)
+    from repro_torch.kernels.quantize.ref import quantize_ref
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import SGD, AdamW, cosine_schedule
+    from repro_torch.optim.damping import DampingConfig
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import leaves, leaves_with_names, tree_map
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    base = get_config(LM_ARCH)
+    cfg = dataclasses.replace(base, vocab_size=min(base.vocab_size, 4096),
+                              vocab_pad_mult=16)
+    B, S = TRAIN_LM_BATCH, TRAIN_LM_SEQ
+    M = B * S
+    dm, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab_padded
+    qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    L = cfg.n_layers
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    lut16 = acu.device_lut(dev)
+    lut32 = torch.from_numpy(acu.lut.reshape(-1)).to(dev)
+    off, n_codes = acu.offset, acu.multiplier.n_codes
+    print(f"training SmolLM-135M ({L} layers, d {dm}, {cfg.n_heads} heads "
+          f"over {cfg.n_kv_heads}, d_ff {ff}, vocab cut to {cfg.vocab_size} "
+          f"(padded {V}) as launch/train.py cuts it, bf16) through loss_fn, "
+          f"{MULT} fused ACU, batch {B} x {S} tokens:")
+
+    # -- kernels 2 and 3 at the forward's GEMM shapes ----------------------
+    print(f"  quantize and fused_lut_dense at every GEMM shape of a training "
+          f"step (M = {M}): a bfloat16 weight through quantize per output "
+          f"channel (the head: the embedding's transposed view, as tied "
+          f"embeddings run it) and fused_lut_dense on a bfloat16 "
+          f"activation, bitwise on the plain versions; times per call:")
+    per_layer = {"q": 1, "k/v": 2, "o": 1, "gate/up": 2, "down": 1}
+    gemms = [("q", dm, qd), ("k/v", dm, kvd), ("o", qd, dm),
+             ("gate/up", dm, ff), ("down", ff, dm), ("head", dm, V)]
+    times = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, lib_ms=0.0)
+             for k in ("quantize", "fused_lut_dense", "fused_lut_bwd")}
+
+    def add(name, n, ms, pms, bound, lib):
+        t = times[name]
+        t["ms"] += n * ms
+        t["plain_ms"] += n * pms
+        t["bound_ms"] += n * bound
+        t["lib_ms"] += n * lib
+
+    for label, kk, nn in gemms:
+        n = 1 if label == "head" else L * per_layer[label]
+        if label == "head":
+            w = (torch.randn((nn, kk), generator=gen, device=dev)
+                 * kk ** -0.5).to(torch.bfloat16).t()
+        else:
+            w = (torch.randn((kk, nn), generator=gen, device=dev)
+                 * kk ** -0.5).to(torch.bfloat16)
+        x = torch.randn((M, kk), generator=gen, device=dev).to(torch.bfloat16)
+        xqp = symmetric_qparams(torch.clamp_min(x.abs().amax(), 1e-6), 8)
+        wqp = symmetric_qparams(torch.clamp_min(w.abs().amax(dim=0), 1e-9),
+                                8, axis=1)
+        sc, zp = wqp.scale.reshape(1, -1), wqp.zero_point.reshape(1, -1)
+        codes = quantize(w, wqp)                     # kernel 2
+        same_codes = torch.equal(codes, quantize_ref(w, sc, zp))
+        wq = acu_operand(codes, wqp)
+        args = (xqp.scale, xqp.zero_point, wqp.scale)
+        dense_k = lambda: ops["fused_lut_dense"](x, wq, lut16, off, *args)
+        dense_p = lambda: fused_lut_dense_ref(x, wq, lut32, off, n_codes,
+                                              *args)
+        yk, yp = dense_k(), dense_p()
+        check(same_codes and torch.equal(yk, yp),
+              f"{label}: quantize ({kk}, {nn}) bfloat16 weight codes"
+              f"{' (a transposed view)' if label == 'head' else ''} and "
+              f"fused_lut_dense {M}x{kk}x{nn} bitwise equal to the plain "
+              f"versions")
+        q_ms = cuda_ms(torch, lambda: quantize(w, wqp), 20)
+        q_pms = cuda_ms(torch, lambda: quantize_ref(w, sc, zp), 2, warm=1)
+        wf32, zi = w.float(), torch.zeros(nn, dtype=torch.int64, device=dev)
+        q_lib = cuda_ms(torch, lambda: torch.quantize_per_channel(
+            wf32, wqp.scale.reshape(-1), zi, 1, torch.qint8), 10)
+        q_bound = (kk * nn * 6 + nn * 8) / HBM_BYTES_PER_S * 1e3
+        add("quantize", n, q_ms, q_pms, q_bound, q_lib)
+        d_ms = cuda_ms(torch, dense_k, 10)
+        d_pms = cuda_ms(torch, dense_p, 2, warm=1)
+        xf, wqf = x.float(), wq.float()
+        d_lib = cuda_ms(torch, lambda: torch.matmul(xf, wqf), 10)
+        d_bound = max(M * kk * nn / lookups_per_s,
+                      (M * kk * 2 + kk * nn * 4 + lut_bytes + M * nn * 4)
+                      / HBM_BYTES_PER_S) * 1e3
+        add("fused_lut_dense", n, d_ms, d_pms, d_bound, d_lib)
+        print(f"    {label:8s} x{n}: quantize {q_ms:.4f} ms (plain "
+              f"{q_pms:.3f}, torch.quantize_per_channel f32 {q_lib:.4f}, "
+              f"bytes bound {q_bound:.4f}); fused_lut_dense {d_ms:.4f} ms "
+              f"(plain {d_pms:.2f}, torch.matmul f32 {d_lib:.4f}, lookup "
+              f"bound {d_bound:.4f})", flush=True)
+        del w, x, codes, wq, yk, yp, xf, wqf, wf32
+
+    # -- kernel 4 at the dense gradient shapes of an approx_bwd step -------
+    print(f"  fused_lut_bwd at every dense gradient shape of an approx_bwd "
+          f"step, operands as the STE passes them (g, wf.T; xf.T, g; "
+          f"per-tensor scales on the full tensors), float32 bitwise on the "
+          f"plain version; times per call:")
+    grads = [  # label, K_in, N_out, calls per step
+        ("q/o", dm, qd, 2 * L), ("k/v", dm, kvd, 2 * L),
+        ("gate/up", dm, ff, 2 * L), ("down", ff, dm, L), ("head", dm, V, 1)]
+    for label, kin, nout, n in grads:
+        g = torch.randn((M, nout), generator=gen, device=dev) * 1e-3
+        wf = torch.randn((kin, nout), generator=gen, device=dev) * kin ** -0.5
+        xf = torch.randn((M, kin), generator=gen, device=dev)
+        sym = lambda t: inline_symmetric_scale(t.abs().amax(), 8)
+        sg, sw, sx = sym(g), sym(wf), sym(xf)
+        for which, a, b, sa, sb in (("gx", g, wf.t(), sg, sw),
+                                    ("gw", xf.t(), g, sx, sg)):
+            (mm, kk), nn = a.shape, b.shape[1]
+            kern = lambda: ops["fused_lut_bwd"](a, b, lut16, off, sa, sb)
+            plain = lambda: fused_lut_bwd_ref(a, b, lut32, off, n_codes, sa,
+                                              sb)
+            check(torch.equal(kern(), plain()),
+                  f"fused_lut_bwd {label} {which} {mm}x{kk}x{nn}: float32 "
+                  f"bitwise equal to the plain version; plan "
+                  + bwd_plan(mm, kk, nn, n_sm, n_codes).describe())
+            ms = cuda_ms(torch, kern, 10)
+            pms = cuda_ms(torch, plain, 2, warm=1)
+            ac, bc = a.contiguous(), b.contiguous()
+            lib = cuda_ms(torch, lambda: torch.matmul(ac, bc), 10)
+            bound = max(mm * kk * nn / lookups_per_s,
+                        ((mm * kk + kk * nn + mm * nn) * 4 + lut_bytes)
+                        / HBM_BYTES_PER_S) * 1e3
+            add("fused_lut_bwd", n, ms, pms, bound, lib)
+            print(f"    {label:8s} {which} x{n} {mm}x{kk}x{nn}: {ms:.4f} ms "
+                  f"(plain {pms:.2f}, torch.matmul f32 {lib:.4f}, lookup "
+                  f"bound {bound:.4f})", flush=True)
+            del ac, bc
+        del g, wf, xf
+    torch.cuda.empty_cache()
+    for name, t in times.items():
+        print(f"  {name} per training step: {t['ms']:.3f} ms (plain "
+              f"{t['plain_ms']:.1f}, library {t['lib_ms']:.3f}, bound "
+              f"{t['bound_ms']:.3f})")
+
+    # -- the model, its data, the two regimes -------------------------------
+    p0 = T.init_params(0, cfg, device=dev)
+    n_params = sum(t.numel() for t in leaves(p0))
+    lm = MarkovLM(vocab=cfg.vocab_size, seed=0)
+    regimes = {"exact": ApproxConfig(acu=acu),
+               "approx_bwd": ApproxConfig(acu=acu, approx_bwd=True)}
+    n_gemm = 7 * L + 1
+    step_plan = {
+        "exact": {"fused_lut_dense": n_gemm, "quantize": n_gemm},
+        "approx_bwd": {"fused_lut_dense": n_gemm, "quantize": n_gemm,
+                       "fused_lut_bwd": 2 * n_gemm}}
+    opt = AdamW(lr=cosine_schedule(3e-4, 100, TRAIN_LM_STEPS),
+                weight_decay=0.01)
+
+    def loss_of(acfg):
+        return lambda p, b: T.loss_fn(p, b["tokens"], b["labels"], cfg, acfg)
+
+    def fresh():
+        p = tree_map(torch.clone, p0)
+        return p, opt.init(p)
+
+    def data():
+        return Prefetcher(lm.batches(B, S), depth=2, device=dev)
+
+    def fit(regime, params, state, n_steps, fail_hook=None, step_hook=None,
+            **kw):
+        tr = Trainer(loss_of(regimes[regime]), opt,
+                     TrainerConfig(log_every=1, **kw))
+        it = data()
+        try:
+            params, state = tr.fit(params, state, it, n_steps,
+                                   fail_hook=fail_hook, step_hook=step_hook)
+        finally:
+            it.close()
+        return params, state, tr
+
+    def reset():
+        torch.cuda.synchronize()
+        for op in ops.values():
+            op.launches = 0
+
+    def counted():
+        torch.cuda.synchronize()
+        counts = {k: op.launches for k, op in ops.items()}
+        for k in ops:
+            launches[k] += counts[k]
+        return counts
+
+    def restores(tr):
+        return sum("restored" in h.get("event", "") for h in tr.history)
+
+    def same_state(a, b):
+        return all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+    print(f"  {n_params / 1e6:.2f} M parameters (bf16), AdamW("
+          f"cosine_schedule(3e-4, 100, {TRAIN_LM_STEPS}), weight_decay=0.01)"
+          f" as launch/train.py, data MarkovLM(vocab={cfg.vocab_size}, "
+          f"seed=0) through a Prefetcher on the card")
+
+    # -- one step, twice from one state: the step is deterministic ---------
+    batch = next(lm.batches(B, S))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    for regime, acfg in regimes.items():
+        tr = Trainer(loss_of(acfg), opt)
+        p, _ = fresh()
+        got = [tr._grads_and_stats(p, batch, 1)[:2] for _ in range(2)]
+        names = [n for n, _ in leaves_with_names(got[0][1])]
+        differ = [n for n, a, b in zip(names, leaves(got[0][1]),
+                                       leaves(got[1][1]))
+                  if not torch.equal(a, b)]
+        check(not differ and torch.equal(got[0][0], got[1][0]),
+              f"{regime}: one step's loss and all {len(names)} gradients "
+              f"bitwise equal when run twice from one state"
+              + (f" (differ: {', '.join(differ[:6])})" if differ else ""))
+        del got, p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- warm-up, then the uninterrupted run with async checkpoints --------
+    for regime in regimes:
+        p, st = fresh()
+        fit(regime, p, st, 1)
+        del p, st
+    # every save and restore the trainer makes, timed where it happens
+    io = {"save": [], "restore": []}
+    save0, restore0 = ckpt_lib.save, ckpt_lib.restore
+
+    def timed(kind, fn):
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if kind == "restore":
+                torch.cuda.synchronize()
+            io[kind].append(time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    ckpt_lib.save = timed("save", save0)
+    ckpt_lib.restore = timed("restore", restore0)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    ck = dict(ckpt_every=TRAIN_LM_EVERY, keep=1)
+    out = {}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        p, st = fresh()
+        reset()
+        t0 = time.perf_counter()
+        pa, sa, tra = fit("exact", p, st, TRAIN_LM_STEPS,
+                          ckpt_dir=os.path.join(root, "a"), **ck)
+        wall_a = time.perf_counter() - t0
+        counts = counted()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = {k: TRAIN_LM_STEPS * step_plan["exact"].get(k, 0)
+                for k in ops}
+        losses = [h["loss"] for h in tra.history if "loss" in h]
+        dts = sorted(h["dt"] for h in tra.history if "dt" in h)
+        step_s = dts[len(dts) // 2]
+        ckpt_dir_a = os.path.join(root, "a", f"step_{TRAIN_LM_STEPS:08d}")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt_dir_a, f))
+                         for f in os.listdir(ckpt_dir_a))
+        print(f"  uninterrupted: {TRAIN_LM_STEPS} steps, checkpoints every "
+              f"{TRAIN_LM_EVERY} (async), {wall_a:.2f} s wall; losses "
+              + " ".join(f"{v:.5f}" for v in losses)
+              + f"; median step {step_s * 1e3:.1f} ms; launches "
+              f"{ {k: v for k, v in counts.items() if v} }; peak memory "
+              f"{peak:.2f} GiB", flush=True)
+        check(len(losses) == TRAIN_LM_STEPS
+              and bool(np.isfinite(losses).all())
+              and restores(tra) == 0 and tra.consumed == TRAIN_LM_STEPS,
+              f"uninterrupted run: {TRAIN_LM_STEPS} finite losses, "
+              f"{tra.consumed} batches consumed, no restore")
+        check(counts == want, f"exact regime: launch counts are "
+                              f"{TRAIN_LM_STEPS} x {step_plan['exact']} "
+                              f"(kernels 3 and 2 per GEMM: 7 per layer + "
+                              f"the head)")
+
+        # -- failures planted between checkpoints: batches replay ----------
+        planted = []
+
+        def fail_hook(step):
+            if step == TRAIN_LM_FAIL_AT - 1 and len(planted) < 2:
+                planted.append(step)
+                raise RuntimeError("planted node failure")
+
+        p, st = fresh()
+        reset()
+        pb, sb, trb = fit("exact", p, st, TRAIN_LM_STEPS, fail_hook,
+                          ckpt_dir=os.path.join(root, "b"), **ck)
+        counted()
+        shutil.rmtree(os.path.join(root, "b"))
+        events = [h["event"] for h in trb.history if "event" in h]
+        print(f"  failures planted before step {TRAIN_LM_FAIL_AT} (twice): "
+              f"history events {events}, consumed {trb.consumed}")
+        check(len(planted) == 2 and restores(trb) == 2
+              and len(events) == 2 and trb.consumed == tra.consumed
+              and same_state((pa, sa), (pb, sb)),
+              f"run with 2 planted failures: exactly 2 restores in history, "
+              f"parameters, optimizer state and consumed ({trb.consumed}) "
+              f"bitwise equal to the uninterrupted run's")
+        del pb, sb
+
+        # -- a fresh restart: a new Trainer and a fresh iterator -----------
+        p, st = fresh()
+        reset()
+        fit("exact", p, st, TRAIN_LM_STEPS // 2,
+            ckpt_dir=os.path.join(root, "c"), async_ckpt=False, **ck)
+        del p, st
+        p, st = fresh()
+        pc, sc, trc = fit("exact", p, st, TRAIN_LM_STEPS,
+                          ckpt_dir=os.path.join(root, "c"), **ck)
+        counted()
+        shutil.rmtree(os.path.join(root, "c"))
+        check(restores(trc) == 0 and trc.consumed == tra.consumed
+              and same_state((pa, sa), (pc, sc)),
+              f"fresh restart (new Trainer and iterator from step "
+              f"{TRAIN_LM_STEPS // 2}): parameters, optimizer state and "
+              f"consumed bitwise equal to the uninterrupted run's")
+        del pc, sc, pa, sa
+        shutil.rmtree(os.path.join(root, "a"))
+
+        # -- batch damping, resumed mid-schedule -------------------------
+        dcfg = DampingConfig(**TRAIN_LM_DAMPING)
+        p, st = fresh()
+        reset()
+        pd, sd, trd = fit("exact", p, st, TRAIN_LM_DAMPED_STEPS,
+                          damping=dcfg)
+        counted()
+        accums = [h["accum"] for h in trd.history if "accum" in h]
+        bn = [h["b_noise"] for h in trd.history if "b_noise" in h]
+        dtext = ", ".join(f"{k}={v}" for k, v in TRAIN_LM_DAMPING.items())
+        print(f"  damped (DampingConfig({dtext})): accum after each step "
+              f"{accums}, b_noise " + " ".join(f"{v:.1f}" for v in bn)
+              + f", consumed {trd.consumed}")
+        check(accums == sorted(accums) and accums[-1] > 1
+              and trd.consumed > TRAIN_LM_DAMPED_STEPS,
+              f"damped run: accum grows ({accums}), {trd.consumed} batches "
+              f"for {TRAIN_LM_DAMPED_STEPS} steps")
+        planted.clear()
+        p, st = fresh()
+        reset()
+        pe, se, tre = fit("exact", p, st, TRAIN_LM_DAMPED_STEPS, fail_hook,
+                          ckpt_dir=os.path.join(root, "d"), damping=dcfg,
+                          **ck)
+        counted()
+        shutil.rmtree(os.path.join(root, "d"))
+        check(restores(tre) == 2 and tre.consumed == trd.consumed
+              and tre.damp_state == trd.damp_state
+              and same_state((pd, sd), (pe, se)),
+              f"damped run with 2 planted failures after step "
+              f"{TRAIN_LM_EVERY}'s checkpoint: schedule "
+              f"{tre.damp_state.accum}, consumed {tre.consumed}, parameters "
+              f"and optimizer state bitwise equal to the damped run's")
+        del pd, sd, pe, se
+    finally:
+        ckpt_lib.save, ckpt_lib.restore = save0, restore0
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  checkpoints: {ckpt_bytes / 1e9:.3f} GB each "
+          f"({n_params} bf16 parameters and two float32 moments); "
+          f"{len(io['save'])} saves took "
+          + ", ".join(f"{v:.2f}" for v in io["save"])
+          + f" s (async ones off the step's path); {len(io['restore'])} "
+          f"restores " + ", ".join(f"{v:.2f}" for v in io["restore"]) + " s")
+
+    # -- throughput in both regimes, and a profile of one step -------------
+    # the trainer reads each step's loss back (float(loss)), so a step has
+    # ended on the card when step_hook runs; the window is the wall clock
+    # from the end of the first step to the end of the last, batch draws
+    # included
+    rates = {}
+    n_run = 1 + TRAIN_LM_WINDOW
+    for regime in regimes:
+        p, st = fresh()
+        ends = []
+        reset()
+        p, st, tr = fit(regime, p, st, n_run,
+                        step_hook=lambda *_: ends.append(time.perf_counter()))
+        counts = counted()
+        want = {k: n_run * step_plan[regime].get(k, 0) for k in ops}
+        wall = ends[-1] - ends[0]
+        step_s = wall / TRAIN_LM_WINDOW
+        dts = sorted(h["dt"] for h in tr.history[1:])
+        rates[regime] = (1 / step_s, M / step_s)
+        check(counts == want and len(ends) == n_run,
+              f"{regime}: launch counts are {n_run} x {step_plan[regime]}")
+        it = data()
+        trp = Trainer(loss_of(regimes[regime]), opt)
+        _, wall_ms, rows = profile(
+            torch, f"SmolLM-135M training step ({regime})",
+            lambda: trp.fit(p, st, it, 1), step_s * 1e3)
+        it.close()
+        busy = sum(r[1] for r in rows)
+        rates[regime] += (busy, 1 - busy / (step_s * 1e3) if rows else None)
+        print(f"  {regime}: {rates[regime][0]:.3f} steps/s, "
+              f"{rates[regime][1]:.0f} trained tokens/s ({TRAIN_LM_WINDOW} "
+              f"steps in {wall:.3f} s wall after one to start; the steps' "
+              f"own times min {dts[0] * 1e3:.1f}, median "
+              f"{dts[len(dts) // 2] * 1e3:.1f}, max {dts[-1] * 1e3:.1f} ms)",
+              flush=True)
+        del p, st
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the card against the CPU on a two-layer cut -----------------------
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_LM_CPU_LAYERS,
+                              dtype="float32")
+    small = T.init_params(1, cut, device=dev)
+    small_cpu = T.map_cache(lambda t: t.cpu(), small)
+    res = {}
+    for where, p, lr in (("cuda", small, TRAIN_LM_CPU_LR),
+                         ("cpu", small_cpu, TRAIN_LM_CPU_LR),
+                         ("cpu, lr x1.001 (planted)", small_cpu,
+                          TRAIN_LM_CPU_LR * 1.001)):
+        d = "cpu" if where.startswith("cpu") else dev
+        q = tree_map(torch.clone, p)
+        sgd = SGD(lr=lr, clip_norm=1.0)
+        tr = Trainer(lambda pp, b: T.loss_fn(pp, b["tokens"], b["labels"],
+                                             cut), sgd,
+                     TrainerConfig(log_every=1))
+        it = Prefetcher(lm.batches(TRAIN_LM_CPU_BATCH, TRAIN_LM_CPU_SEQ),
+                        device=d)
+        q, _ = tr.fit(q, sgd.init(q), it, TRAIN_LM_CPU_STEPS)
+        it.close()
+        res[where] = ([h["loss"] for h in tr.history],
+                      [t.cpu() for t in leaves(q)])
+    lc, pc = res["cpu"]
+    eps = float(np.finfo(np.float32).eps)
+    limits = [SCORE_CPU_TOL * float((a - b.cpu()).abs().max())
+              + TRAIN_LM_CPU_STEPS * eps * a.abs()
+              for a, b in zip(pc, leaves(small_cpu))]
+
+    names = [n for n, _ in leaves_with_names(small_cpu)]
+
+    def dist(run):
+        """Largest loss difference (relative) and largest parameter
+        difference over its limit (and its leaf), against the CPU's run."""
+        l, ps = res[run]
+        dl = max(abs(a - b) / abs(b) for a, b in zip(l, lc))
+        dp, worst = max((float(((a - b).abs() / lim).max()), n)
+                        for a, b, lim, n in zip(ps, pc, limits, names))
+        return dl, dp, worst
+
+    dl, dp, worst = dist("cuda")
+    fl, fp, _ = dist("cpu, lr x1.001 (planted)")
+    print(f"  card against CPU on {TRAIN_LM_CPU_LAYERS} layers, float32, no "
+          f"ACU, {TRAIN_LM_CPU_STEPS} SGD steps (lr {TRAIN_LM_CPU_LR}, "
+          f"clip 1.0) at batch {TRAIN_LM_CPU_BATCH} x {TRAIN_LM_CPU_SEQ}: "
+          f"losses {' '.join(f'{v:.6f}' for v in res['cuda'][0])} (CPU "
+          f"{' '.join(f'{v:.6f}' for v in lc)}); largest loss difference "
+          f"{dl:.3e} relative; largest parameter difference {dp:.3f} of its "
+          f"limit (in {worst}; {SCORE_CPU_TOL:.0e} of the leaf's largest "
+          f"update + "
+          f"{TRAIN_LM_CPU_STEPS} float32 roundings of the parameter); "
+          f"planted lr x1.001 on the CPU reads {fl:.3e} / {fp:.3f}")
+    check(dl <= SCORE_CPU_TOL and dp <= 1.0,
+          f"two-layer cut: losses within {SCORE_CPU_TOL:.0e} and parameters "
+          f"within their limits after {TRAIN_LM_CPU_STEPS} steps, card "
+          f"against CPU")
+    check(fp > 1.0, "the planted fault lies beyond the parameters' limits")
+    del small, small_cpu, res, p0
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"LM training phase: {seconds:.1f} s")
+    return {"rates": rates, "times": times, "peak_gib": peak,
+            "ckpt_bytes": ckpt_bytes, "save_s": io["save"],
+            "restore_s": io["restore"], "accums": accums,
+            "seconds": seconds}
+
+
 def main() -> int:
     # a run cut short (a time limit, a lost machine) shows how far it got
     sys.stdout.reconfigure(line_buffering=True)
@@ -3738,7 +4280,11 @@ def main() -> int:
     convs = conv_phase(torch, np, dev, check, acu, ops, launches, account,
                        lookups_per_s, lut_bytes, n_sm, redesign)
 
-    # -- 13. report --------------------------------------------------------
+    # -- 13. train SmolLM-135M through loss_fn -------------------------------
+    trained = lm_train_phase(torch, np, dev, check, acu, ops, launches,
+                             lookups_per_s, lut_bytes, n_sm)
+
+    # -- 14. report --------------------------------------------------------
     rows = []
     for name, (source, replaces) in KERNELS.items():
         s = stats[name]
@@ -3849,6 +4395,22 @@ def main() -> int:
               f"{k} decode path {v[0]:.4f} ms vs general {v[1]:.4f} ms "
               f"({v[1] / v[0]:.2f}x), SDPA {v[2]:.4f} ms"
               for k, v in redesign.items() if k.startswith("kernel 8 ")))
+    tr_rates, tr_times = trained["rates"], trained["times"]
+    print(f"SmolLM-135M training (batch {TRAIN_LM_BATCH} x {TRAIN_LM_SEQ}, "
+          f"{MULT} fused ACU; {nvidia_smi('name,power.limit')}): " + ", ".join(
+              f"{k} {v[0]:.3f} steps/s, {v[1]:.0f} trained tokens/s, device "
+              f"busy {v[2]:.1f} ms a step, idle share "
+              + ("not measured" if v[3] is None else f"{v[3]:.3f}")
+              for k, v in tr_rates.items())
+          + f"; peak memory {trained['peak_gib']:.2f} GiB; checkpoint "
+          f"{trained['ckpt_bytes'] / 1e9:.3f} GB, saves "
+          + "/".join(f"{v:.2f}" for v in trained["save_s"]) + " s, restores "
+          + "/".join(f"{v:.2f}" for v in trained["restore_s"])
+          + f" s; damped accum {trained['accums']}; kernels per training "
+          f"step (ms, plain, library, bound): " + ", ".join(
+              f"{k} {v['ms']:.3f}, {v['plain_ms']:.1f}, {v['lib_ms']:.3f}, "
+              f"{v['bound_ms']:.3f}" for k, v in tr_times.items())
+          + f"; phase {trained['seconds']:.1f} s")
     print("Table 2 arc:\n" + "\n".join(table2))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           f"kernels' build included")

@@ -1,11 +1,19 @@
 """Synthetic deterministic data (port of ``repro.data.pipeline``: the
-Markov LM token stream, the vision, text-classification and blob tasks).
-Pure numpy, so the same seeds give the reference's batches exactly."""
+Markov LM token stream, the vision, text-classification and blob tasks),
+and the host side of the input pipeline: ``shard_batch`` places a batch
+on the device and ``Prefetcher`` keeps a bounded queue of placed batches
+ahead of the consumer. The generators are pure numpy, so the same seeds
+give the reference's batches exactly."""
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Iterator
 
 import numpy as np
+import torch
+
+from repro_torch.kernels.runtime import resolve_device
 
 
 class MarkovLM:
@@ -96,3 +104,86 @@ def blob_task(size: int = 28, n_classes: int = 10, seed: int = 0):
                    "label": y.astype(np.int32)}
 
     return batches
+
+
+# ---------------------------------------------------------------------------
+# device placement + bounded prefetch
+# ---------------------------------------------------------------------------
+
+def shard_batch(batch: dict, device=None) -> dict:
+    """A batch of numpy arrays as tensors on ``device`` (``cuda`` unless
+    given). One device: the reference's ``sharding`` argument becomes a
+    mesh with ROADMAP item 16."""
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(np.asarray(v)).to(dev)
+            for k, v in batch.items()}
+
+
+class Prefetcher:
+    """Bounded-depth background prefetch: a persistently slow producer can
+    never stall consumers by more than ``depth`` steps (straggler bound).
+
+    A producer exception rides the queue as a sentinel and re-raises on
+    the consumer thread, and stays raised; exhaustion becomes a persistent
+    ``StopIteration``. ``close()`` unblocks a producer stuck on a full
+    queue: the producer only waits on ``put`` with a timeout and re-checks
+    the stop flag, and ``close`` drains the queue until the thread exits.
+    """
+
+    def __init__(self, it: Iterator[dict], depth: int = 2, device=None):
+        self.q: queue.Queue = queue.Queue(maxsize=depth)
+        self.it = it
+        self.device = resolve_device(device)
+        self._stop = threading.Event()
+        self._err: BaseException | None = None
+        self._done = False
+        self.t = threading.Thread(target=self._run, daemon=True)
+        self.t.start()
+
+    def _put(self, item) -> bool:
+        """Stop-aware bounded put; False when the prefetcher was closed."""
+        while not self._stop.is_set():
+            try:
+                self.q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _run(self):
+        try:
+            for b in self.it:
+                if self._stop.is_set():
+                    return
+                if not self._put(("item", shard_batch(b, self.device))):
+                    return
+        except BaseException as e:  # noqa: BLE001 — must reach the consumer
+            self._put(("error", e))
+        else:
+            self._put(("end", None))
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> dict:
+        if self._err is not None:
+            raise self._err
+        if self._done:
+            raise StopIteration
+        kind, val = self.q.get()
+        if kind == "item":
+            return val
+        if kind == "error":
+            self._err = val
+            raise val
+        self._done = True
+        raise StopIteration
+
+    def close(self):
+        self._stop.set()
+        while self.t.is_alive():
+            try:
+                self.q.get_nowait()
+            except queue.Empty:
+                pass
+            self.t.join(timeout=0.05)

@@ -26,6 +26,7 @@ from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.moe import moe_block
 from repro_torch.models.rwkv import RwkvState, rwkv_block
+from repro_torch.tree import tree_map
 
 
 def _check_kinds(cfg: ModelConfig) -> None:
@@ -166,13 +167,7 @@ def load_jax_params(tree, device=None, dtype=None) -> dict:
 def map_cache(fn, tree):
     """``fn`` applied to every tensor of a cache or parameter tree (dicts,
     tuples and ``RwkvState``s), keeping its structure."""
-    if isinstance(tree, dict):
-        return {k: map_cache(fn, v) for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        leaves = [map_cache(fn, v) for v in tree]
-        return type(tree)(*leaves) if hasattr(tree, "_fields") \
-            else tuple(leaves)
-    return fn(tree)
+    return tree_map(fn, tree)
 
 
 def _at(tree, i: int):

@@ -1,6 +1,9 @@
 """Optimizers (port of ``repro.optim.adamw``): AdamW and SGD, global-norm
-clipping and the cosine schedule, over the port's parameter dicts of
-tensors.
+clipping and the cosine schedule, over the port's parameter trees: nested
+dicts of tensors (an LM's ``{"embed", "groups": {"b0": {"attn": ...}}}``)
+or flat ones, leaves in the reference's order (:mod:`repro_torch.tree`:
+dict keys sorted at every level), which keeps ``global_norm``'s float32 sum
+in the reference's order.
 
 State is float32 whatever the parameter dtype. The update arithmetic runs
 in the reference's order, one rounding per operation as written there:
@@ -27,31 +30,49 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.tree import leaves, tree_map
 
 
 def _f32(v, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32, device=like.device)
 
 
-def global_norm(tree: dict) -> torch.Tensor:
-    """``sqrt(sum_leaves sum(g^2))``, leaves in sorted key order (the
-    reference's dict leaf order)."""
-    return torch.sqrt(sum(torch.sum(torch.square(tree[k].to(torch.float32)))
-                          for k in sorted(tree)))
+def global_norm(tree) -> torch.Tensor:
+    """``sqrt(sum_leaves sum(g^2))``, leaves in the reference's order."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                          for g in leaves(tree)))
 
 
-def _clipped(grads: dict, clip_norm: Optional[float]) -> dict:
-    grads = {k: g.to(torch.float32) for k, g in grads.items()}
+def _clipped(grads, clip_norm: Optional[float]) -> list:
+    """The gradients' leaves in float32, clipped to ``clip_norm``."""
+    grads = [g.to(torch.float32) for g in leaves(grads)]
     if clip_norm is None:
         return grads
     gn = global_norm(grads)
     scale = torch.clamp_max(torch.div(_f32(clip_norm, gn),
                                       gn + _f32(1e-9, gn)), 1.0)
-    return {k: g * scale for k, g in grads.items()}
+    return [g * scale for g in grads]
 
 
 def _lr(lr, step: torch.Tensor) -> torch.Tensor:
     return lr(step) if callable(lr) else _f32(lr, step)
+
+
+def _zeros_f32(params):
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+
+
+def _step0(params) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32,
+                       device=leaves(params)[0].device)
+
+
+def _matched(grads: list, params) -> list:
+    ps = leaves(params)
+    if len(ps) != len(grads):
+        raise ValueError(f"{len(grads)} gradients for {len(ps)} parameters")
+    return ps
 
 
 class AdamWState(NamedTuple):
@@ -69,28 +90,26 @@ class AdamW:
     weight_decay: float = 0.0
     clip_norm: Optional[float] = 1.0
 
-    def init(self, params: dict) -> AdamWState:
-        zeros = {k: torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device) for k, p in params.items()}
-        dev = next(iter(params.values())).device
-        return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
-                          mu=zeros, nu={k: z.clone() for k, z in zeros.items()})
+    def init(self, params) -> AdamWState:
+        zeros = _zeros_f32(params)
+        return AdamWState(step=_step0(params), mu=zeros,
+                          nu=tree_map(torch.clone, zeros))
 
     @torch.no_grad()
-    def update(self, grads: dict, state: AdamWState,
-               params: dict) -> tuple[dict, AdamWState]:
+    def update(self, grads, state: AdamWState, params):
         grads = _clipped(grads, self.clip_norm)
+        ps = _matched(grads, params)
+        mu, nu = leaves(state.mu), leaves(state.nu)
         step = state.step + 1
         b1, b2 = self.b1, self.b2
-        for k, g in grads.items():
-            state.mu[k].mul_(b1).add_((1 - b1) * g)
-            state.nu[k].mul_(b2).add_((1 - b2) * g * g)
+        for m, v, g in zip(mu, nu, grads):
+            m.mul_(b1).add_((1 - b1) * g)
+            v.mul_(b2).add_((1 - b2) * g * g)
         stepf = step.to(torch.float32)
         bc1 = 1 - torch.pow(_f32(b1, stepf), stepf)
         bc2 = 1 - torch.pow(_f32(b2, stepf), stepf)
         lr = _lr(self.lr, step)
-        for k, p in params.items():
-            m, v = state.mu[k], state.nu[k]
+        for p, m, v in zip(ps, mu, nu):
             u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
             if self.weight_decay:
                 u = u + self.weight_decay * p.to(torch.float32)
@@ -111,27 +130,22 @@ class SGD:
     momentum: float = 0.0
     clip_norm: Optional[float] = None
 
-    def init(self, params: dict) -> SGDState:
-        dev = next(iter(params.values())).device
-        return SGDState(
-            step=torch.zeros((), dtype=torch.int32, device=dev),
-            momentum={k: torch.zeros(p.shape, dtype=torch.float32,
-                                     device=p.device)
-                      for k, p in params.items()})
+    def init(self, params) -> SGDState:
+        return SGDState(step=_step0(params), momentum=_zeros_f32(params))
 
     @torch.no_grad()
-    def update(self, grads: dict, state: SGDState,
-               params: dict) -> tuple[dict, SGDState]:
+    def update(self, grads, state: SGDState, params):
         grads = _clipped(grads, self.clip_norm)
+        ps = _matched(grads, params)
         step = state.step + 1
         lr = _lr(self.lr, step)
         m = grads
         if self.momentum:
-            for k, g in grads.items():
-                state.momentum[k].mul_(self.momentum).add_(g)
-            m = state.momentum
-        for k, p in params.items():
-            p.copy_(p.to(torch.float32) - lr * m[k])
+            m = leaves(state.momentum)
+            for mm, g in zip(m, grads):
+                mm.mul_(self.momentum).add_(g)
+        for p, g in zip(ps, m):
+            p.copy_(p.to(torch.float32) - lr * g)
         return params, SGDState(step=step, momentum=state.momentum)
 
 
@@ -161,8 +175,8 @@ def load_jax_state(state, device=None) -> SGDState | AdamWState:
                         device=dev)
 
     def tensors(tree):
-        return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
-                for k, v in tree.items()}
+        return tree_map(lambda v: torch.from_numpy(
+            np.array(v, dtype=np.float32)).to(dev), tree)
 
     if "momentum" in fields:
         return SGDState(step=step, momentum=tensors(fields["momentum"]))

@@ -435,14 +435,34 @@ def test_trainer_microbatches_average_gradients():
         tr.fit({"w": w0.clone()}, SGD().init({"w": w0}), iter([{"x": x}]), 1)
 
 
-@pytest.mark.parametrize("field,item", [("ckpt_dir", "item 13"),
-                                        ("damping", "item 13"),
-                                        ("mesh", "item 16")])
-def test_trainer_refuses_unported_options(field, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue 1, "
-                                                  f"{item}"):
-        Trainer(lambda p, b: None, SGD(),
-                TrainerConfig(**{field: "somewhere"}))
+@pytest.mark.parametrize("field,value", [("mesh", "somewhere"),
+                                         ("dp_axes", ("pod", "data"))])
+def test_trainer_refuses_unported_options(field, value):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md, queue 1, item 16"):
+        Trainer(lambda p, b: None, SGD(), TrainerConfig(**{field: value}))
+
+
+@pytest.mark.parametrize("field", ["ckpt_dir", "damping"])
+def test_trainer_takes_checkpoints_and_damping(tmp_path, field):
+    """``ckpt_dir`` and ``damping`` are ported: a short fit with either
+    trains, checkpoints land on disk, the damped run logs its schedule."""
+    from repro_torch.optim.damping import DampingConfig
+    from repro_torch.train.checkpoint import latest_step
+    value = (str(tmp_path) if field == "ckpt_dir"
+             else DampingConfig(warmup_updates=1))
+    x = np.random.default_rng(2).normal(size=(4, 2)).astype(np.float32)
+    tr = Trainer(lambda p, b: ((torch.from_numpy(b["x"]) @ p["w"]) ** 2
+                               ).mean(), SGD(lr=0.1),
+                 TrainerConfig(log_every=1, ckpt_every=2, **{field: value}))
+    p = {"w": torch.ones(2, 2)}
+    tr.fit(p, SGD().init(p), iter([{"x": x}] * 8), 3)
+    assert [h["step"] for h in tr.history] == [1, 2, 3]
+    assert not torch.equal(p["w"], torch.ones(2, 2))
+    if field == "ckpt_dir":
+        assert latest_step(str(tmp_path)) == 3
+    else:
+        assert tr.damp_state.updates == 3 and "accum" in tr.history[-1]
 
 
 def test_fail_hook_error_propagates():
