@@ -146,6 +146,40 @@
    against 257 dense, 257 quantize and 32 wkv launches per model call;
    checks a short request's tokens against the CPU on the model cut to 2
    layers; profiles one decode step;
+10b. runs whisper-small (12 + 12 layers, d 768, 12 heads, head_dim 64,
+   d_ff 3072, vocab 51865, bf16, random weights from a seed) with the
+   fused ACU: kernel 8's decode path held at its self-attention as step 6
+   does; the encoder over 4 x 1500 stub frames, an 8-token prefill into
+   the decoder's cache and 32 greedy steps, each call's launches counted
+   (encode: 72 dense + 72 quantize; each decoder call: 121 dense + 121
+   quantize + 12 approx_flash_attention, none for cross-attention, every
+   step's on the decode path); ms of the encode and per step, tokens/s,
+   peak memory, a profile of one step and the time of the cross K/V that
+   every decoder call recomputes; then the card against the CPU on a
+   2 + 2-layer cut: float32 logits without the ACU at the full 1500
+   frames within ``SCORE_CPU_TOL`` (planted CPU faults, learned
+   positions shifted and a causal cross-attention, beyond it) and greedy
+   tokens on the fused ACU at 64 frames;
+10c. runs jamba-v0.1-52b at full width, its depth cut to one period of
+   its pattern (8 layers: 3 mamba, 4 mamba_moe, 1 attn; d 4096, d_inner
+   8192, 32 heads over 8, head_dim 128, 16 experts top-2 of d_ff 14336,
+   13.3 G parameters, bf16) with the fused ACU: quantize (kernel 2)
+   bitwise at every weight shape, the 16 x 4096 x 14336 expert stacks
+   included, in float32 and bfloat16; kernel 10 bitwise against its plain
+   version on the first and last 64 columns at the decode and prefill
+   expert shapes, the model's expert codes bitwise (plans printed; timed
+   against torch.bmm and its bound); kernels 2 and 3 at each dense GEMM
+   shape (in_proj, x_proj, dt_proj, out_proj, q/o, k/v, gate/up, down,
+   head) at M = 8 and 512, the model's codes bitwise and kernel 3's
+   output on its first and last 64 columns; kernel 8's decode path at
+   head dim 128; 8 requests of 64
+   prompt tokens and 16 new tokens through the wave and continuous
+   engines (45 dense + 12 grouped + 57 quantize + 1 attention launches
+   per model call, every decode call's attention on its decode path);
+   the paged engine's refusal; profiles of a decode step and a prefill
+   of 8 x 64 and the selective scan's share of that prefill's device
+   time; the expert weight glue per call; peak memory; and the reduced
+   config's tokens on the card against the CPU's, through both engines;
 11. scores gemma2-27b (46 layers, d 4608, 32 heads over 16 KV heads,
    head_dim 128, d_ff 36864, vocab 256000, local layers with a 4096-key
    window, softcaps 50 and 30, bf16, random weights from a seed) through
@@ -331,6 +365,21 @@ MOE_CPU_LAYERS = 2       # depth of the card-against-CPU check
 RWKV_ARCH = "rwkv6-3b"
 RWKV_REQUESTS, RWKV_NEW = 32, 32
 RWKV_CPU_LAYERS = 2
+# the whisper phase: whisper-small at full width and depth, bf16: the
+# encoder over WHISPER_ROWS x enc_ctx (1500) stub frames, a WHISPER_PROMPT-
+# token prefill into the decoder's cache, then WHISPER_NEW greedy steps
+WHISPER_ARCH = "whisper-small"
+WHISPER_ROWS, WHISPER_PROMPT, WHISPER_NEW, WHISPER_MAX_SEQ = 4, 8, 32, 128
+WHISPER_CPU_LAYERS = 2   # encoder and decoder layers of the card-vs-CPU cut
+WHISPER_CPU_CTX = 64     # frames of the fused-ACU card-vs-CPU check
+# the jamba phase: jamba-v0.1-52b at full width, bf16, its depth cut to one
+# period of its 8-layer pattern (3 mamba, 4 mamba_moe, 1 attn): the 32
+# layers' 51.6 G parameters alone are 96 GiB in bf16, more than the card
+JAMBA_ARCH = "jamba-v0.1-52b"
+JAMBA_LAYERS = 8
+JAMBA_REQUESTS, JAMBA_PROMPT, JAMBA_NEW = 8, 64, 16
+JAMBA_SLOTS, JAMBA_MAX_SEQ = 8, 128
+JAMBA_COLS = 64          # kernels 3 and 10 plain checks: first, last columns
 # the scoring phase: gemma2-27b at full width and depth, bf16, through
 # loss_fn with attn_impl="flash" (kernel 11): one sequence of 17 x 256
 # tokens, so that 256 query rows lie past the 4096-key window
@@ -557,14 +606,15 @@ def lm_engines(E, params, cfg, acfg, dev):
 
 
 def serve_lm(torch, check, E, engines, prompts, n_new, cfg, ops, launches,
-             per_call, attention=True) -> dict:
+             per_call, attention=True, attn_layers=None) -> dict:
     """Serves ``prompts`` (``n_new`` greedy tokens each) through each
     engine after a two-request warm-up, with the launch counters set to 0
     just before and read just after each run. Checks the tokens, that each
     model call launched ``per_call`` (kernel: launches) plus, with
-    ``attention``, one attention kernel per layer (contiguous or paged) and
-    nothing else, and that the paged engine reused the shared prefix.
-    Returns tokens/s by engine."""
+    ``attention``, one attention kernel per attention layer
+    (``attn_layers``, all ``cfg.n_layers`` unless given; contiguous or
+    paged) and nothing else, and that the paged engine reused the shared
+    prefix. Returns tokens/s by engine."""
     attn_kernel = {"wave": "approx_flash_attention",
                    "continuous": "approx_flash_attention",
                    "paged": "approx_flash_attention_paged"}
@@ -577,6 +627,7 @@ def serve_lm(torch, check, E, engines, prompts, n_new, cfg, ops, launches,
         return inner(*a, **k)
 
     E.apply_model = counted
+    n_attn = cfg.n_layers if attn_layers is None else attn_layers
     rates = {}
     try:
         for name, eng in engines.items():
@@ -607,16 +658,16 @@ def serve_lm(torch, check, E, engines, prompts, n_new, cfg, ops, launches,
                   f"{name}: {len(prompts)} x {n_new} tokens in the vocab")
             want_call = dict(per_call)
             if attention:
-                want_call[attn_kernel[name]] = cfg.n_layers
+                want_call[attn_kernel[name]] = n_attn
             want = {k: want_call.get(k, 0) * calls[0] for k in ops}
             check(counts == want, f"{name}: launch counts are {want_call} "
                                   f"per model call x {calls[0]} calls")
             if attention:    # every decode call on the decode path, and
                 kname = attn_kernel[name]     # nothing else
                 dec = ops[kname].decode_launches
-                check(dec == cfg.n_layers * calls[1],
+                check(dec == n_attn * calls[1],
                       f"{name}: {dec} of {kname}'s {counts[kname]} launches "
-                      f"on its decode path = {cfg.n_layers} per decode call "
+                      f"on its decode path = {n_attn} per decode call "
                       f"x {calls[1]} decode calls; the {calls[0] - calls[1]}"
                       f" prefill calls on the general path")
             if name == "paged":
@@ -1231,8 +1282,9 @@ def hold_decode_path(torch, np, dev, check, acu, ops, cfg, seed: int):
     bound runs a block the row never sees) and a row whose first block is
     all masked; shows a planted fault (kv_start shifted by one block)
     beyond that tolerance; and times the decode path, the general path
-    (``general=True``) and SDPA in the same call. Returns the three
-    times in ms."""
+    (``general=True``) and SDPA in the same call, beside the call's bound
+    (:func:`attn_work`'s bytes at the memory rate or lookups at the gather
+    rate). Returns the three times and the bound in ms."""
     import torch.nn.functional as F
     from repro_torch.core import inline_symmetric_scale
     from repro_torch.kernels import runtime
@@ -1305,10 +1357,15 @@ def hold_decode_path(torch, np, dev, check, acu, ops, cfg, seed: int):
         q, k, v, lut16, off, *s3, rowinfo=rows, row_heads=hq, general=g), 20)
         for g in (False, True, False)]
     ms_dec = min(times[0], times[2])
+    bytes_, lookups = attn_work(np, info, 1, hq, hkv, d, 2)
+    gather_per_s = runtime.sm_count(0) * 32 * SPIN_CYCLES_PER_S
+    bound = max(bytes_ / HBM_BYTES_PER_S, lookups / gather_per_s) * 1e3
     print(f"    decode path {times[0]:.4f} ms (again {times[2]:.4f}), general "
           f"path {times[1]:.4f} ms ({times[1] / ms_dec:.2f}x the decode "
-          f"path), scaled_dot_product_attention {lib:.4f} ms", flush=True)
-    return ms_dec, times[1], lib
+          f"path), scaled_dot_product_attention {lib:.4f} ms; bound "
+          f"{bound:.4f} ms ({bytes_ / 1e6:.1f} MB, {lookups / 1e6:.1f} M "
+          f"lookups)", flush=True)
+    return ms_dec, times[1], lib, bound
 
 
 def lm_phase(torch, np, dev, check, acu, ops, launches, account,
@@ -2233,6 +2290,600 @@ def rwkv_phase(torch, np, dev, check, acu, ops, launches, account,
               f"weights: {glue:.3f} ms, x{n_layers} layers = "
               f"{glue * n_layers:.1f} ms of each model call")
     return rates
+
+
+def count_launches(ops, fn):
+    """``fn()``'s result and the launches it made, by kernel, with every
+    counter set to 0 just before the call and read just after."""
+    for op in ops.values():
+        op.launches = 0
+        if hasattr(op, "decode_launches"):
+            op.decode_launches = 0
+    out = fn()
+    return out, {k: op.launches for k, op in ops.items()}
+
+
+def whisper_phase(torch, np, dev, check, acu, ops, launches,
+                  redesign: dict) -> dict:
+    """whisper-small at full width and depth on the fused ACU: kernel 8's
+    decode path at its self-attention, then the encoder over WHISPER_ROWS
+    x 1500 stub frames and a greedy decode (a WHISPER_PROMPT-token prefill
+    into the cache, then WHISPER_NEW steps), each call's launches checked
+    against the code's (no kernel 8 for cross-attention); the per-step
+    recomputation of the cross K and V timed; the card against the CPU on
+    a 2 + 2-layer cut (float32 logits without the ACU at the full 1500
+    frames, with planted CPU faults beyond the tolerance; greedy tokens on
+    the fused ACU at 64 frames). Returns the phase's figures."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import ApproxConfig
+    from repro_torch.core.approx_ops import approx_dense
+    from repro_torch.models import layers as L
+    from repro_torch.models import whisper as W
+    from repro_torch.models.transformer import _at, map_cache
+    from repro_torch.tree import leaves
+
+    cfg = get_config(WHISPER_ARCH)
+    n_enc, n_dec, d = cfg.n_enc_layers, cfg.n_layers, cfg.d_model
+    rows, t_enc = WHISPER_ROWS, cfg.enc_ctx
+    acfg = ApproxConfig(acu=acu)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"whisper-small ({n_enc} + {n_dec} layers, d {d}, {cfg.n_heads} "
+          f"heads over {cfg.n_kv_heads}, head_dim {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_padded}, {t_enc} frames, "
+          f"{cfg.dtype}), {MULT} fused ACU:")
+    t0 = time.perf_counter()
+    params = W.init_params(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in leaves(params))
+    print(f"  random weights from seed 0 in {time.perf_counter() - t0:.2f} s"
+          f", {n_par / 1e6:.1f} M parameters, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+
+    # -- kernel 8's decode path at whisper's self-attention ---------------
+    redesign["kernel 8 " + cfg.name] = hold_decode_path(
+        torch, np, dev, check, acu, ops, cfg, 20)
+
+    # -- encode, prefill, greedy decode, launches per call ----------------
+    frames = torch.randn((rows, t_enc, d), generator=gen,
+                         device=dev).to(cfg.param_dtype)
+    rng = np.random.default_rng(19)
+    prompt = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (rows, WHISPER_PROMPT))).to(dev)
+    max_seq = WHISPER_MAX_SEQ
+    per_dec = {"fused_lut_dense": 10 * n_dec + 1, "quantize": 10 * n_dec + 1,
+               "approx_flash_attention": n_dec}
+    per_enc = {"fused_lut_dense": 6 * n_enc, "quantize": 6 * n_enc}
+    with torch.inference_mode():
+        W.encode(params, frames[:1, :256], cfg, acfg)      # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc, counts = count_launches(ops, lambda: W.encode(params, frames,
+                                                           cfg, acfg))
+        torch.cuda.synchronize()
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        want = {k: per_enc.get(k, 0) for k in ops}
+        check(counts == want and torch.isfinite(enc).all(),
+              f"encode, {rows} x {t_enc} frames: {enc_ms:.1f} ms, launches "
+              f"{ {k: v for k, v in counts.items() if v} } = {per_enc}, "
+              f"finite")
+        for k in ops:
+            launches[k] += counts[k]
+        cache = W.init_cache(cfg, rows, max_seq, device=dev)
+        out, calls, dec_calls = [], 0, 0
+        tally = {k: 0 for k in ops}
+        decode_path = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (logits, _), c = count_launches(ops, lambda: W.decode(
+            params, prompt, enc, cfg, acfg=acfg, cache=cache, cache_pos=0,
+            last_only=True))
+        cur = logits[:, -1].argmax(-1)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        calls += 1
+        for k in ops:
+            tally[k] += c[k]
+        steps = []
+        for t in range(WHISPER_NEW):
+            out.append(cur.cpu().numpy())
+            t1 = time.perf_counter()
+            (logits, _), c = count_launches(ops, lambda: W.decode(
+                params, cur[:, None], enc, cfg, acfg=acfg, cache=cache,
+                cache_pos=WHISPER_PROMPT + t))
+            cur = logits[:, -1].argmax(-1)
+            decode_path += ops["approx_flash_attention"].decode_launches
+            cur.cpu()
+            steps.append((time.perf_counter() - t1) * 1e3)
+            calls += 1
+            dec_calls += 1
+            for k in ops:
+                tally[k] += c[k]
+        wall = (time.perf_counter() - t0) * 1e3
+    toks = np.stack(out, 1)
+    want = {k: per_dec.get(k, 0) * calls for k in ops}
+    check(tally == want,
+          f"decode: launches {({k: v for k, v in tally.items() if v})} = "
+          f"{per_dec} per call x {calls} calls (the prefill and "
+          f"{dec_calls} steps): kernel 8 for the {n_dec} cached "
+          f"self-attentions only, none for cross-attention")
+    check(decode_path == n_dec * dec_calls,
+          f"decode: {decode_path} of kernel 8's launches on its decode path "
+          f"= {n_dec} per step x {dec_calls} steps")
+    check(toks.shape == (rows, WHISPER_NEW) and bool(
+        ((toks >= 0) & (toks < cfg.vocab_padded)).all()),
+          f"greedy decode: {rows} x {WHISPER_NEW} tokens in the vocab")
+    for k in ops:
+        launches[k] += tally[k]
+    step_ms = float(np.median(steps))
+    rate = rows * WHISPER_NEW / (wall / 1e3)
+    print(f"  encode {enc_ms:.1f} ms; prefill of {WHISPER_PROMPT} tokens "
+          f"{prefill_ms:.1f} ms; decode {step_ms:.2f} ms per step (median "
+          f"of {WHISPER_NEW}), {rate:.1f} tokens/s over the prefill and "
+          f"{WHISPER_NEW} steps of {rows} rows ({wall:.0f} ms)")
+
+    # -- the cross K/V recomputed on every decode call ---------------------
+    def cross_kv():
+        for li in range(n_dec):
+            p = _at(params["dec"]["cross_attn"], li)
+            approx_dense(enc, p["wk"], None, acfg)
+            approx_dense(enc, p["wv"], None, acfg)
+
+    with torch.inference_mode():
+        cross_ms = cuda_ms(torch, cross_kv, 3)
+        step = lambda: W.decode(params, cur[:, None], enc, cfg, acfg=acfg,
+                                cache=cache, cache_pos=max_seq - 1
+                                )[0].argmax(-1).cpu()
+        _, _, prof_rows = profile(torch, f"whisper-small decode step, "
+                                         f"{rows} rows", step, step_ms)
+    print(f"  cross-attention K and V of {n_dec} layers ({2 * n_dec} GEMMs "
+          f"of {rows * t_enc} x {d} x {d}), recomputed on every decode "
+          f"call: {cross_ms:.2f} ms of the {step_ms:.2f} ms step")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  peak memory {peak:.2f} GiB")
+    del params, enc, cache, frames
+    torch.cuda.empty_cache()
+
+    # -- the card against the CPU, 2 + 2 layers ----------------------------
+    cut = dataclasses.replace(cfg, n_layers=WHISPER_CPU_LAYERS,
+                              n_enc_layers=WHISPER_CPU_LAYERS,
+                              dtype="float32")
+    small = W.init_params(1, cut, device=dev)
+    cpu_small = map_cache(lambda t: t.cpu(), small)
+    fr = torch.randn((2, t_enc, d), generator=gen, device=dev)
+    tk = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 9))).to(dev)
+
+    def run(p, f, t, device):
+        """Encode, an 8-token prefill and one step (no ACU); the prefill's
+        and the step's logits."""
+        with torch.inference_mode():
+            e = W.encode(p, f, cut)
+            c = W.init_cache(cut, 2, 16, device=device)
+            a, _ = W.decode(p, t[:, :8], e, cut, cache=c, cache_pos=0)
+            b, _ = W.decode(p, t[:, 8:], e, cut, cache=c, cache_pos=8)
+        return torch.cat([a, b], 1)
+
+    on_gpu = run(small, fr, tk, dev).cpu()
+    t0 = time.perf_counter()
+    on_cpu = run(cpu_small, fr.cpu(), tk.cpu(), "cpu")
+    cpu_s = time.perf_counter() - t0
+    scale = float(on_cpu.abs().max())
+    err = float((on_gpu - on_cpu).abs().max()) / scale
+    check(err <= SCORE_CPU_TOL,
+          f"whisper-small cut to {WHISPER_CPU_LAYERS} + "
+          f"{WHISPER_CPU_LAYERS} layers, float32, no ACU, {t_enc} frames: "
+          f"card logits within {err:.2e} of the CPU's (tolerance "
+          f"{SCORE_CPU_TOL:.0e} of the largest |logit| {scale:.2f}; "
+          f"{cpu_s:.1f} s on the CPU)")
+    exact = L.gqa_attention
+
+    def causal_cross(q, k, v, **kw):
+        if q.shape[1] != k.shape[1]:
+            kw["causal"] = True
+        return exact(q, k, v, **kw)
+
+    shifted = dict(cpu_small, dec_pos=torch.roll(cpu_small["dec_pos"], 1, 0))
+    faults = {"learned positions shifted by one": (shifted, None),
+              "cross-attention made causal": (cpu_small, causal_cross)}
+    for label, (p, attn) in faults.items():
+        if attn is not None:
+            L.gqa_attention = attn
+        try:
+            bad = run(p, fr.cpu(), tk.cpu(), "cpu")
+        finally:
+            L.gqa_attention = exact
+        ferr = float((on_gpu - bad).abs().max()) / scale
+        check(ferr > SCORE_CPU_TOL,
+              f"planted CPU fault ({label}): {ferr:.2e} from the card, "
+              f"beyond the tolerance")
+    del small, cpu_small
+
+    cut64 = dataclasses.replace(cfg, n_layers=WHISPER_CPU_LAYERS,
+                                n_enc_layers=WHISPER_CPU_LAYERS,
+                                enc_ctx=WHISPER_CPU_CTX)
+    small = W.init_params(2, cut64, device=dev)
+    cpu_small = map_cache(lambda t: t.cpu(), small)
+    fr = torch.randn((1, WHISPER_CPU_CTX, d), generator=gen,
+                     device=dev).to(cut64.param_dtype)
+    tk = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, 4))).to(dev)
+
+    def greedy(p, f, t, device, n=4):
+        with torch.inference_mode():
+            e = W.encode(p, f, cut64, acfg)
+            c = W.init_cache(cut64, 1, 16, device=device)
+            lg, _ = W.decode(p, t, e, cut64, acfg=acfg, cache=c,
+                             last_only=True)
+            got = []
+            for i in range(n):
+                nxt = lg[:, -1].argmax(-1)
+                got.append(int(nxt[0]))
+                lg, _ = W.decode(p, nxt[:, None], e, cut64, acfg=acfg,
+                                 cache=c, cache_pos=t.shape[1] + i)
+        return got
+
+    g_tok = greedy(small, fr, tk, dev)
+    t0 = time.perf_counter()
+    c_tok = greedy(cpu_small, fr.cpu(), tk.cpu(), "cpu")
+    check(g_tok == c_tok,
+          f"whisper-small cut to {WHISPER_CPU_LAYERS} + {WHISPER_CPU_LAYERS} "
+          f"layers, {WHISPER_CPU_CTX} frames, bf16, fused ACU: greedy tokens "
+          f"card {g_tok}, CPU {c_tok} ({time.perf_counter() - t0:.1f} s on "
+          f"the CPU)")
+    del small, cpu_small
+    torch.cuda.empty_cache()
+    return {"encode_ms": enc_ms, "step_ms": step_ms, "tokens_per_s": rate,
+            "peak_gib": peak, "cross_kv_ms": cross_ms, "n_params": n_par}
+
+
+def jamba_phase(torch, np, dev, check, acu, ops, launches,
+                lookups_per_s, redesign: dict) -> dict:
+    """jamba-v0.1-52b at full width, depth cut to one period of its pattern
+    (JAMBA_LAYERS: 3 mamba, 4 mamba_moe, 1 attn), on the fused ACU: kernel
+    2 bitwise at jamba's weight shapes (the expert stacks included); kernel
+    10 at the decode and prefill expert shapes (plan printed; the expert
+    codes bitwise; the output bitwise against its plain version on the
+    first and last JAMBA_COLS columns, the plain version being too slow
+    for all 14,336); kernels 2 and 3 at every dense GEMM shape at the
+    decode and prefill rows (the model's codes bitwise, kernel 3's output
+    on the same column slices); kernel 8's decode path at the attention
+    layer (head dim 128); then JAMBA_REQUESTS
+    requests through the wave and continuous engines with each call's
+    launches checked; the tokens of the reduced config on the card against
+    the CPU's; ms per decode step, the selective scan's share of a
+    prefill's device time from profiles, the expert weight glue and peak
+    memory. Returns the phase's figures."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core import (ApproxConfig, QParams, acu_operand,
+                                  inline_symmetric_scale, quantize)
+    from repro_torch.core.quantization import device_scalar
+    from repro_torch.core import symmetric_qparams
+    from repro_torch.kernels.fused_lut_dense.ref import fused_lut_dense_ref
+    from repro_torch.kernels.fused_lut_grouped.ops import grouped_plan
+    from repro_torch.kernels.fused_lut_grouped.ref import (
+        fused_lut_grouped_ref, live_rows)
+    from repro_torch.kernels.quantize.ref import quantize_ref
+    from repro_torch.models import mamba as MB
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import silu
+    from repro_torch.serve import engine as E
+
+    full = get_config(JAMBA_ARCH)
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS)
+    n_exp, k, d, f = cfg.n_experts, cfg.moe_top_k, cfg.d_model, cfg.d_ff
+    bf = torch.bfloat16
+    acfg = ApproxConfig(acu=acu)
+    lut16, lut32 = acu.device_lut(dev), torch.from_numpy(
+        acu.lut.reshape(-1)).to(dev)
+    off, n_codes = acu.offset, acu.multiplier.n_codes
+    zero = device_scalar(0.0, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    torch.cuda.empty_cache()
+    kinds = {kd: cfg.pattern.count(kd) for kd in dict.fromkeys(cfg.pattern)}
+    blk = {kd: f"b{cfg.pattern.index(kd)}" for kd in kinds}
+    di, dtr = cfg.mamba_d_inner, cfg.mamba_dt_rank
+    hq, hkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    dense = [  # (label, (block kind, branch, leaf) or None for the head, K, N)
+        ("in_proj", ("mamba", "mamba", "in_proj"), d, 2 * di),
+        ("x_proj", ("mamba", "mamba", "x_proj"), di,
+         dtr + 2 * cfg.mamba_d_state),
+        ("dt_proj", ("mamba", "mamba", "dt_proj"), dtr, di),
+        ("out_proj", ("mamba", "mamba", "out_proj"), di, d),
+        ("q/o", ("attn", "attn", "wq"), d, hq),
+        ("k/v", ("attn", "attn", "wk"), d, hkv),
+        ("gate/up", ("mamba", "mlp", "w_gate"), d, f),
+        ("down", ("mamba", "mlp", "w_down"), f, d),
+        ("head", None, d, cfg.vocab_padded)]
+
+    # -- kernel 2 at jamba's weight shapes, the expert stacks included -----
+    print(f"  quantize against its plain version at jamba's weight shapes, "
+          f"bitwise, float32 and bfloat16 (a third of the values on "
+          f"half-code boundaries, 3 % past the clip):")
+    for label, shape, form in (
+            [(lb, (kk, nn), 1) for lb, _, kk, nn in dense]
+            + [("expert gate/up", (n_exp, d, f), "grouped"),
+               ("expert down", (n_exp, f, d), "grouped")]):
+        same = []
+        for dtype in (torch.float32, bf):
+            x, s, z = quantize_operands(torch, gen, dev, shape, form, dtype)
+            qk, qp = ops["quantize"](x, s, z), quantize_ref(x, s, z)
+            same.append(torch.equal(qk, qp) and int(qk.min()) == -128
+                        and int(qk.max()) == 127)
+            del x, s, z, qk, qp
+        check(all(same), f"quantize {label} {shape}, "
+                         f"{'per channel' if form == 1 else form}: bitwise "
+                         f"equal in float32 and bfloat16, both clip edges "
+                         f"reached")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"jamba-v0.1-52b at full width, depth cut from {full.n_layers} to "
+          f"{cfg.n_layers} layers (one period: {kinds}; d {d}, d_inner "
+          f"{cfg.mamba_d_inner}, d_state {cfg.mamba_d_state}, dt_rank "
+          f"{cfg.mamba_dt_rank}, {cfg.n_heads} heads over {cfg.n_kv_heads}, "
+          f"head_dim {cfg.head_dim}, {n_exp} experts top-{k} of d_ff {f}, "
+          f"vocab {cfg.vocab_padded}, {cfg.dtype}, {cfg.n_params() / 1e9:.2f}"
+          f" B parameters; {full.n_params() / 1e9:.2f} B at full depth), "
+          f"{MULT} fused ACU:")
+    t0 = time.perf_counter()
+    params = T.init_params(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    print(f"  random weights from seed 0 in {time.perf_counter() - t0:.2f} s"
+          f", {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    moe_blk = next(f"b{i}" for i, kd in enumerate(cfg.pattern)
+                   if kd == "mamba_moe")
+    mlp0 = {n: t[0] for n, t in params["groups"][moe_blk]["mlp"].items()}
+
+    def codes(w):
+        ws = inline_symmetric_scale(
+            torch.clamp_min(w.abs().amax(dim=1), 1e-9), 8)
+        qp = QParams(scale=ws[:, None, :], zero_point=zero, bits=8)
+        return acu_operand(quantize(w, qp), qp), ws
+
+    def act_scale(x):
+        return inline_symmetric_scale(torch.clamp_min(x.abs().amax(), 1e-6),
+                                      8)
+
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    times = {}
+
+    def hold(label, x, wname, counts):
+        """Kernel 10 at one shape: bitwise against its plain version on
+        the first and last JAMBA_COLS output columns; timed against
+        torch.bmm (f32) and its bound. The expert stack's codes (kernel
+        2) are held against quantize's plain version first (zero point 0:
+        the operand is the code)."""
+        wq, ws = codes(mlp0[wname])
+        same_codes = torch.equal(wq, quantize_ref(mlp0[wname],
+                                                  ws[:, None, :], zero))
+        G, C, K = x.shape
+        N = wq.shape[2]
+        c = torch.cat([torch.arange(JAMBA_COLS, device=dev),
+                       torch.arange(N - JAMBA_COLS, N, device=dev)])
+        xs = act_scale(x)
+        kern = lambda: ops["fused_lut_grouped"](x, wq, lut16, off, xs, zero,
+                                                ws, counts)
+        yk = kern()
+        wq_c, ws_c = wq[:, :, c].contiguous(), ws[:, c].contiguous()
+        t0 = time.perf_counter()
+        yp = fused_lut_grouped_ref(x, wq_c, lut32, off, n_codes, xs, zero,
+                                   ws_c, counts)
+        torch.cuda.synchronize()
+        pms = (time.perf_counter() - t0) * 1e3
+        dead = ~live_rows(counts, C)
+        ok = (same_codes and torch.equal(yk[:, :, c], yp)
+              and not bool(yk[dead].any()))
+        nb = G // n_exp
+        per_e = counts.reshape(nb, n_exp).sum(0)
+        live, e_live = int(per_e.sum()), int((per_e > 0).sum())
+        ms = cuda_ms(torch, kern, 10)
+        xb = x.reshape(nb, n_exp, C, K).transpose(0, 1).reshape(
+            n_exp, nb * C, K).float()
+        wf = wq.float()
+        lib = cuda_ms(torch, lambda: torch.bmm(xb, wf), 5)
+        del xb, wf, wq_c
+        bytes_ = (live * K * x.element_size() + e_live * K * N * 4
+                  + n_exp * N * 4 + lut16.numel() * 2 + G * 4 + G * C * N * 4)
+        lookups = live * K * N
+        bound = max(bytes_ / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
+        plan = grouped_plan(n_exp, nb, C, K, N, n_sm, n_codes, 2)
+        check(ok, f"fused_lut_grouped {label} G={G} C={C} {K}->{N}: the "
+                  f"expert codes and the output bitwise equal to the plain "
+                  f"versions, the output on columns 0..{JAMBA_COLS - 1}"
+                  f" and {N - JAMBA_COLS}..{N - 1} ({pms:.0f} ms), dead rows "
+                  f"0; plan {plan.describe()}")
+        print(f"    {ms:.4f} ms (torch.bmm f32 {lib:.4f}), bound {bound:.4f} "
+              f"ms ({live} live rows, {lookups / 1e9:.3f} G lookups, "
+              f"{bytes_ / 1e6:.1f} MB)", flush=True)
+        times[label] = (ms, lib, bound, pms)
+        return yk
+
+    print(f"  fused_lut_grouped (kernel 10) at jamba's expert shapes, counts "
+          f"from layer {moe_blk[1:]}'s routing of random hidden states:")
+    for t, label in ((JAMBA_SLOTS, "decode"),
+                     (JAMBA_SLOTS * JAMBA_PROMPT, "prefill")):
+        geo = M.dispatch_geometry(cfg, t)
+        x = torch.randn((t, d), generator=gen, device=dev).to(bf)
+        _, _, top_e = M._route(x, mlp0["router"], k)
+        xe, counts, _, _ = M.dispatch(x, top_e, geo)
+        G, C = geo["n_blocks"] * n_exp, geo["capacity"]
+        xg, cnt = xe.reshape(G, C, d), counts.reshape(G)
+        gate = hold(f"{label} gate", xg, "w_gate", cnt)
+        up = hold(f"{label} up", xg, "w_up", cnt)
+        hold(f"{label} down", silu(gate.to(bf)) * up.to(bf), "w_down", cnt)
+        del gate, up, xe, xg
+    torch.cuda.empty_cache()
+    redesign["kernel 10 jamba"] = times
+
+    # -- kernels 2 and 3 at jamba's dense GEMM shapes -----------------------
+    rows = (JAMBA_SLOTS, JAMBA_SLOTS * JAMBA_PROMPT)
+    print(f"  quantize and fused_lut_dense at jamba's dense GEMM shapes, the "
+          f"model's bfloat16 weights quantized as approx_dense does, M = "
+          f"{' and '.join(map(str, rows))}: the codes bitwise, the output "
+          f"bitwise on its first and last {JAMBA_COLS} columns:")
+    for label, leaf, kk, nn in dense:
+        w = (params["lm_head"] if leaf is None else
+             params["groups"][blk[leaf[0]]][leaf[1]][leaf[2]][0])
+        assert tuple(w.shape) == (kk, nn), (label, tuple(w.shape))
+        wqp = symmetric_qparams(torch.clamp_min(w.abs().amax(dim=0), 1e-9),
+                                8, axis=1)
+        q = quantize(w, wqp)                                   # kernel 2
+        same = [torch.equal(q, quantize_ref(
+            w, wqp.scale.reshape(1, -1), wqp.zero_point.reshape(1, -1)))]
+        wq = acu_operand(q, wqp)
+        del q
+        for m_rows in rows:
+            x = torch.randn((m_rows, kk), generator=gen,
+                            device=dev).to(bf)
+            xqp = symmetric_qparams(torch.clamp_min(x.abs().amax(), 1e-6), 8)
+            yk = ops["fused_lut_dense"](x, wq, lut16, off, xqp.scale,
+                                        xqp.zero_point, wqp.scale)
+            for cols in (slice(0, JAMBA_COLS), slice(nn - JAMBA_COLS, nn)):
+                yp = fused_lut_dense_ref(x, wq[:, cols].contiguous(), lut32,
+                                         off, n_codes, xqp.scale,
+                                         xqp.zero_point, wqp.scale[cols])
+                same.append(torch.equal(yk[:, cols], yp))
+            del x, yk, yp
+        check(all(same), f"{label}: quantize ({kk}, {nn}) codes and "
+                         f"fused_lut_dense Mx{kk}x{nn}, M = "
+                         f"{' and '.join(map(str, rows))}, bitwise equal to "
+                         f"the plain versions")
+        del w, wq
+    torch.cuda.empty_cache()
+
+    # -- kernel 8's decode path at jamba's attention (head dim 128) -------
+    redesign["kernel 8 " + cfg.name] = hold_decode_path(
+        torch, np, dev, check, acu, ops, cfg, 24)
+
+    # -- serve through the wave and continuous engines ---------------------
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(1, cfg.vocab_size, JAMBA_PROMPT).astype(np.int32)
+               for _ in range(JAMBA_REQUESTS)]
+    n_kind = {kd: cfg.pattern.count(kd) * cfg.n_groups
+              for kd in ("mamba", "mamba_moe", "attn")}
+    n_dense = (4 * (n_kind["mamba"] + n_kind["mamba_moe"])
+               + 3 * n_kind["mamba"] + 7 * n_kind["attn"] + 1)
+    per_call = {"fused_lut_dense": n_dense,
+                "fused_lut_grouped": 3 * n_kind["mamba_moe"],
+                "quantize": n_dense + 3 * n_kind["mamba_moe"]}
+    engines = {
+        "wave": E.ServeEngine(params, cfg, slots=JAMBA_SLOTS,
+                              max_seq=JAMBA_MAX_SEQ, acfg=acfg, device=dev),
+        "continuous": E.ContinuousServeEngine(
+            params, cfg, slots=JAMBA_SLOTS, max_seq=JAMBA_MAX_SEQ, acfg=acfg,
+            device=dev)}
+    print(f"  serving {JAMBA_REQUESTS} requests of {JAMBA_PROMPT} prompt "
+          f"tokens, {JAMBA_NEW} new tokens each, slots={JAMBA_SLOTS}, "
+          f"max_seq={JAMBA_MAX_SEQ}; per model call {per_call} + "
+          f"{n_kind['attn']} approx_flash_attention:")
+    rates = serve_lm(torch, check, E, engines, prompts, JAMBA_NEW, cfg, ops,
+                     launches, per_call, attn_layers=n_kind["attn"])
+    del engines
+    try:
+        E.PagedContinuousServeEngine(params, cfg, slots=JAMBA_SLOTS,
+                                     max_seq=JAMBA_MAX_SEQ,
+                                     block_size=LM_BLOCK, acfg=acfg,
+                                     device=dev)
+        refused = False
+    except NotImplementedError:
+        refused = True
+    check(refused, "the paged engine refuses jamba's mamba layers, as the "
+                   "reference's paged cache does")
+
+    # -- decode step, prefill profile and the scan's share ----------------
+    b = JAMBA_SLOTS
+    ptoks = torch.from_numpy(np.stack(prompts)).to(dev)
+    captured = []
+    inner_scan = MB._ssm_scan
+
+    def capture(dA, dBx, h0=None):
+        captured.append((dA, dBx, h0))
+        return inner_scan(dA, dBx, h0)
+
+    def prefill():
+        c = T.init_cache(cfg, b, JAMBA_MAX_SEQ, device=dev)
+        return T.apply_model(params, ptoks, cfg, acfg=acfg, cache=c,
+                             cache_pos=0, last_only=True)[0].argmax(-1).cpu()
+
+    with torch.inference_mode():
+        cache = T.init_cache(cfg, b, JAMBA_MAX_SEQ, device=dev)
+        lg, _ = T.apply_model(params, ptoks, cfg, acfg=acfg, cache=cache,
+                              cache_pos=0, last_only=True)
+        cur = lg[:, -1].argmax(-1)[:, None]
+        step = lambda: T.apply_model(params, cur, cfg, acfg=acfg,
+                                     cache=cache, cache_pos=JAMBA_PROMPT,
+                                     decode=True)[0].argmax(-1).cpu()
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step()
+        step_ms = (time.perf_counter() - t0) / 3 * 1e3
+        profile(torch, f"jamba decode step, {b} rows", step, step_ms)
+        prefill()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        _, _, prows = profile(torch, f"jamba prefill, {b} x {JAMBA_PROMPT} "
+                                     f"tokens", prefill, pre_ms)
+        MB._ssm_scan = capture
+        try:
+            prefill()
+        finally:
+            MB._ssm_scan = inner_scan
+        _, _, srows = profile(torch, f"the {len(captured)} selective scans "
+                                     f"of that prefill",
+                              lambda: [inner_scan(*a) for a in captured])
+        busy = sum(r[1] for r in prows)
+        scan = sum(r[1] for r in srows)
+        share = scan / busy if busy else float("nan")
+        check(len(captured) == n_kind["mamba"] + n_kind["mamba_moe"],
+              f"selective scan: {scan:.3f} ms of the prefill's "
+              f"{busy:.3f} ms device time ({share:.3f}), "
+              f"{len(captured)} scans of {tuple(captured[0][0].shape)}")
+        del captured
+        mlp = params["groups"][moe_blk]["mlp"]
+        glue = cuda_ms(torch, lambda: [codes(mlp[n][0]) for n in
+                                       ("w_gate", "w_up", "w_down")], 3)
+        n_moe = n_kind["mamba_moe"]
+        print(f"  expert weight quantization (scales, codes) of one layer: "
+              f"{glue:.3f} ms, x{n_moe} mamba_moe layers = {glue * n_moe:.1f}"
+              f" ms of each model call ({step_ms:.1f} ms a decode step)")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  jamba decode step {step_ms:.1f} ms, prefill of {b} x "
+          f"{JAMBA_PROMPT} {pre_ms:.1f} ms; tokens/s " + ", ".join(
+              f"{kk} {v:.1f}" for kk, v in rates.items())
+          + f"; peak memory {peak:.2f} GiB")
+    del params, cache, mlp0, mlp
+    torch.cuda.empty_cache()
+
+    # -- the reduced config: the card against the CPU ----------------------
+    red = reduced_config(JAMBA_ARCH)
+    small = T.init_params(1, red, device=dev)
+    cpu_small = T.map_cache(lambda t: t.cpu(), small)
+    reqs = [prompts[i][:16 + 5 * i] % red.vocab_size for i in range(3)]
+    for name in ("wave", "continuous"):
+        cls = E.ServeEngine if name == "wave" else E.ContinuousServeEngine
+        on = {}
+        for where, p in (("card", small), ("CPU", cpu_small)):
+            eng = cls(p, red, slots=2, max_seq=64, acfg=acfg,
+                      device=dev if where == "card" else "cpu")
+            on[where] = [[int(t) for t in r.out] for r in eng.run(
+                [E.Request(prompt=q.copy(), max_new_tokens=6) for q in reqs])]
+        check(on["card"] == on["CPU"],
+              f"jamba reduced config ({red.n_layers} layers, d "
+              f"{red.d_model}), {name} engine, 3 requests x 6 tokens: the "
+              f"same tokens on the card and the CPU ({on['card'][0]} ...)")
+    del small, cpu_small
+    torch.cuda.empty_cache()
+    return {"rates": rates, "step_ms": step_ms, "prefill_ms": pre_ms,
+            "scan_share": share, "glue_ms": glue * n_kind["mamba_moe"],
+            "peak_gib": peak, "k10": times}
 
 
 def attn_pairs(sq: int, sk: int, window) -> int:
@@ -4270,6 +4921,20 @@ def main() -> int:
                             account, fma_per_s)
     print(f"RWKV phase: {time.perf_counter() - t0:.1f} s")
 
+    # -- 10b. whisper-small: encode, greedy decode ---------------------------
+    t0 = time.perf_counter()
+    whisper = whisper_phase(torch, np, dev, check, acu, ops, launches,
+                            redesign)
+    whisper["seconds"] = time.perf_counter() - t0
+    print(f"whisper phase: {whisper['seconds']:.1f} s")
+
+    # -- 10c. jamba-v0.1-52b, one period of its pattern --------------------
+    t0 = time.perf_counter()
+    jamba = jamba_phase(torch, np, dev, check, acu, ops, launches,
+                        lookups_per_s, redesign)
+    jamba["seconds"] = time.perf_counter() - t0
+    print(f"jamba phase: {jamba['seconds']:.1f} s")
+
     # -- 11. score gemma2-27b through loss_fn --------------------------------
     t0 = time.perf_counter()
     scored = score_phase(torch, np, dev, check, acu, ops, launches, account,
@@ -4313,6 +4978,24 @@ def main() -> int:
         f"{k} {v:.1f}" for k, v in moe_rates.items()))
     print("rwkv6-3b tokens/s: " + ", ".join(
         f"{k} {v:.1f}" for k, v in rwkv_rates.items()))
+    card = nvidia_smi("name,power.limit")
+    print(f"whisper-small ({card}): encode {whisper['encode_ms']:.1f} ms "
+          f"for {WHISPER_ROWS} x 1500 frames, {whisper['step_ms']:.2f} ms "
+          f"per decode step of {WHISPER_ROWS} rows ({whisper['cross_kv_ms']:.2f}"
+          f" ms of it the cross K/V recomputation), "
+          f"{whisper['tokens_per_s']:.1f} tokens/s, peak memory "
+          f"{whisper['peak_gib']:.2f} GiB; phase {whisper['seconds']:.1f} s")
+    print(f"jamba-v0.1-52b cut to {JAMBA_LAYERS} layers ({card}): tokens/s "
+          + ", ".join(f"{k} {v:.1f}" for k, v in jamba["rates"].items())
+          + f"; {jamba['step_ms']:.1f} ms per decode step of {JAMBA_SLOTS} "
+          f"rows ({jamba['glue_ms']:.1f} ms of it the expert weight glue), "
+          f"prefill {jamba['prefill_ms']:.1f} ms, selective scan "
+          f"{jamba['scan_share']:.3f} of the prefill's device time; peak "
+          f"memory {jamba['peak_gib']:.2f} GiB; kernel 10 at jamba's shapes "
+          f"(ms, torch.bmm f32, bound): " + ", ".join(
+              f"{k} {v[0]:.4f}, {v[1]:.4f}, {v[2]:.4f}"
+              for k, v in jamba["k10"].items())
+          + f"; phase {jamba['seconds']:.1f} s")
     print(f"gemma2-27b scoring: {scored['tokens_per_s']:.1f} scored tokens/s "
           f"({SCORE_TOKENS} tokens in {scored['seconds']:.1f} s), loss "
           f"{scored['loss']:.4f}, peak memory {scored['peak_gib']:.2f} GiB")
@@ -4393,7 +5076,7 @@ def main() -> int:
           + f"; kernel 6 bank-conflict replay "
           f"x{redesign['kernel 6 conflicts']:.2f}; " + ", ".join(
               f"{k} decode path {v[0]:.4f} ms vs general {v[1]:.4f} ms "
-              f"({v[1] / v[0]:.2f}x), SDPA {v[2]:.4f} ms"
+              f"({v[1] / v[0]:.2f}x), SDPA {v[2]:.4f} ms, bound {v[3]:.4f} ms"
               for k, v in redesign.items() if k.startswith("kernel 8 ")))
     tr_rates, tr_times = trained["rates"], trained["times"]
     print(f"SmolLM-135M training (batch {TRAIN_LM_BATCH} x {TRAIN_LM_SEQ}, "

@@ -12,16 +12,19 @@ upcasts.
 Unlike the reference's pure functions, the attention block writes new K/V
 into the cache tensors it is given, in place, and returns the same
 tensors: a cache of 30 layers is never copied to append one token.
-Cross-attention caches are not ported.
+Cross-attention (``kv=``, the enc-dec decoder's) projects K and V from the
+encoder output on every call, as the reference does, and takes the exact
+:func:`gqa_attention`, non-causal, with or without an ACU: the
+reference's approximate attention route is for cached self-attention
+only.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
-from repro_torch.core.acu import not_ported
 from repro_torch.core.approx_ops import (ApproxConfig, approx_attention,
                                          approx_attention_paged,
                                          approx_dense, conv2d, exact_f32)
@@ -241,7 +244,9 @@ def attention_block(x: torch.Tensor, p: dict, cfg,
     ``cache``: optional (k_cache, v_cache) of shape (B, Smax, Hkv, D),
     written in place at ``cache_pos`` (an int, or a (B,) tensor: every row
     at its own position); returns (out, cache). ``pad_mask``: (B, Smax)
-    bool, False keys never attended.
+    bool, False keys never attended. ``kv`` (B, T, D): cross-attention
+    to it (K and V projected from it, no RoPE, no cache, exact and
+    non-causal whatever ``causal`` and ``acfg`` say); returns (out, None).
 
     ``page_table`` (B, n_logical) switches to the block-paged layout:
     ``cache`` is then (k_pool, v_pool) of shape (Hkv, P, block, D), decode
@@ -253,15 +258,18 @@ def attention_block(x: torch.Tensor, p: dict, cfg,
     b, s_len, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = approx_dense(x, p["wq"], p.get("bq"), acfg).reshape(b, s_len, h, hd)
-    if kv is not None:
-        raise not_ported("cross-attention (enc-dec)",
-                         "queue 1, item 14b (models/whisper.py)")
-    k = approx_dense(x, p["wk"], p.get("bk"), acfg).reshape(b, s_len, hkv, hd)
-    v = approx_dense(x, p["wv"], p.get("bv"), acfg).reshape(b, s_len, hkv, hd)
+    src = x if kv is None else kv
+    t0 = src.shape[1]
+    k = approx_dense(src, p["wk"], p.get("bk"), acfg).reshape(b, t0, hkv, hd)
+    v = approx_dense(src, p["wv"], p.get("bv"), acfg).reshape(b, t0, hkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
-    if cfg.rope == "mrope":
+    if kv is not None:
+        # cross-attention: no RoPE, no cache, the exact non-causal path
+        if cache is not None or page_table is not None:
+            raise ValueError("cross-attention takes no cache")
+    elif cfg.rope == "mrope":
         mpos = positions[None].expand(3, *positions.shape)
         q = apply_mrope(q, mpos, cfg.mrope_sections, cfg.rope_theta)
         k = apply_mrope(k, mpos, cfg.mrope_sections, cfg.rope_theta)
@@ -355,7 +363,7 @@ def attention_block(x: torch.Tensor, p: dict, cfg,
             out = fused.transpose(1, 2).to(q.dtype).reshape(b, s_len, h * hd)
             return approx_dense(out, p["wo"], p.get("bo"), acfg), cache
 
-    out = gqa_attention(q, k, v, causal=causal, window=window,
+    out = gqa_attention(q, k, v, causal=causal and kv is None, window=window,
                         softcap=cfg.softcap_attn, q_offset=q_offset,
                         chunk=cfg.attn_chunk, impl=cfg.attn_impl,
                         causal_blocking=cfg.attn_causal_blocking,
@@ -367,6 +375,18 @@ def attention_block(x: torch.Tensor, p: dict, cfg,
 # ---------------------------------------------------------------------------
 # MLP, embedding, head
 # ---------------------------------------------------------------------------
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (tanh form) op by op: ``x * (0.5 * (1 + tanh(c * (x
+    + 0.044715 * (x * x * x)))))`` with ``c = sqrt(2 / pi)``, each op
+    rounded in ``x``'s dtype and both constants rounded to it first, as
+    the reference's weakly typed scalars are (``F.gelu`` rounds a bfloat16
+    activation once, and PyTorch keeps a Python scalar in float32)."""
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype, device=x.device)
+    k = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    cube = (x * x) * x
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * cube))))
+
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``x * (1 / (1 + exp(-x)))``, each op rounded in ``x``'s dtype: the
@@ -381,12 +401,10 @@ def mlp_block(x: torch.Tensor, p: dict, cfg,
     if cfg.mlp_type in ("swiglu", "geglu"):
         gate = approx_dense(x, p["w_gate"], None, acfg)
         up = approx_dense(x, p["w_up"], None, acfg)
-        act = (silu(gate) if cfg.mlp_type == "swiglu"
-               else F.gelu(gate, approximate="tanh"))
+        act = silu(gate) if cfg.mlp_type == "swiglu" else gelu(gate)
         hidden = act * up
     else:
-        hidden = F.gelu(approx_dense(x, p["w_up"], p.get("b_up"), acfg),
-                        approximate="tanh")
+        hidden = gelu(approx_dense(x, p["w_up"], p.get("b_up"), acfg))
     return approx_dense(hidden, p["w_down"], p.get("b_down"), acfg)
 
 

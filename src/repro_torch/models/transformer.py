@@ -1,16 +1,17 @@
 """Decoder-only LM: init / forward / caches (port of
-``repro.models.transformer``, attention and RWKV patterns).
+``repro.models.transformer``, every layer kind of the config zoo).
 
 Parameters keep the reference's pytree: group-stacked leaves of shape
 ``(n_groups, ...)`` under ``params["groups"]["b<i>"]``, so the reference's
 parameters carry over leaf for leaf (:func:`load_jax_params`). The forward
 is a Python loop over groups where the reference scans. Caches are stacked
 the same way and written in place (``models/layers.py``,
-``models/rwkv.py``). Attention layers take a dense MLP or, for
-``attn_moe``, an MoE block (``models/moe.py``); ``rwkv`` layers are the
-RWKV-6 block, whose recurrent state is O(1) per row (the paged cache
-refuses it, as the reference's does). Mamba layers and the enc-dec family
-raise ``NotImplementedError`` naming their ROADMAP item.
+``models/rwkv.py``, ``models/mamba.py``). Attention and Mamba layers take
+a dense MLP or, for ``attn_moe`` / ``mamba_moe``, an MoE block
+(``models/moe.py``); ``rwkv`` layers are the RWKV-6 block. Recurrent state
+(``rwkv``, ``mamba``) is O(1) per row, so the paged cache refuses those
+kinds, as the reference's does. The enc-dec family (whisper) is
+``models/whisper.py``, built from this module's parameter helpers.
 """
 from __future__ import annotations
 
@@ -20,44 +21,44 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.acu import not_ported
 from repro_torch.core.approx_ops import ApproxConfig
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.mamba import MambaState, mamba_block
 from repro_torch.models.moe import moe_block
 from repro_torch.models.rwkv import RwkvState, rwkv_block
 from repro_torch.tree import tree_map
 
+KINDS = ("attn", "attn_local", "attn_global", "attn_moe", "mamba",
+         "mamba_moe", "rwkv")
+
 
 def _check_kinds(cfg: ModelConfig) -> None:
     for kind in cfg.pattern:
-        if not (kind.startswith("attn") or kind == "rwkv"):
-            raise not_ported(f"{kind} layers ({cfg.name})",
-                             "queue 1, item 14b (other model families)")
-    if cfg.enc_dec:
-        raise not_ported(f"the encoder-decoder family ({cfg.name})",
-                         "queue 1, item 14b (other model families)")
+        if kind not in KINDS:
+            raise ValueError(f"unknown layer kind {kind!r} ({cfg.name})")
+
+
+def _entry(kind: str) -> str:
+    """The cache entry of a layer kind: ``attn``, ``mamba`` or ``rwkv``."""
+    return "rwkv" if kind == "rwkv" else kind.split("_")[0]
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def init_params(seed: int, cfg: ModelConfig, device=None) -> dict:
-    """Parameters from a seed (``torch.Generator`` on ``device``), in the
-    reference's layout and scales: dense weights ``N(0, 1) / sqrt(d_in)``
-    in ``cfg.param_dtype``, norms at 1 (0 for ``rms1p``), biases 0. The
-    numbers differ from the reference's ``jax.random`` ones; load those
-    with :func:`load_jax_params`."""
-    _check_kinds(cfg)
+def param_makers(seed: int, cfg: ModelConfig, device):
+    """``(dense, norm, dev)`` for building parameters from a seed (one
+    ``torch.Generator`` on the device): ``dense(*shape, scale=None,
+    dtype=cfg.param_dtype)`` draws ``N(0, 1) * scale`` (``scale`` defaults
+    to ``shape[-2] ** -0.5``), ``norm(width, n)`` gives ``n`` stacked norm
+    parameters of ``cfg.norm``'s kind."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    g, d, hd = cfg.n_groups, cfg.d_model, cfg.head_dim
-    h, hkv, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
-    pd = cfg.param_dtype
 
-    def dense(*shape, scale=None, dtype=pd):
+    def dense(*shape, scale=None, dtype=cfg.param_dtype):
         scale = scale or shape[-2] ** -0.5
         w = torch.randn(shape, generator=gen, device=dev,
                         dtype=torch.float32)
@@ -70,33 +71,66 @@ def init_params(seed: int, cfg: ModelConfig, device=None) -> dict:
         fill = torch.zeros if cfg.norm == "rms1p" else torch.ones
         return {"w": fill((n, width), device=dev)}
 
+    return dense, norm, dev
+
+
+def init_attn(dense, cfg: ModelConfig, g: int, dev,
+              cross: bool = False) -> dict:
+    """Attention leaves (g, ...): ``wq``/``wk``/``wv``/``wo`` at
+    ``d_in**-0.5``; QKV biases at 0 when ``cfg.qkv_bias`` (never for a
+    ``cross`` attention, as the reference's ``_init_attn``); q/k norms at
+    1 when ``cfg.qk_norm``."""
+    d, hd = cfg.d_model, cfg.head_dim
+    h, hkv, pd = cfg.n_heads, cfg.n_kv_heads, cfg.param_dtype
+    attn = {"wq": dense(g, d, h * hd), "wk": dense(g, d, hkv * hd),
+            "wv": dense(g, d, hkv * hd), "wo": dense(g, h * hd, d)}
+    if cfg.qkv_bias and not cross:
+        for name, width in (("bq", h * hd), ("bk", hkv * hd),
+                            ("bv", hkv * hd)):
+            attn[name] = torch.zeros((g, width), dtype=pd, device=dev)
+    if cfg.qk_norm:
+        attn["q_norm"] = torch.ones((g, hd), device=dev)
+        attn["k_norm"] = torch.ones((g, hd), device=dev)
+    return attn
+
+
+def init_mlp(dense, cfg: ModelConfig, g: int, dev) -> dict:
+    """Dense MLP leaves (g, ...): gated (``w_gate``, ``w_up``, ``w_down``)
+    or plain GELU with zero biases (``b_up``, ``b_down``)."""
+    d, f, pd = cfg.d_model, cfg.d_ff, cfg.param_dtype
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        return {"w_gate": dense(g, d, f), "w_up": dense(g, d, f),
+                "w_down": dense(g, f, d)}
+    return {"w_up": dense(g, d, f),
+            "b_up": torch.zeros((g, f), dtype=pd, device=dev),
+            "w_down": dense(g, f, d),
+            "b_down": torch.zeros((g, d), dtype=pd, device=dev)}
+
+
+def init_params(seed: int, cfg: ModelConfig, device=None) -> dict:
+    """Parameters from a seed (``torch.Generator`` on ``device``), in the
+    reference's layout and scales: dense weights ``N(0, 1) / sqrt(d_in)``
+    in ``cfg.param_dtype``, norms at 1 (0 for ``rms1p``), biases 0. The
+    numbers differ from the reference's ``jax.random`` ones; load those
+    with :func:`load_jax_params`."""
+    _check_kinds(cfg)
+    dense, norm, dev = param_makers(seed, cfg, device)
+    g, d = cfg.n_groups, cfg.d_model
+
     groups: dict[str, Any] = {}
     for i, kind in enumerate(cfg.pattern):
         if kind == "rwkv":
             groups[f"b{i}"] = {"rwkv": _init_rwkv(dense, cfg, g, dev)}
             continue
-        attn = {"wq": dense(g, d, h * hd), "wk": dense(g, d, hkv * hd),
-                "wv": dense(g, d, hkv * hd), "wo": dense(g, h * hd, d)}
-        if cfg.qkv_bias:
-            for name, width in (("bq", h * hd), ("bk", hkv * hd),
-                                ("bv", hkv * hd)):
-                attn[name] = torch.zeros((g, width), dtype=pd, device=dev)
-        if cfg.qk_norm:
-            attn["q_norm"] = torch.ones((g, hd), device=dev)
-            attn["k_norm"] = torch.ones((g, hd), device=dev)
-        if kind.endswith("moe"):
-            mlp = _init_moe(dense, cfg, g)
-        elif cfg.mlp_type in ("swiglu", "geglu"):
-            mlp = {"w_gate": dense(g, d, f), "w_up": dense(g, d, f),
-                   "w_down": dense(g, f, d)}
+        blk = {"norm1": norm(d, g)}
+        if kind.startswith("mamba"):
+            blk["mamba"] = _init_mamba(dense, cfg, g, dev)
         else:
-            mlp = {"w_up": dense(g, d, f),
-                   "b_up": torch.zeros((g, f), dtype=pd, device=dev),
-                   "w_down": dense(g, f, d),
-                   "b_down": torch.zeros((g, d), dtype=pd, device=dev)}
-        blk = {"norm1": norm(d, g), "attn": attn, "norm2": norm(d, g),
-               "mlp": mlp}
-        if cfg.post_norm:
+            blk["attn"] = init_attn(dense, cfg, g, dev)
+        blk["norm2"] = norm(d, g)
+        blk["mlp"] = (_init_moe(dense, cfg, g) if kind.endswith("moe")
+                      else init_mlp(dense, cfg, g, dev))
+        if cfg.post_norm and kind.startswith("attn"):
             blk["post_norm1"] = norm(d, g)
             blk["post_norm2"] = norm(d, g)
         groups[f"b{i}"] = blk
@@ -116,6 +150,27 @@ def _init_moe(dense, cfg: ModelConfig, g: int) -> dict:
     return {"router": dense(g, d, e, dtype=torch.float32),
             "w_gate": dense(g, e, d, f), "w_up": dense(g, e, d, f),
             "w_down": dense(g, e, f, d)}
+
+
+def _init_mamba(dense, cfg: ModelConfig, g: int, dev) -> dict:
+    """Mamba leaves in the reference's layout, dtypes and scales: the four
+    projections at ``d_in**-0.5`` and ``conv_w`` at 0.1 in
+    ``cfg.param_dtype``; ``conv_b`` 0, ``dt_bias`` -4.6 (softplus about
+    0.01) and ``Dskip`` 1 in ``cfg.param_dtype``; ``A_log`` = log(1 ..
+    d_state) on every channel, float32."""
+    d, di, ds = cfg.d_model, cfg.mamba_d_inner, cfg.mamba_d_state
+    dtr, dc, pd = cfg.mamba_dt_rank, cfg.mamba_d_conv, cfg.param_dtype
+    a_log = torch.log(torch.arange(1, ds + 1, dtype=torch.float32,
+                                   device=dev))
+    return {"in_proj": dense(g, d, 2 * di),
+            "conv_w": dense(g, dc, di, scale=0.1),
+            "conv_b": torch.zeros((g, di), dtype=pd, device=dev),
+            "x_proj": dense(g, di, dtr + 2 * ds),
+            "dt_proj": dense(g, dtr, di),
+            "dt_bias": torch.full((g, di), -4.6, dtype=pd, device=dev),
+            "A_log": a_log.expand(g, di, ds).contiguous(),
+            "Dskip": torch.ones((g, di), dtype=pd, device=dev),
+            "out_proj": dense(g, di, d)}
 
 
 def _init_rwkv(dense, cfg: ModelConfig, g: int, dev) -> dict:
@@ -166,7 +221,8 @@ def load_jax_params(tree, device=None, dtype=None) -> dict:
 
 def map_cache(fn, tree):
     """``fn`` applied to every tensor of a cache or parameter tree (dicts,
-    tuples and ``RwkvState``s), keeping its structure."""
+    tuples, ``RwkvState``s and ``MambaState``s), keeping its
+    structure."""
     return tree_map(fn, tree)
 
 
@@ -194,14 +250,21 @@ def mlp_apply(h, p, kind: str, cfg: ModelConfig, acfg):
 
 
 def _apply_block(x, blk, kind, cfg, acfg, positions, cache, cache_pos,
-                 pad_mask=None, page_table=None):
-    """One layer; ``cache`` is its (K, V), its ``RwkvState`` or None.
-    An ``rwkv`` layer ignores positions and masks: its recurrence ingests
-    every token, left pads included, as the reference's does."""
+                 decode=False, pad_mask=None, page_table=None):
+    """One layer; ``cache`` is its (K, V), its ``RwkvState``, its
+    ``MambaState`` or None. Recurrent layers (``rwkv``, ``mamba``) ignore
+    positions and masks: their recurrence ingests every token, left pads
+    included, as the reference's does."""
     if kind == "rwkv":
         return rwkv_block(x, blk["rwkv"], cfg, acfg, state=cache)[0]
-    window = cfg.window_size if kind == "attn_local" else None
     h = _norm(x, blk["norm1"], cfg)
+    if kind.startswith("mamba"):
+        m, _ = mamba_block(h, blk["mamba"], cfg, acfg, state=cache,
+                           decode=decode)
+        x = x + m
+        return x + mlp_apply(_norm(x, blk["norm2"], cfg), blk["mlp"], kind,
+                             cfg, acfg)
+    window = cfg.window_size if kind == "attn_local" else None
     a, _ = L.attention_block(h, blk["attn"], cfg, acfg, positions,
                              cache=cache, cache_pos=cache_pos, window=window,
                              pad_mask=pad_mask, page_table=page_table)
@@ -231,8 +294,9 @@ def apply_model(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     count, subtracted from the RoPE positions; ``pad_mask`` (B, T): the
     valid keys. ``page_table`` (B, n_logical) int32 switches the caches to
     the block-paged layout of :func:`init_paged_cache`. ``decode`` is
-    the reference's flag; no layer kind needs a separate decode path (an
-    RWKV decode step is its recurrence with T = 1)."""
+    the reference's flag: a Mamba layer then takes one recurrence step
+    for T = 1 instead of the scan (an RWKV decode step is its recurrence
+    with T = 1 either way)."""
     _check_kinds(cfg)
     b, s = tokens.shape
     x = L.embed(tokens, params["embed"])
@@ -253,11 +317,11 @@ def apply_model(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     for gi in range(cfg.n_groups):
         gp = _at(params["groups"], gi)
         for i, kind in enumerate(cfg.pattern):
-            entry = "rwkv" if kind == "rwkv" else "attn"
             layer_cache = None if groups is None else \
-                _at(groups[f"b{i}"][entry], gi)
+                _at(groups[f"b{i}"][_entry(kind)], gi)
             x = _apply_block(x, gp[f"b{i}"], kind, cfg, acfg, positions,
-                             layer_cache, cache_pos, pad_mask, page_table)
+                             layer_cache, cache_pos, decode, pad_mask,
+                             page_table)
     if last_only:
         x = x[:, -1:]
     x = _norm(x, _at(params["final_norm"], 0), cfg)
@@ -282,9 +346,12 @@ def loss_fn(params: dict, tokens: torch.Tensor, labels: torch.Tensor,
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device=None) -> dict:
     """Decode cache, group-stacked like the parameters, zeros: per
-    attention layer (K, V) of shape (n_groups, batch, max_seq, Hkv, D);
-    per rwkv layer an ``RwkvState`` of shifts (n_groups, batch, 1, d) in
-    ``dtype`` and the wkv state (n_groups, batch, H, hd, hd) in float32."""
+    attention layer (K, V) of shape (n_groups, batch, max_seq, Hkv, D)
+    (two tensors); per rwkv layer an ``RwkvState`` of shifts (n_groups,
+    batch, 1, d) in ``dtype`` and the wkv state (n_groups, batch, H, hd,
+    hd) in float32; per mamba layer a ``MambaState`` of the conv tail
+    (n_groups, batch, d_conv - 1, d_inner) in ``dtype`` and the SSM state
+    (n_groups, batch, d_inner, d_state) in float32."""
     _check_kinds(cfg)
     dev = resolve_device(device)
     g = cfg.n_groups
@@ -302,6 +369,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                 wkv=zeros(g, batch, cfg.rwkv_n_heads, hd, hd,
                           dtype=torch.float32),
                 cm_shift=zeros(g, batch, 1, cfg.d_model))}
+        elif kind.startswith("mamba"):
+            groups[f"b{i}"] = {"mamba": MambaState(
+                conv=zeros(g, batch, cfg.mamba_d_conv - 1,
+                           cfg.mamba_d_inner),
+                ssm=zeros(g, batch, cfg.mamba_d_inner, cfg.mamba_d_state,
+                          dtype=torch.float32))}
         else:
             shape = (g, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
             groups[f"b{i}"] = {"attn": (zeros(*shape), zeros(*shape))}

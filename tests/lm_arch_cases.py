@@ -1,9 +1,9 @@
-"""The other dense decoder LMs of the config zoo (no experts, no recurrent
-layers) against the JAX reference on the CPU: gemma2-27b (local and global
-layers, attention and final softcaps, post-norms, (1+w) RMS norm, GeGLU),
-qwen2.5-14b (QKV biases) and command-r-plus-104b (the parallel block with
-layer norm), each at its ``reduced_config``, with the reference's
-parameters carried over by ``load_jax_params``.
+"""The shared cases of ``test_torch_lm_arch_*.py``: the other dense decoder
+LMs of the config zoo (no experts, no recurrent layers) against the JAX
+reference on the CPU, each at its ``reduced_config``, with the reference's
+parameters carried over by ``load_jax_params``. Each architecture has a
+file of its own (gemma2-27b, qwen2.5-14b, command-r-plus-104b), so that
+``--dist loadfile`` runs them on three workers.
 
 Tolerances, with their reasons (``test_torch_lm.py`` holds SmolLM-135M to
 the same ``LOGIT_TOL`` on every row):
@@ -28,28 +28,22 @@ from __future__ import annotations
 import contextlib
 
 import numpy as np
-import pytest
+import torch
 
-torch = pytest.importorskip("torch")
+from repro_torch.models.transformer import apply_model, init_cache
+from test_torch_lm import (LOGIT_TOL, _acfgs, _cfgs, _np, _params,
+                           _prefill_decode)
+from test_torch_lm_serve import ENGINES, engine_parity
 
-from repro_torch.models.transformer import apply_model, init_cache  # noqa: E402
-from test_torch_lm import (LOGIT_TOL, _acfgs, _cfgs, _np,  # noqa: E402
-                           _params, _prefill_decode, ref)
-from test_torch_lm_serve import ENGINES, engine_parity  # noqa: E402
-
-OTHER_ARCHS = ["gemma2-27b", "qwen2.5-14b", "command-r-plus-104b"]
 # the unfused GEMM route reaches the same attention as the fused one, and
 # test_torch_lm.py holds it against the reference for SmolLM-135M
 ARCH_ROUTES = ["exact", "lut", "fused"]
 FLIP_ROWS = 1
 FLIP_ROW_TOL = 1e-2
+ARCH_ENGINES = list(ENGINES)
 
-__all__ = ["ref"]        # the fixture, shared with test_torch_lm.py
 
-
-@pytest.mark.parametrize("arch", OTHER_ARCHS)
-@pytest.mark.parametrize("route", ARCH_ROUTES)
-def test_apply_model_other_archs_float32_logits(ref, route, arch):
+def float32_logits_case(ref, route, arch):
     """Prefill (12 tokens) and one decode step of the port's apply_model
     against the reference's, exact, with approximate GEMMs, and with
     approximate GEMMs and attention, within the module docstring's
@@ -81,10 +75,7 @@ def test_apply_model_other_archs_float32_logits(ref, route, arch):
         assert np.array_equal(g.argmax(-1), w.argmax(-1))
 
 
-@pytest.mark.parametrize("arch", OTHER_ARCHS)
-@pytest.mark.parametrize("engine", list(ENGINES))
-def test_engines_give_reference_tokens_other_archs(engine, arch,
-                                                   monkeypatch):
+def engine_case(engine, arch, monkeypatch):
     """Five requests of mixed lengths and budgets through each engine with
     the fused ACU: the reference engine's greedy tokens."""
     engine_parity(engine, "float32", arch, monkeypatch)

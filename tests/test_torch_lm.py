@@ -132,12 +132,6 @@ def test_init_params_layout_matches_reference(ref):
         emb.view(torch.int16).numpy(), np.asarray(jp["embed"]).view(np.int16))
 
 
-def test_unported_families_raise():
-    for name in ("jamba-v0.1-52b", "whisper-small"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_params(0, reduced_config(name), device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------

@@ -4,7 +4,7 @@ GQA 4 over 1) and olmoe-1b-7b (64 experts, QK-norm; reduced: 8 experts,
 top-2), each at its ``reduced_config`` with the reference's parameters
 carried over by ``load_jax_params``.
 
-Tolerances, with their reasons (``test_torch_lm_archs.py`` states them in
+Tolerances, with their reasons (``lm_arch_cases.py`` states them in
 full):
 
 * the exact path: every row within ``LOGIT_TOL`` of the compiled
@@ -42,7 +42,7 @@ from repro_torch.models.transformer import (apply_model,  # noqa: E402
                                             load_jax_params)
 from test_torch_lm import (LOGIT_TOL, _acfgs, _cfgs, _np,  # noqa: E402
                            _params, _prefill_decode, ref)
-from test_torch_lm_archs import FLIP_ROW_TOL, FLIP_ROWS  # noqa: E402
+from lm_arch_cases import FLIP_ROW_TOL, FLIP_ROWS  # noqa: E402
 
 MOE_ARCHS = ["granite-moe-3b-a800m", "olmoe-1b-7b"]
 

@@ -47,7 +47,7 @@ from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models.transformer import (apply_model,  # noqa: E402
                                             loss_fn)
 from test_torch_lm import LOGIT_TOL, MULT, _cfgs, _np, _params, ref  # noqa: E402
-from test_torch_lm_archs import FLIP_ROWS  # noqa: E402
+from lm_arch_cases import FLIP_ROWS  # noqa: E402
 
 __all__ = ["ref"]        # the fixture, shared with test_torch_lm.py
 
