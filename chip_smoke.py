@@ -253,7 +253,25 @@
    and restore's seconds; and the card against the CPU on a two-layer
    float32 cut without the ACU (losses and updates within
    ``SCORE_CPU_TOL``, a planted CPU fault beyond it);
-14. prints the redesigned kernels against their old paths, one
+14. measures a whole step against its roofline (``roofline_phase``):
+   prints the card's achieved bf16 ``torch.matmul`` rate (8192^3) and
+   device-copy bandwidth beside the data-sheet constants of
+   ``launch/roofline.py``; builds SmolLM-135M's train_4k, prefill_32k
+   and decode_32k steps with ``launch/specs.py: build_step`` at the
+   shape's seq_len, the global batch cut to the largest power of two
+   whose counted peak (``count_step`` on ``meta``) fits ROOFLINE_MEM and
+   whose counted bound is at most ROOFLINE_LB_S (batch 1 if none; the
+   cuts are counted in a worker process from the script's start), runs
+   each exact (2 warm-up steps, ROOFLINE_STEPS timed with CUDA events)
+   and prints the median step, the counted ``CellCost`` of the same cut, ``model_flops``, the roofline share (the eager graph's
+   bound ``step_time_lb`` / measured) beside the floor share (the
+   algorithmic ``step_time_min`` / measured), neither of which may pass
+   1.05, and MFU; the same for the decode step on the fused ACU (kernels
+   2, 3 and 8, their launches per step equal to the count's calls); each
+   step's output bitwise equal to the direct call (``apply_model``; the
+   train step's loss to ``loss_fn`` on its microbatches, combined as the
+   step combines them);
+15. prints the redesigned kernels against their old paths, one
    ``{"kernels": [...]}`` line, then the result line.
 
 Every weight of every approximate GEMM is quantized on every call through
@@ -473,6 +491,14 @@ ATTN_FLIP_ROWS = 2
 # forward, each quantizing its weight (and, unfused, its activation) with
 # the quantize kernel; the stem has no input gradient; the backward's
 # per-tensor quantizers are plain PyTorch
+# the roofline phase: SmolLM-135M's three kinds, exact, and the ACU decode
+ROOFLINE_ARCH = "smollm-135m"
+ROOFLINE_CELLS = (("train_4k", None), ("prefill_32k", None),
+                  ("decode_32k", None), ("decode_32k", "mul8s_1L2H:lut"))
+ROOFLINE_MEM = 40 * 2 ** 30    # the batch cut: counted peak at most this
+ROOFLINE_LB_S = 1.0            # and counted bound at most this, a step
+ROOFLINE_STEPS = 5             # timed, after two warm-up steps
+ROOFLINE_SHARE_MAX = 1.05      # a share past this means a wrong count
 STEP_LAUNCHES = {
     "exact": {"fused_lut_conv": 21, "fused_lut_dense": 1, "quantize": 22},
     "approx_fused": {"fused_lut_conv": 21, "fused_lut_dense": 1,
@@ -4349,6 +4375,230 @@ def lm_train_phase(torch, np, dev, check, acu, ops, launches, lookups_per_s,
             "seconds": seconds}
 
 
+def roofline_cut(shape_name: str, acu_spec):
+    """One roofline cell's batch cut, counted on ``meta`` with no device:
+    the largest power-of-two batch (at most the shape's) whose counted step
+    fits ROOFLINE_MEM and ROOFLINE_LB_S, or batch 1 when none does.
+    Returns the batch, its ``CellCost`` and whether it fits.
+    ``start_roofline_cuts`` runs it in a worker process. The counts grow with the batch, and b rows
+    cost at most b times one row (the weights are shared), so the search
+    climbs from the largest batch that bound admits."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import roofline as R
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import build_step, make_acfg
+    cfg, shape = get_config(ROOFLINE_ARCH), SHAPES[shape_name]
+    acfg = make_acfg(acu_spec)
+
+    def count(b):
+        cost = R.count_step(build_step(cfg, dataclasses.replace(
+            shape, global_batch=b), make_host_mesh(), acfg=acfg))
+        return b, cost, (cost.peak_memory <= ROOFLINE_MEM
+                         and cost.step_time <= ROOFLINE_LB_S)
+
+    best = one = count(1)
+    b = 1
+    while 2 * b <= shape.global_batch and \
+            2 * b * one[1].peak_memory <= ROOFLINE_MEM and \
+            2 * b * one[1].step_time <= ROOFLINE_LB_S:
+        b *= 2
+    if b > 1:
+        best = count(b)
+    while best[2] and 2 * best[0] <= shape.global_batch:
+        nxt = count(2 * best[0])
+        if not nxt[2]:
+            break
+        best = nxt
+    return best
+
+
+def roofline_rates(torch, dev, R, card: str) -> tuple[float, float]:
+    """The card's achieved bf16 ``torch.matmul`` rate (8192^3) and device
+    copy bandwidth, printed beside the data-sheet constants; returns both
+    (FLOP/s, B/s). Never used as a denominator."""
+    n = 8192
+    a = torch.randn((n, n), device=dev, dtype=torch.bfloat16)
+    b = torch.randn((n, n), device=dev, dtype=torch.bfloat16)
+    mm_rate = 2 * n ** 3 / (cuda_ms(torch, lambda: torch.matmul(a, b), 10)
+                            / 1e3)
+    src = torch.empty(2 ** 30, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    copy_rate = 2 * src.numel() / (cuda_ms(torch, lambda: dst.copy_(src), 10)
+                                   / 1e3)
+    del a, b, src, dst
+    print(f"  roofline ({card}): achieved bf16 torch.matmul (8192^3) "
+          f"{mm_rate / 1e12:.1f} TFLOP/s against the data sheet's "
+          f"{R.PEAK_BF16 / 1e12:.0f}; device copy {copy_rate / 1e12:.3f} TB/s "
+          f"(read + write) against HBM {R.HBM_BW / 1e12:.2f} TB/s; printed "
+          f"only, the shares below use the data sheet's")
+    return mm_rate, copy_rate
+
+
+def roofline_cell(torch, dev, check, ops, launches, card, name, acu_spec,
+                  cut, t_cell) -> tuple[str, dict]:
+    """One cell of ``roofline_phase`` at its batch cut ``cut`` (from
+    :func:`roofline_cut`): the step checked against the direct call, two
+    warm-up steps, ROOFLINE_STEPS timed; returns its label and figures."""
+    import statistics
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import roofline as R
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import build_step, make_acfg, materialize
+    from repro_torch.models import transformer as T
+
+    bsz, cost, fits = cut
+    cfg = get_config(ROOFLINE_ARCH)
+    acfg = make_acfg(acu_spec)
+    label = name + (f" --acu {acu_spec}" if acu_spec else "")
+    shape = SHAPES[name]
+    bundle = build_step(cfg, dataclasses.replace(shape, global_batch=bsz),
+                        make_host_mesh(), acfg=acfg)
+    sh = bundle.shape
+    print(f"  {label}: global batch cut {shape.global_batch} -> "
+          f"{sh.global_batch} at seq_len {sh.seq_len} (counted peak "
+          f"{cost.peak_memory / 2**30:.2f} GiB, bound "
+          f"{cost.step_time * 1e3:.2f} ms; limits "
+          f"{ROOFLINE_MEM / 2**30:.0f} GiB, {ROOFLINE_LB_S * 1e3:.0f} "
+          f"ms" + ("" if fits else ": batch 1 passes them, run all the "
+                   "same") + f"; {time.perf_counter() - t_cell:.1f} s to "
+          f"the count)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = materialize(bundle, dev, seed=0)
+    params = args[0]
+    # the direct call, before the step writes anything in place
+    with torch.no_grad():
+        if sh.kind == "train":
+            n_micro = bundle.fn.n_micro
+            mb = sh.global_batch // n_micro
+            nm = torch.tensor(float(n_micro), device=dev)
+            want = torch.zeros((), dtype=torch.float32, device=dev)
+            for j in range(n_micro):
+                tk, lb = (t[j * mb:(j + 1) * mb] for t in args[2:4])
+                li = T.loss_fn(params, tk, lb, cfg, acfg)
+                want = li if n_micro == 1 else want + li / nm
+        elif sh.kind == "prefill":
+            cache = T.init_cache(cfg, sh.global_batch, sh.seq_len,
+                                 device=dev)
+            want = T.apply_model(params, args[2], cfg, acfg=acfg,
+                                 cache=cache, cache_pos=0,
+                                 last_only=True)[0][:, -1]
+            del cache
+    if sh.kind == "train":
+        got = bundle.fn(*args)[2]
+        what = "loss equal to loss_fn on its microbatches"
+    elif sh.kind == "prefill":
+        got = bundle.fn(*args)[0]
+        what = "last logits equal to apply_model's"
+    else:
+        got = bundle.fn(*args)[0]
+        with torch.no_grad():
+            want = T.apply_model(params, args[2], cfg, acfg=acfg,
+                                 cache=args[1], cache_pos=args[3],
+                                 decode=True)[0][:, -1]
+        what = "logits equal to apply_model's at the same position"
+    check(torch.equal(got, want) and bool(torch.isfinite(got).all()),
+          f"roofline {label}: the step's {what}, bitwise, finite")
+    del got, want
+    # two warm-up steps: the checked one, and one with the launch
+    # counters read around it
+    per_step = count_launches(ops, lambda: bundle.fn(*args))[1]
+    if acfg is not None:
+        for k in per_step:
+            launches[k] += per_step[k]
+        counted = {k: v["calls"] for k, v in cost.kernels.items()}
+        ran = {k: v for k, v in per_step.items() if v}
+        check(ran == counted and all(ran.get(k) for k in (
+            "quantize", "fused_lut_dense", "approx_flash_attention")),
+              f"roofline {label}: launches per step {ran} equal to the "
+              f"count's calls {counted} (kernels 2, 3 and 8)")
+    times = []
+    for _ in range(ROOFLINE_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        bundle.fn(*args)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    mf = R.model_flops(cfg, sh, 1)
+    share = cost.step_time / (ms / 1e3)
+    floor_share = cost.step_time_min / (ms / 1e3)
+    mfu = mf / (R.PEAK_BF16 * ms / 1e3)
+    line = (f"  {label} ({card}; batch {sh.global_batch}"
+            + (f", {bundle.fn.n_micro} microbatches" if sh.kind == "train"
+               else "")
+            + f"): median {ms:.2f} ms of {ROOFLINE_STEPS} steps ("
+            + ", ".join(f"{t:.2f}" for t in times)
+            + f"); counted t_compute {cost.t_compute * 1e3:.3f} ms, "
+            f"t_memory {cost.t_memory * 1e3:.3f} ms -> {cost.bottleneck}, "
+            f"step_time_lb {cost.step_time * 1e3:.3f} ms; flops "
+            f"{cost.flops:.4g}, bytes {cost.bytes_accessed:.4g}, lookups "
+            f"{cost.lookups:.4g}; model_flops {mf:.4g}; roofline_share "
+            f"{share:.4f}, MFU {mfu:.5f}; algorithmic floor "
+            f"step_time_min {cost.step_time_min * 1e3:.3f} ms (min_bytes "
+            f"{cost.min_bytes:.4g}), floor share {floor_share:.4f}; peak "
+            f"memory {peak:.2f} GiB (counted "
+            f"{cost.peak_memory / 2**30:.2f})")
+    if cost.lookups:
+        t_look = cost.lookups / R.GATHER_RATE
+        line += (f"; lookups alone {t_look * 1e3:.3f} ms, share "
+                 f"{t_look / (ms / 1e3):.4f}")
+    print(line + f"; cell {time.perf_counter() - t_cell:.1f} s", flush=True)
+    for what, v in (("share", share), ("floor share", floor_share)):
+        check(v <= ROOFLINE_SHARE_MAX,
+              f"roofline {label}: {what} {v:.4f} <= {ROOFLINE_SHARE_MAX} "
+              f"(a share past it means the count is wrong)")
+    return label, dict(batch=sh.global_batch, ms=ms, share=share, mfu=mfu,
+                       lb_ms=cost.step_time * 1e3,
+                       floor_ms=cost.step_time_min * 1e3,
+                       floor_share=floor_share, peak_gib=peak,
+                       counted_peak_gib=cost.peak_memory / 2 ** 30,
+                       bottleneck=cost.bottleneck)
+
+
+def start_roofline_cuts():
+    """Starts counting every roofline cell's batch cut (``roofline_cut``)
+    in one worker process, on ``meta`` tensors on the CPU, so that the
+    counts are done before ``roofline_phase`` needs them; returns the
+    pool and the futures, in ROOFLINE_CELLS' order. The script starts it
+    before the build, whose ``nvcc`` processes it shares the host with,
+    and it ends before the host-timed phases; ``roofline_phase`` shuts
+    the pool down."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+    pool = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
+    return pool, [pool.submit(roofline_cut, *c) for c in ROOFLINE_CELLS]
+
+
+def roofline_phase(torch, np, dev, check, ops, launches, cuts) -> dict:
+    """Whole steps against their counted roofline (item 14 of the module
+    docstring), at the batch cuts ``cuts`` (``start_roofline_cuts``).
+    Returns the phase's figures by cell."""
+    from repro_torch.launch import roofline as R
+
+    t_phase = time.perf_counter()
+    pool, futures = cuts
+    out = {}
+    with pool:
+        card = nvidia_smi("name,power.limit")
+        mm_rate, copy_rate = roofline_rates(torch, dev, R, card)
+        for (name, acu_spec), fut in zip(ROOFLINE_CELLS, futures):
+            t_cell = time.perf_counter()
+            label, figures = roofline_cell(torch, dev, check, ops, launches,
+                                           card, name, acu_spec,
+                                           fut.result(), t_cell)
+            out[label] = figures
+            torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["matmul_tflops"] = mm_rate / 1e12
+    out["copy_tbps"] = copy_rate / 1e12
+    print(f"roofline phase: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     # a run cut short (a time limit, a lost machine) shows how far it got
     sys.stdout.reconfigure(line_buffering=True)
@@ -4408,6 +4658,9 @@ def main() -> int:
     print(nvidia_smi("name,power.limit"), flush=True)
     props = torch.cuda.get_device_properties(0)
     n_sm = props.multi_processor_count
+
+    # the roofline phase's batch cuts, counted on the CPU meanwhile
+    roof_cuts = start_roofline_cuts()
 
     # -- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -4949,7 +5202,10 @@ def main() -> int:
     trained = lm_train_phase(torch, np, dev, check, acu, ops, launches,
                              lookups_per_s, lut_bytes, n_sm)
 
-    # -- 14. report --------------------------------------------------------
+    # -- 14. whole steps against their roofline -----------------------------
+    roof = roofline_phase(torch, np, dev, check, ops, launches, roof_cuts)
+
+    # -- 15. report --------------------------------------------------------
     rows = []
     for name, (source, replaces) in KERNELS.items():
         s = stats[name]
@@ -5094,6 +5350,13 @@ def main() -> int:
               f"{k} {v['ms']:.3f}, {v['plain_ms']:.1f}, {v['lib_ms']:.3f}, "
               f"{v['bound_ms']:.3f}" for k, v in tr_times.items())
           + f"; phase {trained['seconds']:.1f} s")
+    print(f"roofline shares, {ROOFLINE_ARCH} ({card}): " + ", ".join(
+        f"{k} batch {v['batch']} {v['ms']:.2f} ms vs bound {v['lb_ms']:.3f} "
+        f"({v['bottleneck']}): share {v['share']:.4f}, MFU {v['mfu']:.5f}, "
+        f"floor {v['floor_ms']:.3f} ms, floor share {v['floor_share']:.4f}"
+        for k, v in roof.items() if isinstance(v, dict))
+        + f"; achieved matmul {roof['matmul_tflops']:.1f} TFLOP/s, copy "
+        f"{roof['copy_tbps']:.3f} TB/s; phase {roof['seconds']:.1f} s")
     print("Table 2 arc:\n" + "\n".join(table2))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           f"kernels' build included")

@@ -1,12 +1,12 @@
 """Architecture registry: the 10 assigned configs + reduced smoke variants
-(port of ``repro.configs``; the shape cells of ``repro.configs.shapes``
-are not ported)."""
+(port of ``repro.configs``)."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
 from .base import ModelConfig
+from .shapes import SHAPES, ShapeSpec, cells, eligible
 
 _MODULES = {
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
@@ -77,5 +77,6 @@ def reduced_config(name: str) -> ModelConfig:
     return dataclasses.replace(cfg, **repl)
 
 
-__all__ = ["ModelConfig", "ARCH_NAMES", "get_config", "all_configs",
+__all__ = ["ModelConfig", "SHAPES", "ShapeSpec", "cells", "eligible",
+           "ARCH_NAMES", "get_config", "all_configs",
            "reduced_config"]

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import runtime
 from .lut import LowRankError, build_lut, factorize_error, trunc_masks
 from .multipliers import Multiplier, get_multiplier
 
@@ -88,6 +89,12 @@ def int_matmul(a: torch.Tensor, w: torch.Tensor, *,
     (wrapping as an int32 sum does). ``as_int8`` casts the operands to int8
     first, as the reference does for EXACT codes of at most 8 bits (a code
     outside int8 wraps there too)."""
+    if a.device.type == "meta":         # shape rule: no data to multiply
+        (m, k), n = a.shape, w.shape[1]
+        runtime.count_work("int_mm", flops=2 * m * k * n,
+                           bytes_=(m * k + k * n) * (1 if as_int8 else 4)
+                           + m * n * 4)
+        return runtime.meta_empty(m, n, dtype=torch.int32)
     if as_int8:
         a, w = a.to(torch.int8), w.to(torch.int8)
         if a.device.type == "cuda":

@@ -79,6 +79,11 @@ def err_matmul(a: torch.Tensor, w: torch.Tensor, f: torch.Tensor,
     if a.device.type == "cpu":
         return err_matmul_ref(a, w, f.to(torch.float32),
                               g.to(torch.float32), offset)
+    if a.device.type == "meta":
+        # the exact term and the rank-r correction: r + 1 FMAs per product
+        runtime.count_work("err_matmul", flops=2 * M * K * N * (r + 1),
+                           bytes_=runtime.nbytes(a, w, f, g) + M * N * 4)
+        return runtime.meta_empty(M, N, dtype=torch.float32)
     a = a.contiguous()
     w = w.contiguous()
     f = f.to(torch.float32).contiguous()

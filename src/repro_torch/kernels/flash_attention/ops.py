@@ -270,6 +270,36 @@ def _aligned16(t: torch.Tensor) -> bool:
             and all(s * es % 16 == 0 for s in t.stride()[:-1]))
 
 
+@functools.lru_cache(maxsize=256)
+def visible_pairs(sq: int, sk: int, causal: bool, window: Optional[int],
+                  q_start: int) -> int:
+    """(query, key) pairs one query row sees: queries at positions
+    ``q_start .. q_start + sq - 1``, keys ``0 .. sk - 1``, a key at or
+    before its query when ``causal`` and within ``window`` of it."""
+    total = 0
+    for p in range(q_start, q_start + sq):
+        hi = min(p, sk - 1) if causal else sk - 1
+        lo = max(0, p - window + 1) if window is not None else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def _meta_attention(name: str, q, kv_bytes: int, lut, seq_k: int, causal,
+                    window, extra_bytes: int = 0) -> torch.Tensor:
+    """Shape rule of kernels 8 and 9 on ``meta`` operands: a (B*Hq, Sq, D)
+    float32 result; 2 D lookups per visible (query, key) pair, the rows
+    end-aligned over the whole key sequence (the default ``rowinfo``: a
+    cache filled to ``seq_k``, whose values a ``meta`` tensor does not
+    hold)."""
+    rows = q.shape[0] * (q.shape[1] if q.dim() == 4 else 1)
+    sq, d = q.shape[-2], q.shape[-1]
+    pairs = visible_pairs(sq, seq_k, causal, window, seq_k - sq)
+    runtime.count_work(name, lookups=2 * d * rows * pairs,
+                       bytes_=runtime.nbytes(q) + kv_bytes + lut.numel() * 2
+                       + extra_bytes + rows * sq * d * 4)
+    return runtime.meta_empty(rows, sq, d, dtype=torch.float32)
+
+
 def _folded(t: torch.Tensor) -> torch.Tensor:
     """(B, H, S, D) -> (B*H, S, D) for the plain version (a copy where the
     view does not fold)."""
@@ -378,6 +408,10 @@ def approx_flash_attention(q, k, v, lut, offset: int, q_scale, k_scale,
             k_scale, v_scale, bits=bits, causal=causal, window=window,
             softcap=softcap, rowinfo=_per_row(rowinfo, row_heads), bq=bq,
             bk=bk)
+    if q.device.type == "meta":
+        return _meta_attention("approx_flash_attention", q,
+                               runtime.nbytes(k, v, rowinfo), lut,
+                               k.shape[-2], causal, window)
     ops, st = prepare_approx_attention(
         q, k, v, lut, offset, q_scale, k_scale, v_scale, bits=bits,
         rowinfo=rowinfo, bq=bq, bk=bk, pad=False, row_heads=row_heads)
@@ -419,6 +453,14 @@ def approx_flash_attention_paged(q, k_pool, v_pool, lut, offset: int,
             v_scale, rowinfo=_per_row(rowinfo, row_heads),
             page_table=_per_row(page_table, row_heads), rep=rep, bits=bits,
             causal=causal, window=window, softcap=softcap, bq=bq)
+    if q.device.type == "meta":
+        n_logical, bk = page_table.shape[1], k_pool.shape[2]
+        rows_kv = q.shape[0] * (q.shape[1] if q.dim() == 4 else 1) // rep
+        return _meta_attention(
+            "approx_flash_attention_paged", q,
+            2 * rows_kv * n_logical * bk * k_pool.shape[-1]
+            * k_pool.element_size(), lut, n_logical * bk, causal, window,
+            runtime.nbytes(page_table, rowinfo))
     ops, st = prepare_approx_attention_paged(
         q, k_pool, v_pool, lut, offset, q_scale, k_scale, v_scale,
         bits=bits, rowinfo=rowinfo, page_table=page_table, bq=bq, pad=False,
@@ -460,6 +502,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_ref(
             _folded(q), _folded(k), _folded(v), causal=causal, window=window,
             softcap=softcap, rep=rep).reshape(q.shape)
+    if q.device.type == "meta":
+        sq, sk, d = q.shape[-2], k.shape[-2], q.shape[-1]
+        pairs = visible_pairs(sq, sk, causal, window, 0)
+        runtime.count_work("flash_attention", flops=4 * d * rows_q * pairs,
+                           bytes_=runtime.nbytes(q, k, v, q))
+        return torch.empty_like(q)
     dtype = q.dtype
     if not q.dtype == k.dtype == v.dtype or dtype not in (torch.float32,
                                                            torch.bfloat16):

@@ -204,6 +204,13 @@ def fused_lut_dense(x: torch.Tensor, wq: torch.Tensor, lut: torch.Tensor,
         return fused_lut_dense_ref(x, wq, lut.reshape(-1), offset, n_codes,
                                    x_scale, x_zp, w_scale, bits=bits,
                                    emit_acc=emit_acc)
+    if x.device.type == "meta":
+        runtime.count_work("fused_lut_dense", lookups=M * K * N,
+                           bytes_=runtime.nbytes(x, wq, x_scale, x_zp,
+                                                 w_scale)
+                           + n_codes ** 2 * 2 + M * N * 4)
+        return runtime.meta_empty(
+            M, N, dtype=torch.int32 if emit_acc else torch.float32)
     if M == 0 or N == 0 or K == 0:
         return torch.zeros((M, N), device=x.device,
                            dtype=torch.int32 if emit_acc else torch.float32)
@@ -528,6 +535,12 @@ def fused_lut_bwd(a: torch.Tensor, b: torch.Tensor, lut: torch.Tensor,
         return fused_lut_bwd_ref(a, b, lut.reshape(-1), offset, n_codes,
                                  a_scale, b_scale, bits=bits,
                                  emit_acc=emit_acc)
+    if a.device.type == "meta":
+        runtime.count_work("fused_lut_bwd", lookups=M * K * N,
+                           bytes_=runtime.nbytes(a, b, a_scale, b_scale)
+                           + n_codes ** 2 * 2 + M * N * 4)
+        return runtime.meta_empty(
+            M, N, dtype=torch.int32 if emit_acc else torch.float32)
     lo = -(1 << (bits - 1))
     hi = (1 << (bits - 1)) - 1
     table = runtime.lut_to_int16(lut)

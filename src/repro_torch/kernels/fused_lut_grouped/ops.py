@@ -252,6 +252,14 @@ def fused_lut_grouped(x: torch.Tensor, wq: torch.Tensor, lut: torch.Tensor,
         return fused_lut_grouped_ref(x, wq, lut.reshape(-1), offset, n_codes,
                                      x_scale, x_zp, w_scale, counts,
                                      bits=bits, emit_acc=emit_acc)
+    if x.device.type == "meta":
+        # the live rows (``counts``) are data: every capacity row counts
+        runtime.count_work("fused_lut_grouped", lookups=G * C * K * N,
+                           bytes_=runtime.nbytes(x, wq, x_scale, x_zp,
+                                                 w_scale, counts)
+                           + n_codes ** 2 * 2 + G * C * N * 4)
+        return runtime.meta_empty(
+            G, C, N, dtype=torch.int32 if emit_acc else torch.float32)
     x_bytes = 2 if x.dtype == torch.bfloat16 else 4
     blocks, _ = runtime.launch_config(x)
     plan = grouped_plan(E, G // E, C, K, N, blocks, n_codes, x_bytes)

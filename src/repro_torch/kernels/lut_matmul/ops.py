@@ -180,6 +180,11 @@ def lut_matmul(a: torch.Tensor, w: torch.Tensor, lut: torch.Tensor,
                          f"w {tuple(w.shape)}")
     if a.device.type == "cpu":
         return lut_matmul_ref(a, w, lut.reshape(-1), offset, n_codes)
+    if a.device.type == "meta":
+        runtime.count_work("lut_matmul", lookups=M * K * N,
+                           bytes_=runtime.nbytes(a, w) + n_codes ** 2 * 2
+                           + M * N * 4)
+        return runtime.meta_empty(M, N, dtype=torch.int32)
     if M == 0 or N == 0 or K == 0:
         return torch.zeros((M, N), dtype=torch.int32, device=a.device)
     blocks, _ = runtime.launch_config(a)

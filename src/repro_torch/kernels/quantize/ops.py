@@ -173,6 +173,11 @@ def quantize(x: torch.Tensor, scale, zero_point, bits: int = 8, *,
     planted faults; by default :func:`quantize_plan` picks the path."""
     if x.device.type == "cpu":
         return quantize_ref(x, scale, zero_point, bits)
+    if x.device.type == "meta":
+        runtime.count_work("quantize", bytes_=runtime.nbytes(
+            x, scale, zero_point) + x.numel() * 4)
+        return runtime.meta_empty(*x.shape, dtype=torch.int32) \
+            if out is None else out
     if x.dtype not in DTYPES:
         raise ValueError(f"quantize takes float32 or bfloat16, got "
                          f"{x.dtype}")

@@ -14,11 +14,17 @@ launch on PyTorch's current stream and do not synchronise.
 
 The module also owns the port's device rule: entry points run on ``cuda``
 unless the caller asks for the CPU, and a request that cannot be met raises
-instead of carrying on quietly on the CPU.
+instead of carrying on quietly on the CPU. A ``meta`` tensor (shapes and
+dtypes, no data) takes neither the kernel nor its plain version: each
+wrapper's shape rule returns empty ``meta`` outputs and reports the
+kernel's work to the active :class:`WorkTally` (:func:`count_work`), which
+is how ``launch/roofline.py`` counts a step without a device.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -233,3 +239,65 @@ def check_cuda_operand(t: torch.Tensor, name: str, dtype: torch.dtype,
     if t.numel() >= 2 ** 31:
         raise ValueError(f"{name} has {t.numel()} elements; the kernels "
                          f"index with 32-bit ints")
+
+
+@dataclasses.dataclass
+class KernelWork:
+    calls: int = 0
+    lookups: float = 0.0      # LUT gathers
+    flops: float = 0.0
+    bytes: float = 0.0        # operands read once, results written once
+
+
+class WorkTally:
+    """The work the kernels' ``meta`` shape rules report, by kernel."""
+
+    def __init__(self):
+        self.by_kernel: dict[str, KernelWork] = {}
+
+    def add(self, name: str, lookups: float, flops: float,
+            bytes_: float) -> None:
+        w = self.by_kernel.setdefault(name, KernelWork())
+        w.calls += 1
+        w.lookups += lookups
+        w.flops += flops
+        w.bytes += bytes_
+
+
+_TALLY = threading.local()
+
+
+@contextlib.contextmanager
+def tally_work(tally: WorkTally):
+    """Make ``tally`` the one :func:`count_work` adds to, in this thread."""
+    prev = getattr(_TALLY, "active", None)
+    _TALLY.active = tally
+    try:
+        yield tally
+    finally:
+        _TALLY.active = prev
+
+
+def count_work(name: str, *, lookups: float = 0.0, flops: float = 0.0,
+               bytes_: float = 0.0) -> None:
+    """Called by a wrapper's ``meta`` shape rule in place of a launch: adds
+    the kernel's work to the active tally, if there is one."""
+    tally = getattr(_TALLY, "active", None)
+    if tally is not None:
+        tally.add(name, lookups, flops, bytes_)
+
+
+def nbytes(*ts) -> int:
+    """Bytes of the given tensors (numel x itemsize; a Python number or
+    None counts as one float32 or nothing)."""
+    total = 0
+    for t in ts:
+        if t is None:
+            continue
+        total += t.numel() * t.element_size() if isinstance(
+            t, torch.Tensor) else 4
+    return total
+
+
+def meta_empty(*shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")

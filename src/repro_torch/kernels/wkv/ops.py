@@ -46,6 +46,15 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     if state_out is not None and state_out.shape != s0.shape:
         raise ValueError(f"state_out {tuple(state_out.shape)} differs from "
                          f"s0 {tuple(s0.shape)}")
+    if r.device.type == "meta":
+        # per token and head: k v^T, u * kv, S + u kv, r (S + u kv) and
+        # w S + kv, hd^2 each, as multiplies and adds: 7 hd^2 operations
+        runtime.count_work("wkv", flops=7 * b * t * h * hd * hd,
+                           bytes_=runtime.nbytes(r, k, v, w, u, s0)
+                           + (b * t * h * hd + b * h * hd * hd) * 4)
+        s_t = runtime.meta_empty(b, h, hd, hd, dtype=torch.float32) \
+            if state_out is None else state_out
+        return runtime.meta_empty(b, t, h, hd, dtype=torch.float32), s_t
     if r.device.type == "cpu":
         out, s_t = wkv_ref(_fold(r), _fold(k), _fold(v), _fold(w), u,
                            s0.reshape(b * h, hd, hd))

@@ -26,18 +26,7 @@ import time
 
 import numpy as np
 
-
-def make_acfg(acu_spec):
-    """``'mult:mode[:rank]'`` -> the kernel ApproxConfig (e.g.
-    ``mul8s_1L2H:lut``, ``mul8s_1L2H:lowrank:8``), or None."""
-    if not acu_spec:
-        return None
-    from repro_torch.core import ApproxConfig, make_acu
-    parts = acu_spec.split(":")
-    name, mode = parts[0], parts[1] if len(parts) > 1 else "lut"
-    rank = int(parts[2]) if len(parts) > 2 else 8
-    return ApproxConfig(acu=make_acu(name, mode, rank=rank, use_kernels=True,
-                                     fused=True))
+from repro_torch.launch.specs import make_acfg
 
 
 def main(argv=None):

@@ -24,7 +24,7 @@ import dataclasses
 import os
 import tempfile
 
-from repro_torch.launch.serve import make_acfg
+from repro_torch.launch.specs import make_acfg
 
 
 def main(argv=None):

@@ -1,8 +1,9 @@
 """Mixture-of-Experts layer (port of ``repro.models.moe``): top-k router and
 block-local capacity dispatch, single device.
 
-Tokens are grouped into ``nb`` dispatch blocks (16 when no mesh is active,
-halved until it divides the token count); each block routes into its own
+Tokens are grouped into ``nb`` dispatch blocks (the active mesh
+context's ``pod`` x ``data`` ways, 16 when no mesh is active, halved until
+it divides the token count); each block routes into its own
 ``(E, cap)`` capacity buffers, slots taken first come first served in
 token-major, k-minor order, assignments past ``cap`` dropped. Under an
 :class:`ApproxConfig` the three expert projections run as one grouped
@@ -19,6 +20,7 @@ rows are routed like any other.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -28,6 +30,7 @@ from repro_torch.core.approx_ops import (ApproxConfig, approx_dense,
                                          approx_grouped_dense, exact_f32)
 from repro_torch.core.quantization import device_scalar
 from repro_torch.models.layers import silu
+from repro_torch.parallel.sharding import current_mesh_context
 
 
 def _route(xf: torch.Tensor, router: torch.Tensor, k: int):
@@ -93,10 +96,13 @@ def _expert_ffn(xe: torch.Tensor, p: dict, acfg: Optional[ApproxConfig],
 
 def _dispatch_blocks(cfg, t: int) -> int:
     """Number of data-aligned dispatch blocks (1 disables block locality):
-    16 on a single device, halved until it divides ``t``."""
+    the product of the active mesh context's ``pod`` and ``data`` axes, 16
+    without a context, halved until it divides ``t``."""
     if not cfg.moe_shard_dispatch:
         return 1
-    nb = 16
+    ctx = current_mesh_context()
+    nb = 16 if ctx is None else math.prod(
+        ctx.mesh.shape[a] for a in ("pod", "data") if a in ctx.mesh.axis_names)
     while t % nb != 0 or nb > t:
         nb //= 2
     return max(nb, 1)

@@ -53,12 +53,17 @@ def param_makers(seed: int, cfg: ModelConfig, device):
     ``torch.Generator`` on the device): ``dense(*shape, scale=None,
     dtype=cfg.param_dtype)`` draws ``N(0, 1) * scale`` (``scale`` defaults
     to ``shape[-2] ** -0.5``), ``norm(width, n)`` gives ``n`` stacked norm
-    parameters of ``cfg.norm``'s kind."""
+    parameters of ``cfg.norm``'s kind. On ``device="meta"`` the leaves have
+    shapes and dtypes only: no generator, nothing drawn or allocated."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    meta = dev.type == "meta"
+    gen = None if meta else torch.Generator(device=dev)
+    if gen is not None:
+        gen.manual_seed(seed)
 
     def dense(*shape, scale=None, dtype=cfg.param_dtype):
+        if meta:
+            return torch.empty(shape, dtype=dtype, device=dev)
         scale = scale or shape[-2] ** -0.5
         w = torch.randn(shape, generator=gen, device=dev,
                         dtype=torch.float32)
@@ -112,7 +117,8 @@ def init_params(seed: int, cfg: ModelConfig, device=None) -> dict:
     reference's layout and scales: dense weights ``N(0, 1) / sqrt(d_in)``
     in ``cfg.param_dtype``, norms at 1 (0 for ``rms1p``), biases 0. The
     numbers differ from the reference's ``jax.random`` ones; load those
-    with :func:`load_jax_params`."""
+    with :func:`load_jax_params`. On ``device="meta"``: shapes and dtypes
+    only (the counterpart of ``jax.eval_shape``)."""
     _check_kinds(cfg)
     dense, norm, dev = param_makers(seed, cfg, device)
     g, d = cfg.n_groups, cfg.d_model

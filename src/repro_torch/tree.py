@@ -3,7 +3,8 @@ NamedTuples (parameters, optimizer state, checkpoints, batches).
 
 Leaves are visited in ``jax.tree.leaves`` order: dict keys sorted at every
 level, sequences and NamedTuple fields in order; ``None`` is an empty
-subtree. A leaf's name is ``jax.tree_util.keystr`` of its path, e.g.
+subtree; any other tuple subclass (``parallel.sharding.P``) is a leaf, as
+in JAX. A leaf's name is ``jax.tree_util.keystr`` of its path, e.g.
 ``"[0]['groups']['b0']['attn']['wq']"`` or ``"[1].mu['embed']"``, so a
 checkpoint manifest names its leaves as the reference's does.
 """
@@ -19,7 +20,7 @@ def _children(node) -> Optional[list[tuple[str, Any]]]:
         return [(f"[{k!r}]", node[k]) for k in sorted(node)]
     if isinstance(node, tuple) and hasattr(node, "_fields"):
         return [(f".{f}", getattr(node, f)) for f in node._fields]
-    if isinstance(node, (tuple, list)):
+    if type(node) in (tuple, list):    # a tuple subclass (a spec) is a leaf
         return [(f"[{i}]", c) for i, c in enumerate(node)]
     if node is None:
         return []
