@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. builds the thirteen hand-written CUDA kernels from the twelve sources
+1. builds the fourteen hand-written CUDA kernels from the thirteen sources
    in ``src/repro_torch/csrc`` (one ``nvcc`` per source, all started
    together);
 2. holds each forward kernel (lut_matmul, fused_lut_dense, fused_lut_conv)
@@ -146,6 +146,16 @@
    against 257 dense, 257 quantize and 32 wkv launches per model call;
    checks a short request's tokens against the CPU on the model cut to 2
    layers; profiles one decode step;
+10a. holds kernel 12's backward (``wkv_bwd_phase``): the CUDA kernel
+   ``csrc/wkv_bwd.cu`` against ``wkv_bwd_ref`` on the card on the same
+   saved chunk boundaries, at 40 heads x 64 for T 1, 255, 256 and 1024
+   (and 4 x 512), within WKV_BWD_TOL of each gradient's largest entry,
+   its ``du`` the same bits in two runs, timed against its plain version
+   and its bound; then rwkv6-3b at full width, cut to WKV_TRAIN_LAYERS
+   layers, trained for WKV_TRAIN_STEPS AdamW steps through ``loss_fn`` on
+   the fused ACU at 4 x 512 tokens: every leaf's gradient finite and
+   nonzero (``bonus``, ``lora_B_*``, ``decay_base``), one ``wkv`` and one
+   ``wkv_bwd`` launch a layer a step;
 10b. runs whisper-small (12 + 12 layers, d 768, 12 heads, head_dim 64,
    d_ff 3072, vocab 51865, bf16, random weights from a seed) with the
    fused ACU: kernel 8's decode path held at its self-attention as step 6
@@ -271,6 +281,24 @@
    step's output bitwise equal to the direct call (``apply_model``; the
    train step's loss to ``loss_fn`` on its microbatches, combined as the
    step combines them);
+14b. runs the mesh runtime (``mesh_phase``): two ranks on the one card
+   (``launch/mesh.py: spawn_ranks``, gloo, which goes through the host:
+   NCCL refuses two ranks on one device), started after the build; each
+   case run under the mesh and as the one-rank call, bitwise: kernel 3 at
+   SmolLM-135M's GEMMs (rows over data) and with ``acu_k`` over model at
+   a K the axis does not divide on the biased table; kernel 4 at an
+   ``approx_bwd`` step's gradients; kernel 10 at granite's expert GEMMs
+   (experts over model; ``acu_grouped_k``, its ``emit_acc`` output);
+   kernels 8 and 9 at SmolLM's decode; kernels 5, 6 and 7 at ResNet-20's
+   stage0 conv and the 1 x 64 x 224 x 224 tiled geometry (output-row
+   bands, kernel 7 with ``rmask``); SmolLM-135M data-parallel training
+   (global batch MESH_DP_BATCH x 256, MESH_DP_STEPS steps, exact STE on
+   the fused ACU) bitwise against a one-process oracle (per-shard
+   gradients, the shared amax, int32 sum x scale / W, the same AdamW) and
+   a restart from its checkpoint (EF residual included) bitwise equal to
+   the run without it; the continuous LM engine (columns over model) and
+   ResNet-20's vision engine (rows over data) against their one-rank
+   engines; per-step times and the share of collectives;
 15. prints the redesigned kernels against their old paths, one
    ``{"kernels": [...]}`` line, then the result line.
 
@@ -343,6 +371,9 @@ KERNELS = {
     "fused_lut_conv_tiled": (
         "src/repro_torch/csrc/fused_lut_conv_tiled.cu",
         "src/repro/kernels/fused_lut_conv/kernel.py:387"),
+    # no TPU kernel: the reference differentiates its chunked lax.scan
+    "wkv_bwd": ("src/repro_torch/csrc/wkv_bwd.cu",
+                "src/repro/models/rwkv.py:85"),
 }
 RANK = 8                   # the LOWRANK rung's factorisation rank
 FP32_LANES = 128           # FP32 FMA lanes per SM (Hopper)
@@ -367,14 +398,20 @@ LADDER_LAUNCHES = {"baseline_lut": {"quantize": 44},
 LOWRANK_LOGIT_TOL = 2e-2
 # Table 2, as benchmarks/table2_accuracy.py: the three ACU rows
 T2_ACUS = ("mul8s_1L2H", "mul8s_hiMRE_bam8", "mul12s_2KM")
-# the LM serve phase: SmolLM-135M at full width and depth, bf16
+# the LM serve phase: SmolLM-135M at full width, bf16; its kernels are held
+# and timed at the full model's shapes and counts, its engines serve a cut
+# to LM_SERVE_LAYERS of its 30 layers (the script's time limit)
 LM_ARCH = "smollm-135m"
+LM_SERVE_LAYERS = 10
 LM_REQUESTS, LM_SHARED, LM_PREFIX, LM_NEW = 64, 16, 128, 64
 LM_SLOTS, LM_MAX_SEQ, LM_BLOCK = 32, 512, 16
 LM_WAVE_PROMPT = 200     # the longest prompt: the wave engine's prefill
-# the MoE serve phase: granite-moe-3b-a800m at full width and depth, bf16,
-# the LM phase's slots, max_seq, paged block and prompt lengths
+# the MoE serve phase: granite-moe-3b-a800m at full width, bf16, the LM
+# phase's slots, max_seq, paged block and prompt lengths; kernel 10 held
+# and timed at the full model's shapes and counts, the engines serving a
+# cut to MOE_SERVE_LAYERS of its 32 layers (the script's time limit)
 MOE_ARCH = "granite-moe-3b-a800m"
+MOE_SERVE_LAYERS = 16
 MOE_REQUESTS, MOE_SHARED, MOE_NEW = 32, 8, 32
 MOE_CPU_LAYERS = 2       # depth of the card-against-CPU check
 # the RWKV serve phase: rwkv6-3b at full width and depth, bf16, the LM
@@ -1397,7 +1434,8 @@ def hold_decode_path(torch, np, dev, check, acu, ops, cfg, seed: int):
 def lm_phase(torch, np, dev, check, acu, ops, launches, account,
              lookups_per_s, lut_bytes, redesign: dict) -> dict:
     """SmolLM-135M on the fused ACU: the slice's kernels at its shapes,
-    then 64 requests through each LM engine. Returns tokens/s by engine;
+    then 64 requests through each LM engine on a cut to LM_SERVE_LAYERS
+    layers. Returns tokens/s by engine;
     kernel 8's decode-path times go into ``redesign``."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
@@ -1620,21 +1658,23 @@ def lm_phase(torch, np, dev, check, acu, ops, launches, account,
           f"GEMMs at M = {b}): {step_ms:.3f} ms")
     del kc, vc, k_pool, v_pool
 
-    # -- serve 64 requests through each engine -----------------------------
-    params = init_params(0, cfg, device=dev)
-    prompts = lm_requests(np, cfg.vocab_size, LM_REQUESTS, LM_SHARED)
-    print(f"  serving {LM_REQUESTS} requests ({LM_SHARED} sharing a "
+    # -- serve 64 requests through each engine, depth cut ------------------
+    scfg = dataclasses.replace(cfg, n_layers=LM_SERVE_LAYERS)
+    params = init_params(0, scfg, device=dev)
+    prompts = lm_requests(np, scfg.vocab_size, LM_REQUESTS, LM_SHARED)
+    print(f"  full width cut to {scfg.n_layers} of {cfg.n_layers} layers, "
+          f"serving {LM_REQUESTS} requests ({LM_SHARED} sharing a "
           f"{LM_PREFIX}-token prefix), {LM_NEW} new tokens each, "
           f"slots={LM_SLOTS}, max_seq={LM_MAX_SEQ}, paged block "
           f"{LM_BLOCK}:")
-    n_dense = 7 * cfg.n_layers + 1
-    rates = serve_lm(torch, check, E, lm_engines(E, params, cfg, acfg, dev),
-                     prompts, LM_NEW, cfg, ops, launches,
+    n_dense = 7 * scfg.n_layers + 1
+    rates = serve_lm(torch, check, E, lm_engines(E, params, scfg, acfg, dev),
+                     prompts, LM_NEW, scfg, ops, launches,
                      {"fused_lut_dense": n_dense, "quantize": n_dense})
 
     # -- one short request on the card and on the CPU ----------------------
     short = [E.Request(prompt=prompts[3][:16].copy(), max_new_tokens=4)]
-    on_gpu = E.ContinuousServeEngine(params, cfg, slots=1, max_seq=64,
+    on_gpu = E.ContinuousServeEngine(params, scfg, slots=1, max_seq=64,
                                      acfg=acfg, device=dev).run(short)
     def to_cpu(tree):
         return ({k: to_cpu(v) for k, v in tree.items()}
@@ -1643,7 +1683,7 @@ def lm_phase(torch, np, dev, check, acu, ops, launches, account,
     cpu_params = to_cpu(params)
     short_cpu = [E.Request(prompt=prompts[3][:16].copy(), max_new_tokens=4)]
     t0 = time.perf_counter()
-    on_cpu = E.ContinuousServeEngine(cpu_params, cfg, slots=1, max_seq=64,
+    on_cpu = E.ContinuousServeEngine(cpu_params, scfg, slots=1, max_seq=64,
                                      acfg=acfg, device="cpu").run(short_cpu)
     print(f"  one 16-token request, 4 new tokens: card {list(on_gpu[0].out)}"
           f", CPU {list(on_cpu[0].out)} ({time.perf_counter() - t0:.1f} s "
@@ -1652,26 +1692,26 @@ def lm_phase(torch, np, dev, check, acu, ops, launches, account,
           "a short request gives the same tokens on the card and the CPU")
 
     # -- profile one decode step of each KV layout ------------------------
-    cache = init_cache(cfg, b, LM_MAX_SEQ, device=dev)
+    cache = init_cache(scfg, b, LM_MAX_SEQ, device=dev)
     for kv in cache["groups"]["b0"]["attn"]:
         kv.normal_(generator=gen)
     pos_t = torch.from_numpy(pos).to(dev)
-    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+    toks = torch.from_numpy(rng.integers(1, scfg.vocab_size,
                                          (b, 1))).to(dev)
     dkw = dict(pos_offset=torch.zeros(b, dtype=torch.long, device=dev),
                pad_mask=torch.ones((b, LM_MAX_SEQ), dtype=torch.bool,
                                    device=dev))
-    pool = init_paged_cache(cfg, n_pool + 2, LM_BLOCK, device=dev)
+    pool = init_paged_cache(scfg, n_pool + 2, LM_BLOCK, device=dev)
     for kv in pool["groups"]["b0"]["attn"]:
         kv.normal_(generator=gen)
     table = torch.from_numpy(2 + rng.permutation(n_pool).reshape(
         b, n_log).astype(np.int32)).to(dev)
     steps = {
         "contiguous": lambda: E.apply_model(
-            params, toks, cfg, acfg=acfg, cache=cache, cache_pos=pos_t,
+            params, toks, scfg, acfg=acfg, cache=cache, cache_pos=pos_t,
             decode=True, **dkw),
         "paged": lambda: E.apply_model(
-            params, toks, cfg, acfg=acfg, cache=pool, cache_pos=pos_t,
+            params, toks, scfg, acfg=acfg, cache=pool, cache_pos=pos_t,
             decode=True, page_table=table),
     }
     with torch.inference_mode():
@@ -1691,9 +1731,10 @@ def moe_phase(torch, np, dev, check, acu, ops, launches, account,
               lookups_per_s, lut_bytes, redesign: dict) -> dict:
     """granite-moe-3b-a800m on the fused ACU: kernel 10 at the model's
     shapes and kernel 8's decode path at its attention's, then 32 requests
-    through each LM engine, the card against the CPU on a two-layer cut,
-    and a profile of one decode step. Returns tokens/s by engine; kernel
-    8's decode-path times go into ``redesign``."""
+    through each LM engine on a cut to MOE_SERVE_LAYERS layers, the card
+    against the CPU on a two-layer cut, and a profile of one decode step.
+    Returns tokens/s by engine; kernel 8's decode-path times go into
+    ``redesign``."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.core import (ApproxConfig, QParams, acu_operand,
@@ -1724,11 +1765,14 @@ def moe_phase(torch, np, dev, check, acu, ops, launches, account,
           f"{cfg.head_dim}, {n_exp} experts top-{k}, d_ff {f} per expert, "
           f"vocab {cfg.vocab_padded}, {cfg.dtype}, {cfg.n_params() / 1e9:.2f} B "
           f"parameters), {MULT} fused ACU:")
+    scfg = dataclasses.replace(cfg, n_layers=MOE_SERVE_LAYERS)  # served
     t0 = time.perf_counter()
-    params = T.init_params(0, cfg, device=dev)
+    params = T.init_params(0, scfg, device=dev)
     torch.cuda.synchronize()
-    print(f"  random weights from seed 0 in {time.perf_counter() - t0:.2f} s"
-          f", {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    print(f"  random weights from seed 0 for the served cut to "
+          f"{scfg.n_layers} of {cfg.n_layers} layers in "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     mlp0 = {n: t[0] for n, t in params["groups"]["b0"]["mlp"].items()}
 
     def codes(w):
@@ -1895,16 +1939,17 @@ def moe_phase(torch, np, dev, check, acu, ops, launches, account,
         torch, np, dev, check, acu, ops, cfg, 14)
 
     # -- serve 32 requests through each engine -----------------------------
-    prompts = lm_requests(np, cfg.vocab_size, MOE_REQUESTS, MOE_SHARED)
-    per_call = {"fused_lut_grouped": 3 * cfg.n_layers,
-                "fused_lut_dense": 4 * cfg.n_layers + 1,
-                "quantize": 7 * cfg.n_layers + 1}
-    print(f"  serving {MOE_REQUESTS} requests ({MOE_SHARED} sharing a "
+    prompts = lm_requests(np, scfg.vocab_size, MOE_REQUESTS, MOE_SHARED)
+    per_call = {"fused_lut_grouped": 3 * scfg.n_layers,
+                "fused_lut_dense": 4 * scfg.n_layers + 1,
+                "quantize": 7 * scfg.n_layers + 1}
+    print(f"  full width cut to {scfg.n_layers} of {cfg.n_layers} layers, "
+          f"serving {MOE_REQUESTS} requests ({MOE_SHARED} sharing a "
           f"{LM_PREFIX}-token prefix), {MOE_NEW} new tokens each, "
           f"slots={LM_SLOTS}, max_seq={LM_MAX_SEQ}, paged block "
           f"{LM_BLOCK}:")
-    rates = serve_lm(torch, check, E, lm_engines(E, params, cfg, acfg, dev),
-                     prompts, MOE_NEW, cfg, ops, launches, per_call)
+    rates = serve_lm(torch, check, E, lm_engines(E, params, scfg, acfg, dev),
+                     prompts, MOE_NEW, scfg, ops, launches, per_call)
 
     # -- layer 0's routing statistics at one decode step and one prefill ---
     b = LM_SLOTS
@@ -1917,27 +1962,27 @@ def moe_phase(torch, np, dev, check, acu, ops, launches, account,
         seen.append({n: float(v) for n, v in st.items()})
         return out
 
-    cache = T.init_cache(cfg, b, LM_MAX_SEQ, device=dev)
+    cache = T.init_cache(scfg, b, LM_MAX_SEQ, device=dev)
     pos = torch.from_numpy(rng.integers(16, LM_MAX_SEQ // 2, b)).to(dev)
-    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (b, 1))).to(dev)
-    prefill = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+    toks = torch.from_numpy(rng.integers(1, scfg.vocab_size, (b, 1))).to(dev)
+    prefill = torch.from_numpy(rng.integers(1, scfg.vocab_size,
                                             (1, 256))).to(dev)
     T.moe_block = layer0_stats
     try:
         with torch.inference_mode():
             for label, call in (
                     ("decode step, 32 rows", lambda: T.apply_model(
-                        params, toks, cfg, acfg=acfg, cache=cache,
+                        params, toks, scfg, acfg=acfg, cache=cache,
                         cache_pos=pos, decode=True)),
                     ("prefill, 256 tokens", lambda: T.apply_model(
-                        params, prefill, cfg, acfg=acfg, last_only=True))):
+                        params, prefill, scfg, acfg=acfg, last_only=True))):
                 seen.clear()
                 call()
                 t = toks.numel() if label.startswith("decode") else 256
                 print(f"  layer 0, {label}: dropped_frac "
                       f"{seen[0]['dropped_frac']:.4f}, aux_loss "
                       f"{seen[0]['aux_loss']:.4f}; dispatch "
-                      f"{M.dispatch_geometry(cfg, t)}")
+                      f"{M.dispatch_geometry(scfg, t)}")
                 check(0.0 <= seen[0]["dropped_frac"] < 1.0
                       and np.isfinite(seen[0]["aux_loss"]),
                       f"layer 0 statistics at the {label} are finite")
@@ -1972,7 +2017,7 @@ def moe_phase(torch, np, dev, check, acu, ops, launches, account,
 
     # -- profile one decode step -------------------------------------------
     with torch.inference_mode():
-        step = lambda: T.apply_model(params, toks, cfg, acfg=acfg,
+        step = lambda: T.apply_model(params, toks, scfg, acfg=acfg,
                                      cache=cache, cache_pos=pos,
                                      decode=True)[0].argmax(-1).cpu()
         step()
@@ -1988,7 +2033,7 @@ def moe_phase(torch, np, dev, check, acu, ops, launches, account,
                                        ("w_gate", "w_up", "w_down")], 5)
         print(f"  expert weight quantization (scales, codes) of one layer: "
               f"{glue:.3f} ms, x{cfg.n_layers} layers = "
-              f"{glue * cfg.n_layers:.1f} ms of each model call")
+              f"{glue * cfg.n_layers:.1f} ms of each full-depth model call")
     return rates
 
 
@@ -2110,14 +2155,15 @@ def rwkv_phase(torch, np, dev, check, acu, ops, launches, account,
         ms = cuda_ms(torch, kern, 20 if t == 1 else 5)
         pms = cuda_ms(torch, plain, 1, warm=0)
         bytes_ = (5 * nb * t * h * hd + h * hd + 2 * nb * h * hd * hd) * 4
-        flops = 7 * nb * h * t * hd * hd
-        bound_ms = max(bytes_ / HBM_BYTES_PER_S, flops / fma_per_s) * 1e3
+        flops = 7 * nb * h * t * hd * hd      # FLOPs: an FMA counts two
+        bound_ms = max(bytes_ / HBM_BYTES_PER_S, flops / (2 * fma_per_s)) \
+            * 1e3
         print(f"    {label:22s} {ms:.4f} ms (plain {pms:.2f}), bound "
               f"{bound_ms:.4f} ms ({bytes_ / 1e6:.1f} MB, "
               f"{flops / 1e6:.1f} M flops)", flush=True)
         if label == "decode":             # the JSON row: one decode step
             account("wkv", n_layers, ms, pms, None, bytes_, flops,
-                    float(diff.max()), ops_per_s=fma_per_s)
+                    float(diff.max()), ops_per_s=2 * fma_per_s)
         del r, k, v, w, s0, folded, yk, yp, sk, sp, diff, bound
 
     # -- kernel 2 at every weight shape of the served models ---------------
@@ -2316,6 +2362,590 @@ def rwkv_phase(torch, np, dev, check, acu, ops, launches, account,
               f"weights: {glue:.3f} ms, x{n_layers} layers = "
               f"{glue * n_layers:.1f} ms of each model call")
     return rates
+
+
+# kernel 12's backward: held against wkv_bwd_ref at rwkv6-3b's heads for
+# these T (B rows each), within WKV_BWD_TOL of each gradient's largest
+# entry (the CUDA sums run in another order than the plain version's);
+# then rwkv6-3b at full width cut to WKV_TRAIN_LAYERS layers, trained for
+# WKV_TRAIN_STEPS AdamW steps at WKV_TRAIN_BATCH x WKV_TRAIN_SEQ tokens
+WKV_BWD_CASES = ((2, 1), (2, 255), (2, 256), (1, 1024))
+WKV_BWD_TOL = 1e-4
+WKV_TRAIN_LAYERS, WKV_TRAIN_STEPS = 2, 3
+WKV_TRAIN_BATCH, WKV_TRAIN_SEQ = 4, 512
+
+
+def wkv_bwd_phase(torch, np, dev, check, acu, ops, launches, account,
+                  fma_per_s) -> dict:
+    """Kernel 12's backward (``csrc/wkv_bwd.cu``): held against
+    ``wkv_bwd_ref`` on the same saved chunk boundaries at rwkv6-3b's 40
+    heads of 64, its ``du`` the same bits in two runs, timed against its
+    plain version and its bound; then rwkv6-3b at full width, cut to
+    ``WKV_TRAIN_LAYERS`` layers, trained for ``WKV_TRAIN_STEPS`` AdamW steps
+    through ``loss_fn`` on the fused ACU with the launch counters set to 0
+    just before and read just after: every leaf's gradient finite and
+    nonzero (``bonus``, ``lora_B_*`` and ``decay_base`` included). Returns
+    the numbers for the summary."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import ApproxConfig
+    from repro_torch.data.pipeline import MarkovLM
+    from repro_torch.kernels.wkv.ops import CHUNK, _forward
+    from repro_torch.kernels.wkv.ref import wkv_bwd_ref
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.tree import leaves_with_names, unflatten
+
+    t_phase = time.perf_counter()
+    base = get_config(RWKV_ARCH)
+    h, hd = base.rwkv_n_heads, base.rwkv_head_dim
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    out = {}
+    print(f"kernel 12's backward (wkv_bwd) against wkv_bwd_ref, {h} heads x "
+          f"{hd}, chunks of {CHUNK}, within {WKV_BWD_TOL} of each "
+          f"gradient's largest entry:")
+
+    def operands(b, t):
+        r, k, v, g = (torch.randn((b, t, h, hd), generator=gen, device=dev)
+                      for _ in range(4))
+        w = torch.rand((b, t, h, hd), generator=gen, device=dev) * 0.9 + 0.05
+        u = torch.randn((h, hd), generator=gen, device=dev) * 0.5
+        s0 = torch.randn((b, h, hd, hd), generator=gen, device=dev)
+        return r, k, v, w, u, s0, g
+
+    def bwd_cost(b, t):
+        """Bytes (operands, bounds and gradients once) and FLOPs: 3 a
+        token, head and state entry to restore S (w*S, k*v, +) and 18 for
+        the reverse pass, an FMA two FLOPs, against the FP32 FLOP rate."""
+        nc = -(-t // CHUNK)
+        bytes_ = (5 * b * t * h * hd + h * hd + nc * b * h * hd * hd
+                  + 4 * b * t * h * hd + h * hd + b * h * hd * hd) * 4
+        return bytes_, (3 + 18) * b * t * h * hd * hd
+
+    for b, t in WKV_BWD_CASES + ((WKV_TRAIN_BATCH, WKV_TRAIN_SEQ),):
+        r, k, v, w, u, s0, g = operands(b, t)
+        _, _, bounds = _forward(r, k, v, w, u, s0, None, CHUNK)
+        kern = lambda: ops["wkv_bwd"](r, k, v, w, u, bounds, g, None)
+        got, again = kern(), kern()
+
+        def plain():      # wkv_bwd_ref on the card, in the folded layout
+            def fold(a):
+                return a.transpose(1, 2).reshape(b * h, t, hd)
+
+            def unfold(a):
+                return a.reshape(b, h, t, hd).transpose(1, 2)
+            dr, dk, dv, dw, du, ds0 = wkv_bwd_ref(
+                fold(r), fold(k), fold(v), fold(w), u, bounds, fold(g), None,
+                CHUNK)
+            return (unfold(dr), unfold(dk), unfold(dv), unfold(dw), du,
+                    ds0.reshape(b, h, hd, hd))
+        want = plain()
+        pms = cuda_ms(torch, plain, 1, warm=0)
+        errs = []
+        for a, b_ in zip(got, want):
+            errs.append(float((a.double() - b_.double()).abs().max())
+                        / max(float(b_.abs().max()), 1e-30))
+        ok = all(e <= WKV_BWD_TOL for e in errs) and all(
+            bool(torch.isfinite(a).all()) for a in got)
+        check(ok and torch.equal(got[4], again[4]),
+              f"wkv_bwd B {b} T {t}: dr dk dv dw du ds0 within "
+              f"{WKV_BWD_TOL} of the plain version's largest entry (worst "
+              f"{max(errs):.2e}), du the same bits in two runs")
+        ms = cuda_ms(torch, kern, 3)
+        bytes_, flops = bwd_cost(b, t)
+        bound_ms = max(bytes_ / HBM_BYTES_PER_S, flops / (2 * fma_per_s)) \
+            * 1e3
+        print(f"    B {b} T {t:4d}: {ms:.3f} ms (plain {pms:.1f} ms), "
+              f"bound {bound_ms:.4f} ms "
+              f"({bytes_ / 1e6:.1f} MB, {flops / 1e9:.2f} G FP32 FLOPs at "
+              f"{2 * fma_per_s / 1e12:.1f} TFLOP/s)")
+        if (b, t) == (WKV_TRAIN_BATCH, WKV_TRAIN_SEQ):
+            # the JSON row: one training step's layers at this shape
+            account("wkv_bwd", WKV_TRAIN_LAYERS, ms, pms, None, bytes_,
+                    flops, max(float((a.double() - b_.double()).abs()
+                                     .max()) for a, b_ in zip(got, want)),
+                    ops_per_s=2 * fma_per_s)
+            out["ms"], out["bound_ms"], out["plain_ms"] = ms, bound_ms, pms
+        del r, k, v, w, u, s0, g, bounds, got, again, want
+    torch.cuda.empty_cache()
+
+    # -- rwkv6-3b, full width, cut in depth, trained -----------------------
+    cfg = dataclasses.replace(base, n_layers=WKV_TRAIN_LAYERS)
+    params = T.init_params(0, cfg, device=dev)
+    perturb_rwkv(torch, params, gen)
+    opt = AdamW(lr=1e-4)
+    state = opt.init(params)
+    acfg = ApproxConfig(acu=acu)
+    lm = MarkovLM(vocab=cfg.vocab_size, seed=0)
+    batches = lm.batches(WKV_TRAIN_BATCH, WKV_TRAIN_SEQ)
+    named = leaves_with_names(params)
+    print(f"  rwkv6-3b at full width cut to {WKV_TRAIN_LAYERS} of "
+          f"{base.n_layers} layers ({cfg.dtype}, {MULT} fused ACU, exact "
+          f"STE), {WKV_TRAIN_STEPS} AdamW steps at {WKV_TRAIN_BATCH} x "
+          f"{WKV_TRAIN_SEQ} tokens:")
+    for op in ops.values():
+        op.launches = 0
+    losses, step_ms, bad = [], [], []
+    for step in range(WKV_TRAIN_STEPS):
+        bt = next(batches)
+        toks = torch.as_tensor(bt["tokens"], device=dev).long()
+        labels = torch.as_tensor(bt["labels"], device=dev).long()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        live = [t.detach().requires_grad_(True) for _, t in named]
+        ptree = unflatten(params, live)
+        loss = T.loss_fn(ptree, toks, labels, cfg, acfg)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        for (name, _), gr in zip(named, grads):
+            if gr is None or not bool(torch.isfinite(gr).all()) \
+                    or not bool(gr.abs().max() > 0):
+                bad.append(f"step {step} {name}")
+        params, state = opt.update(unflatten(params, [
+            torch.zeros_like(p) if gr is None else gr
+            for p, gr in zip(live, grads)]), state, params)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.detach()))
+        named = leaves_with_names(params)
+    counts = {k: op.launches for k, op in ops.items()}
+    for k in ("wkv", "wkv_bwd"):
+        launches[k] += counts[k]
+    want_n = WKV_TRAIN_LAYERS * WKV_TRAIN_STEPS
+    rwkv_names = [n for n, _ in named if "rwkv" in n]
+    check(not bad and all(np.isfinite(losses)),
+          f"every leaf's gradient finite and nonzero in every step "
+          f"({len(named)} leaves, {len(rwkv_names)} of them rwkv leaves "
+          f"with bonus, lora_B_* and decay_base); losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + (f"; bad: {bad[:6]}" if bad else ""))
+    check(counts["wkv_bwd"] == want_n and counts["wkv"] == want_n,
+          f"launches in the {WKV_TRAIN_STEPS} steps: wkv {counts['wkv']}, "
+          f"wkv_bwd {counts['wkv_bwd']} (one each a layer a step: "
+          f"{want_n})")
+    print(f"  step times (ms): " + ", ".join(f"{x:.1f}" for x in step_ms)
+          + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB")
+    out.update(losses=losses, step_ms=step_ms,
+               seconds=time.perf_counter() - t_phase)
+    del params, state, grads, live, ptree
+    torch.cuda.empty_cache()
+    return out
+
+
+# the mesh phase: two ranks on the one card over gloo (NCCL refuses two
+# ranks on one device), every wrap at a main-path shape bitwise against
+# the one-rank call, SmolLM-135M data-parallel training (global batch
+# MESH_DP_BATCH x TRAIN_LM_SEQ, MESH_DP_STEPS steps) against a one-process
+# oracle and across a restart, and two engines under the mesh
+MESH_RANKS = 2
+MESH_DP_BATCH, MESH_DP_STEPS = 8, 3
+MESH_LM_REQUESTS, MESH_LM_NEW = 8, 8
+MESH_GRANITE_CAP = 16     # capacity rows per expert of the grouped GEMM
+
+
+def mesh_rank_body(ckpt_root: str) -> dict:
+    """One rank of ``mesh_phase``: every case run on the same global
+    operands, twice: through the mesh (``use_mesh`` or ``mesh=``) and as
+    the one-rank call, held bitwise. Returns, per case, whether the two
+    agree and its seconds; the data-parallel run's numbers; the launch
+    counts of kernel 10's ``emit_acc`` output and kernel 7's ``rmask``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import (ApproxConfig, approx_dense, attn_plan,
+                                  conv2d, make_acu, symmetric_qparams)
+    from repro_torch.core.acu import AttnSpec
+    from repro_torch.core.approx_ops import (approx_grouped_dense,
+                                             approx_matmul)
+    from repro_torch.data.pipeline import MarkovLM, shard_batch
+    from repro_torch.kernels.fused_lut_conv.ops import fused_lut_conv_bwd_w
+    from repro_torch.kernels.fused_lut_grouped.ops import fused_lut_grouped
+    from repro_torch.launch.mesh import make_host_multi_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.vision import init_resnet, resnet_forward
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.compression import compress, decompress
+    from repro_torch.parallel.sharding import use_mesh
+    from repro_torch.serve import engine as E
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import leaves, unflatten
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = make_host_multi_mesh((MESH_RANKS, 1))    # data 2: rows, batch
+    cols = make_host_multi_mesh((1, MESH_RANKS))    # model 2: columns, K
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    acu = make_acu(MULT, "lut", use_kernels=True, fused=True)
+    biased = dataclasses.replace(make_acu("mul8s_exact", "lut",
+                                          use_kernels=True, fused=True),
+                                 lut=biased_lut(np).reshape(256, 256),
+                                 _tables={})
+    cfg_f = ApproxConfig(acu=acu)
+    res: dict = {"cases": {}}
+
+    def case(name, run, mesh, rules=None):
+        """``run()`` as one rank, then under the mesh; bitwise."""
+        torch.cuda.synchronize()
+        local = run()
+        t0 = time.perf_counter()
+        c0 = (mesh.collective_s, mesh.collective_calls)
+        with use_mesh(mesh, rules):
+            out = run()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(
+            out if isinstance(out, (list, tuple)) else [out],
+            local if isinstance(local, (list, tuple)) else [local]))
+        res["cases"][name] = (same, time.perf_counter() - t0,
+                              mesh.collective_s - c0[0],
+                              mesh.collective_calls - c0[1])
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    # -- kernel 3 at SmolLM-135M's GEMMs, rows over data; K over model ----
+    lm = get_config(LM_ARCH)
+    dm, ff = lm.d_model, lm.d_ff
+    kvd = lm.n_kv_heads * lm.head_dim
+    M = MESH_DP_BATCH * TRAIN_LM_SEQ
+    for kk, nn in ((dm, dm), (dm, kvd), (dm, ff), (ff, dm)):
+        x, w = rnd(M, kk), rnd(kk, nn)
+        case(f"kernel 3 dense {M}x{kk}x{nn}, rows over data",
+             lambda: approx_dense(x, w, None, cfg_f), rows)
+    x, w = rnd(M, dm - 1), rnd(dm - 1, dm)
+    case(f"kernel 3 dense {M}x{dm - 1}x{dm}, K over model (pads 1), biased "
+         f"table", lambda: approx_dense(x, w, None, ApproxConfig(acu=biased)),
+         cols, {"acu_k": ("model",), "acu_cols": ()})
+
+    # -- kernel 4: an approx_bwd step's dense gradients ---------------------
+    x, w = rnd(M, dm), rnd(dm, ff)
+    xqp = symmetric_qparams(torch.max(torch.abs(x)), 8)
+    wqp = symmetric_qparams(torch.clamp_min(torch.abs(w).amax(0), 1e-9), 8,
+                            axis=1)
+    gscale = rnd(ff)
+    cfg_b = ApproxConfig(acu=acu, approx_bwd=True)
+
+    def k4():
+        xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        (approx_matmul(xs, ws, cfg_b, xqp, wqp) * gscale).sum().backward()
+        return [xs.grad, ws.grad]
+    case(f"kernel 4 approx_bwd gradients {M}x{dm}x{ff} (gx over the cols "
+         f"axes, gw contracted over data)", k4, rows)
+
+    # -- kernel 10 at granite-moe-3b-a800m's expert GEMMs, experts over model
+    gr = get_config(MOE_ARCH)
+    ne, gd, gf, cap = gr.n_experts, gr.d_model, gr.d_ff, MESH_GRANITE_CAP
+    counts = torch.randint(0, cap + 1, (ne,), generator=gen,
+                           device=dev).to(torch.int32)
+    live = torch.arange(cap, device=dev)[None, :] < counts[:, None]
+    xe = rnd(ne, cap, gd) * live[..., None]
+    we = rnd(ne, gd, gf)
+
+    def k10(acfg):
+        return lambda: approx_grouped_dense(xe, we, acfg, counts)
+    case(f"kernel 10 grouped ({ne} experts, {cap} rows, {gd} -> {gf}), "
+         f"experts over model", k10(cfg_f), cols)
+    n0 = fused_lut_grouped.launches
+    case(f"kernel 10 grouped, K over model (emit_acc), biased table",
+         k10(ApproxConfig(acu=biased)), cols,
+         {"acu_grouped_k": ("model",), "acu_grouped_experts": ()})
+    # the one-rank call launches once, the mesh call once a rank
+    res["emit_acc_launches"] = fused_lut_grouped.launches - n0 - 1
+
+    # -- kernels 8 and 9 at SmolLM's decode, batch rows over data -----------
+    b, hq, hkv, d, sk = LM_SLOTS, lm.n_heads, lm.n_kv_heads, lm.head_dim, 512
+    q, k, v = rnd(b, hq, 1, d), rnd(b, hkv, sk, d), rnd(b, hkv, sk, d)
+    sc = [torch.abs(t).max() / 127.0 for t in (q, k, v)]
+    lens = torch.randint(1, sk + 1, (b,), generator=gen, device=dev)
+    info = torch.stack([lens - 1, torch.zeros_like(lens), lens], 1).to(
+        torch.int32)
+    spec = AttnSpec(hq=hq, hkv=hkv)
+    case(f"kernel 8 decode (B {b}, {hq} heads over {hkv}, Sk {sk}), rows "
+         f"over data", lambda: attn_plan(acu, spec)(q, k, v, *sc, info), rows)
+    bk, n_log = LM_BLOCK, sk // LM_BLOCK
+    n_phys = 1 + b * n_log
+    kp, vp = rnd(hkv, n_phys, bk, d), rnd(hkv, n_phys, bk, d)
+    pt = (1 + torch.randperm(b * n_log, generator=gen, device=dev)
+          ).reshape(b, n_log).to(torch.int32)
+    pspec = AttnSpec(hq=hq, hkv=hkv, bk=bk, kv_layout="paged")
+    case(f"kernel 9 paged decode (B {b}, pool of {n_phys} blocks of {bk}), "
+         f"rows over data",
+         lambda: attn_plan(acu, pspec)(q, kp, vp, *sc, info, pt), rows)
+
+    # -- kernels 5, 6, 7: ResNet-20's convs and the 224^2 tiled geometry -----
+    for name, cin, hw, cout, kk, st, pad, _ in CONVS:
+        xc, wc = rnd(BATCH, cin, hw, hw), rnd(cout, cin, kk, kk)
+        case(f"kernel 5 conv ResNet-20 {name} (wave of {BATCH}), rows over "
+             f"data", lambda: conv2d(xc, wc, None, stride=(st, st),
+                                     padding=pad, cfg=cfg_f), rows)
+    n7 = fused_lut_conv_bwd_w.rmask_launches
+    for label, xs_, ws_ in (("ResNet-20 stage0", (BATCH, 16, 32, 32),
+                             (16, 16, 3, 3)),
+                            ("1x64x224x224 tiled", (1, 64, 224, 224),
+                             (64, 64, 3, 3))):
+        xc, wc = rnd(*xs_), rnd(*ws_)
+        if xs_[0] == 1:
+            case(f"kernel 6 conv {label}, two halo'd output-row bands over "
+                 f"data", lambda: conv2d(xc, wc, None, cfg=cfg_f), rows)
+        bx = (TRAIN_BATCH, *xs_[1:]) if xs_[0] > 1 else xs_
+        xb, gb = rnd(*bx), None
+
+        def k7():
+            xs, ws = xb.clone().requires_grad_(True), \
+                wc.clone().requires_grad_(True)
+            y = conv2d(xs, ws, None, cfg=ApproxConfig(acu=acu,
+                                                      approx_bwd=True))
+            y.backward(torch.ones_like(y) * 1e-2 + y.detach() * 1e-3)
+            return [xs.grad, ws.grad]
+        case(f"kernel 7 + 4 approx_bwd conv gradients {label} "
+             f"(batch {bx[0]}), rows over data", k7, rows)
+    res["rmask_launches"] = fused_lut_conv_bwd_w.rmask_launches - n7
+    torch.cuda.empty_cache()
+
+    # -- SmolLM-135M data-parallel training, full width, depth and vocab ---
+    cfg = lm
+    p0 = T.init_params(0, cfg, device=dev)
+    acfg = ApproxConfig(acu=acu)
+
+    def loss_fn(p, bt):
+        return T.loss_fn(p, bt["tokens"], bt["labels"], cfg, acfg)
+
+    def data():
+        return (shard_batch(bt, rows, device=dev) for bt in
+                MarkovLM(vocab=cfg.vocab_size, seed=0).batches(
+                    MESH_DP_BATCH, TRAIN_LM_SEQ))
+
+    def fit(tag, n_steps):
+        p = unflatten(p0, [t.clone() for t in leaves(p0)])
+        opt = AdamW(lr=3e-4, weight_decay=0.01)
+        tr = Trainer(loss_fn, opt, TrainerConfig(
+            mesh=rows, ckpt_dir=os.path.join(ckpt_root, tag), ckpt_every=2,
+            async_ckpt=False, log_every=1))
+        c0 = rows.collective_s
+        t0 = time.perf_counter()
+        p, o = tr.fit(p, opt.init(p), data(), n_steps)
+        torch.cuda.synchronize()
+        return p, o, tr, time.perf_counter() - t0, rows.collective_s - c0
+
+    pa, oa, tra, wall_a, coll_a = fit("full", MESH_DP_STEPS)
+    res["dp_step_s"] = [h["dt"] for h in tra.history if "dt" in h]
+    res["dp_losses"] = [h["loss"] for h in tra.history if "loss" in h]
+    res["dp_wall_s"], res["dp_collective_s"] = wall_a, coll_a
+    res["dp_params"] = sum(t.numel() for t in leaves(p0))
+    fit("cut", MESH_DP_STEPS - 1)
+    pc, oc, trc, _, _ = fit("cut", MESH_DP_STEPS)   # resumes at the cut
+    res["dp_restart_equal"] = (
+        all(torch.equal(a, b) for a, b in zip(leaves((pa, oa)),
+                                              leaves((pc, oc))))
+        and all(torch.equal(a, b) for a, b in zip(leaves(tra._ef_resid),
+                                                  leaves(trc._ef_resid))))
+    res["dp_resid_nonzero"] = any(bool(r.abs().max() > 0)
+                                  for r in leaves(tra._ef_resid))
+    if rows.rank == 0:
+        # the one-process oracle: per-shard gradients, the shared amax,
+        # the int32 sum x scale / W, the same AdamW
+        p = unflatten(p0, [t.clone() for t in leaves(p0)])
+        opt = AdamW(lr=3e-4, weight_decay=0.01)
+        st = opt.init(p)
+        resid = [[torch.zeros(t.shape, dtype=torch.float32, device=dev)
+                  for t in leaves(p0)] for _ in range(MESH_RANKS)]
+        n_w = torch.tensor(float(MESH_RANKS), device=dev)
+        rows_per = MESH_DP_BATCH // MESH_RANKS
+        for _, bt in zip(range(MESH_DP_STEPS), data()):
+            per = []
+            for i in range(MESH_RANKS):
+                live = [t.detach().requires_grad_(True) for t in leaves(p)]
+                shard = {kk: vv[i * rows_per:(i + 1) * rows_per]
+                         for kk, vv in bt.items()}
+                gs = torch.autograd.grad(loss_fn(unflatten(p, live), shard),
+                                         live, allow_unused=True)
+                per.append([torch.zeros_like(t) if gg is None else gg
+                            for t, gg in zip(live, gs)])
+            mean = []
+            for li in range(len(per[0])):
+                g_in = [per[i][li].to(torch.float32) + resid[i][li]
+                        for i in range(MESH_RANKS)]
+                amax = torch.max(torch.stack([g.abs().max() for g in g_in]))
+                coded = [compress(g, amax) for g in g_in]
+                for i in range(MESH_RANKS):
+                    resid[i][li] = g_in[i] - decompress(*coded[i])
+                q_sum = sum(c[0].to(torch.int32) for c in coded)
+                mean.append(q_sum.to(torch.float32) * (coded[0][1] / n_w))
+            p, st = opt.update(unflatten(p, mean), st, p)
+        res["dp_oracle_equal"] = all(
+            torch.equal(a, b) for a, b in zip(leaves((pa, oa)),
+                                              leaves((p, st))))
+        del p, st, per, resid, mean
+    del pa, oa, pc, oc, tra, trc
+    rows.barrier()
+    torch.cuda.empty_cache()
+
+    # -- engines under the mesh ------------------------------------------
+    params = T.init_params(0, lm, device=dev)
+    prompts = [np.random.default_rng(i).integers(
+        1, lm.vocab_size, 24 + 8 * i).astype(np.int32)
+        for i in range(MESH_LM_REQUESTS)]
+
+    def serve(mesh):
+        eng = E.ContinuousServeEngine(params, lm, slots=MESH_LM_REQUESTS,
+                                      max_seq=256, acfg=acfg, device=dev,
+                                      mesh=mesh)
+        reqs = [E.Request(prompt=pr, max_new_tokens=MESH_LM_NEW)
+                for pr in prompts]
+        eng.run(reqs)
+        return [r.out for r in reqs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = serve(None)
+    t1 = time.perf_counter()
+    c0 = cols.collective_s
+    meshed = serve(cols)
+    torch.cuda.synchronize()
+    res["lm_tokens_equal"] = all(np.array_equal(a, b)
+                                 for a, b in zip(one, meshed))
+    res["lm_s"] = (t1 - t0, time.perf_counter() - t1,
+                   cols.collective_s - c0)
+    del params
+    rp = init_resnet(0, device=dev)
+    imgs = np.random.default_rng(3).normal(
+        size=(BATCH, 3, 32, 32)).astype(np.float32)
+    one = E.VisionServeEngine(rp, resnet_forward, slots=BATCH, acfg=cfg_f,
+                              device=dev).run(imgs)
+    t0 = time.perf_counter()
+    meshed = E.VisionServeEngine(rp, resnet_forward, slots=BATCH, acfg=cfg_f,
+                                 device=dev, mesh=rows).run(imgs)
+    res["vision_equal"] = bool(np.array_equal(one, meshed))
+    res["vision_s"] = time.perf_counter() - t0
+    res["collective_s"] = rows.collective_s + cols.collective_s
+    return res
+
+
+def mesh_phase(torch, np, check) -> dict:
+    """Two ranks on the one card (``launch/mesh.py: spawn_ranks``, gloo
+    over the host): every ACU wrap at a main-path shape bitwise against
+    the one-rank call, SmolLM-135M data-parallel training bitwise against
+    a one-process oracle and across a restart with its EF residual, and
+    the continuous LM engine and the vision engine under the mesh. The
+    kernels were built before the ranks start; a rank that fails fails the
+    phase."""
+    import shutil
+    import tempfile
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.fused_lut_conv.ops import fused_lut_conv_bwd_w
+    from repro_torch.kernels.fused_lut_conv.ref import (
+        fused_lut_conv_bwd_w_ref)
+    from repro_torch.kernels.fused_lut_grouped.ops import fused_lut_grouped
+    from repro_torch.kernels.fused_lut_grouped.ref import (
+        fused_lut_grouped_ref)
+    t_phase = time.perf_counter()
+    print(f"mesh phase: {MESH_RANKS} ranks on the one card over gloo (NCCL "
+          f"refuses two ranks on one device), the global operands on every "
+          f"rank; first what the wraps add to kernels 7 and 10, against the "
+          f"plain versions on the card:")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(43)
+    # on the biased table a masked row or a dead row would show
+    lut = torch.from_numpy(biased_lut(np)).to(dev)
+    lut16 = runtime.lut_to_int16(lut)
+    x = torch.randn((TRAIN_BATCH, 16, 32, 32), generator=gen, device=dev)
+    g = torch.randn((TRAIN_BATCH, 32, 32, 16), generator=gen, device=dev)
+    rm = torch.ones((TRAIN_BATCH, 32), dtype=torch.int32, device=dev)
+    rm[: TRAIN_BATCH // 2, 20:] = 0          # a dead band of output rows
+    rm[-1] = 0                                # a padded image
+    kw = dict(ksize=(3, 3), padding=((1, 1), (1, 1)))
+    sx, sg = (torch.abs(t).max() / 127.0 for t in (x, g))
+    got = fused_lut_conv_bwd_w(x, g, lut16, 128, sx, sg, rmask=rm, **kw)
+    want = fused_lut_conv_bwd_w_ref(x, g, lut, 128, 256, sx, sg, rmask=rm,
+                                    **kw)
+    full = fused_lut_conv_bwd_w(x, g, lut16, 128, sx, sg, **kw)
+    check(torch.equal(got, want) and not torch.equal(got, full),
+          f"kernel 7 with rmask (a dead band, a padded image; batch "
+          f"{TRAIN_BATCH} x 16 x 32 x 32, biased table) bitwise equal to its "
+          f"plain version, and not to the unmasked sum")
+    gr = get_config(MOE_ARCH)
+    ne, cap = gr.n_experts, MESH_GRANITE_CAP
+    xe = torch.randn((ne, cap, gr.d_model), generator=gen, device=dev)
+    wq = torch.randint(-127, 128, (ne, gr.d_model, gr.d_ff), generator=gen,
+                       device=dev, dtype=torch.int32)
+    ws = torch.rand((ne, gr.d_ff), generator=gen, device=dev) * 1e-2
+    counts = torch.randint(0, cap + 1, (ne,), generator=gen,
+                           device=dev).to(torch.int32)
+    xs = torch.abs(xe).max() / 127.0
+    got = fused_lut_grouped(xe, wq, lut16, 128, xs, 0.0, ws, counts,
+                            emit_acc=True)
+    want = fused_lut_grouped_ref(xe, wq, lut, 128, 256, xs, 0.0, ws, counts,
+                                 emit_acc=True)
+    check(got.dtype == torch.int32 and torch.equal(got, want),
+          f"kernel 10's emit_acc output ({ne} experts, {cap} rows, "
+          f"{gr.d_model} -> {gr.d_ff}, biased table, dead rows) bitwise "
+          f"equal to its plain version")
+    del x, g, xe, wq, got, want, full
+    root = tempfile.mkdtemp(prefix="mesh_ckpt_")
+    print("  then each case under the mesh against the one-rank call, "
+          "bitwise:")
+    try:
+        results = spawn_ranks(mesh_rank_body, MESH_RANKS, args=(root,),
+                              backend="gloo", device="cuda:0", threads=4,
+                              timeout=600)
+    except RuntimeError as e:
+        check(False, f"mesh phase: a rank failed: {str(e)[-3000:]}")
+        return {"seconds": time.perf_counter() - t_phase}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    r0 = results[0]
+    for name in r0["cases"]:
+        sames = [r["cases"][name][0] for r in results]
+        _, secs, coll_s, coll_n = r0["cases"][name]
+        check(all(sames), f"{name}: bitwise equal to the one-rank call on "
+                          f"every rank ({secs:.2f} s under the mesh, "
+                          f"{coll_s:.2f} s of it in {coll_n} collectives)")
+    check(r0["rmask_launches"] > 0 and all(
+        r["emit_acc_launches"] > 0 for r in results),
+        f"kernel 7 launched with rmask {r0['rmask_launches']}x and kernel "
+        f"10's emit_acc output {r0['emit_acc_launches']}x by rank 0")
+    check(r0["dp_oracle_equal"],
+          f"SmolLM-135M data-parallel training (full width, depth and "
+          f"vocabulary, {r0['dp_params'] / 1e6:.1f} M parameters; "
+          f"{MESH_DP_STEPS} steps, global batch {MESH_DP_BATCH} x "
+          f"{TRAIN_LM_SEQ}, "
+          f"{MESH_DP_BATCH // MESH_RANKS} rows a rank, exact STE on the "
+          f"fused ACU): parameters and AdamW state bitwise equal to the "
+          f"one-process oracle")
+    check(all(r["dp_restart_equal"] and r["dp_resid_nonzero"]
+              for r in results),
+          "a restart from the step-2 checkpoint (EF residual included, "
+          "nonzero) ends bitwise equal to the run without it, on every rank")
+    check(all(r["dp_losses"] == r0["dp_losses"] for r in results)
+          and all(np.isfinite(r0["dp_losses"])),
+          "the ranks report the same finite losses: " + ", ".join(
+              f"{x:.4f}" for x in r0["dp_losses"]))
+    check(all(r["lm_tokens_equal"] for r in results),
+          f"SmolLM-135M continuous engine, {MESH_LM_REQUESTS} requests, "
+          f"columns over model: tokens equal to the one-rank engine's "
+          f"({r0['lm_s'][0]:.2f} s one rank, {r0['lm_s'][1]:.2f} s under "
+          f"the mesh, {r0['lm_s'][2]:.2f} s of it in collectives)")
+    check(all(r["vision_equal"] for r in results),
+          f"ResNet-20 VisionServeEngine, one wave of {BATCH}, rows over "
+          f"data: logits bitwise equal to the one-rank engine's "
+          f"({r0['vision_s']:.2f} s under the mesh)")
+    steps = r0["dp_step_s"]
+    share = r0["dp_collective_s"] / r0["dp_wall_s"] if r0["dp_wall_s"] \
+        else float("nan")
+    print(f"  data-parallel step times (s, rank 0): "
+          + ", ".join(f"{x:.3f}" for x in steps)
+          + f"; {r0['dp_collective_s']:.2f} s of the run's "
+          f"{r0['dp_wall_s']:.2f} s in collectives (share {share:.3f}; gloo "
+          f"on one card goes through the host and says nothing of NVLink)")
+    out = dict(step_s=steps, collective_share=share,
+               rmask_launches=r0["rmask_launches"],
+               emit_acc_launches=r0["emit_acc_launches"],
+               seconds=time.perf_counter() - t_phase)
+    return out
 
 
 def count_launches(ops, fn):
@@ -4639,7 +5269,7 @@ def main() -> int:
         from repro_torch.kernels.lut_matmul.ref import lut_matmul_ref
         from repro_torch.kernels.quantize.ops import (
             quantize as quantize_kernel)
-        from repro_torch.kernels.wkv.ops import wkv
+        from repro_torch.kernels.wkv.ops import wkv, wkv_bwd
         from repro_torch.models.vision import init_resnet, resnet_forward
         from repro_torch.optim.adamw import SGD
         from repro_torch.serve.engine import VisionServeEngine
@@ -5000,7 +5630,7 @@ def main() -> int:
            "approx_flash_attention": approx_flash_attention,
            "approx_flash_attention_paged": approx_flash_attention_paged,
            "err_matmul": err_matmul, "fused_lut_grouped": fused_lut_grouped,
-           "quantize": quantize_kernel, "wkv": wkv,
+           "quantize": quantize_kernel, "wkv": wkv, "wkv_bwd": wkv_bwd,
            "flash_attention": flash_attention,
            "fused_lut_conv_tiled": fused_lut_conv_tiled}
     path_kernels = {"fused": ("fused_lut_conv", "fused_lut_dense",
@@ -5174,6 +5804,11 @@ def main() -> int:
                             account, fma_per_s)
     print(f"RWKV phase: {time.perf_counter() - t0:.1f} s")
 
+    # -- 10a. kernel 12's backward; rwkv6-3b trained ----------------------
+    wkv_train = wkv_bwd_phase(torch, np, dev, check, acu, ops, launches,
+                              account, fma_per_s)
+    print(f"kernel-12 backward phase: {wkv_train['seconds']:.1f} s")
+
     # -- 10b. whisper-small: encode, greedy decode ---------------------------
     t0 = time.perf_counter()
     whisper = whisper_phase(torch, np, dev, check, acu, ops, launches,
@@ -5205,6 +5840,10 @@ def main() -> int:
     # -- 14. whole steps against their roofline -----------------------------
     roof = roofline_phase(torch, np, dev, check, ops, launches, roof_cuts)
 
+    # -- 14b. the mesh runtime: two ranks on the one card ------------------
+    meshed = mesh_phase(torch, np, check)
+    print(f"mesh phase: {meshed['seconds']:.1f} s")
+
     # -- 15. report --------------------------------------------------------
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -5228,9 +5867,11 @@ def main() -> int:
           f"of {CNN_SLOTS} images (fused_lut_conv_tiled): "
           + ", ".join(f"{r['name']} {r['ms']:.3f} ms vs bound "
                       f"{r['bound_ms']:.3f}" for r in rows))
-    print("SmolLM-135M tokens/s: " + ", ".join(
+    print(f"SmolLM-135M ({LM_SERVE_LAYERS} of 30 layers) tokens/s: "
+          + ", ".join(
         f"{k} {v:.1f}" for k, v in lm_rates.items()))
-    print("granite-moe-3b-a800m tokens/s: " + ", ".join(
+    print(f"granite-moe-3b-a800m ({MOE_SERVE_LAYERS} of 32 layers) "
+          f"tokens/s: " + ", ".join(
         f"{k} {v:.1f}" for k, v in moe_rates.items()))
     print("rwkv6-3b tokens/s: " + ", ".join(
         f"{k} {v:.1f}" for k, v in rwkv_rates.items()))
@@ -5357,6 +5998,21 @@ def main() -> int:
         for k, v in roof.items() if isinstance(v, dict))
         + f"; achieved matmul {roof['matmul_tflops']:.1f} TFLOP/s, copy "
         f"{roof['copy_tbps']:.3f} TB/s; phase {roof['seconds']:.1f} s")
+    print(f"kernel 12's backward ({card}): wkv_bwd {wkv_train['ms']:.3f} ms "
+          f"a layer at {WKV_TRAIN_BATCH} x {WKV_TRAIN_SEQ} (plain "
+          f"{wkv_train['plain_ms']:.1f} ms, bound "
+          f"{wkv_train['bound_ms']:.4f} ms); rwkv6-3b cut to "
+          f"{WKV_TRAIN_LAYERS} layers, {WKV_TRAIN_STEPS} AdamW steps: losses "
+          + ", ".join(f"{x:.4f}" for x in wkv_train["losses"])
+          + ", step ms " + ", ".join(f"{x:.1f}" for x in wkv_train["step_ms"])
+          + f"; phase {wkv_train['seconds']:.1f} s")
+    print(f"mesh runtime ({card}, {MESH_RANKS} ranks over gloo through the "
+          f"host, which says nothing of NVLink): SmolLM-135M data-parallel "
+          f"step s " + ", ".join(f"{x:.3f}" for x in meshed.get("step_s", []))
+          + f", collective share {meshed.get('collective_share', float('nan')):.3f};"
+          f" kernel 7 with rmask {meshed.get('rmask_launches', 0)}x, kernel "
+          f"10 emit_acc {meshed.get('emit_acc_launches', 0)}x; phase "
+          f"{meshed['seconds']:.1f} s")
     print("Table 2 arc:\n" + "\n".join(table2))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           f"kernels' build included")

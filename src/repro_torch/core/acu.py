@@ -1,4 +1,4 @@
-"""Approximate Compute Units (port of ``repro.core.acu``, single device).
+"""Approximate Compute Units (port of ``repro.core.acu``).
 
 An :class:`Acu` packages one approximate multiplier with an emulation mode:
 
@@ -32,9 +32,17 @@ use_kernels, fused) to a route; a fused request on a non-LUT ACU resolves
 unfused, a conv to ``im2col``, attention to ``dense`` and the expert GEMMs
 to ``vmap``, each audited as in the reference. A conv takes the route the
 reference's planner gives it, the whole-image or the banded fused kernel
-by the reference's VMEM budget. Mesh partitions are not ported yet: asking
-for one raises ``NotImplementedError`` naming the ROADMAP queue that holds
-it, never a different answer.
+by the reference's VMEM budget.
+
+Every plan takes ``mesh``: ``None`` reads the active ``use_mesh`` context,
+``False`` forces a local plan, a :class:`~repro_torch.parallel.sharding.
+MeshContext` or a mesh pins one; anything else raises ``TypeError``. Under
+a mesh of ranks (``launch/mesh.py: RankMesh``) a plan runs SPMD on global
+operands through ``parallel/acu_shard.py``'s wraps, bitwise equal to the
+local plan, and ``describe()["partition"]`` names its partition. Under a
+shape-only ``MeshShape`` of more devices the partition is resolved and
+reported, and calling the plan raises ``NotImplementedError``: such a mesh
+has no ranks to run on.
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import runtime
+from repro_torch.parallel.sharding import mesh_context
 from .lut import LowRankError, build_lut, factorize_error, trunc_masks
 from .multipliers import Multiplier, get_multiplier
 
@@ -264,9 +273,32 @@ class Acu:
         return acc
 
 
-def _require_single_device(mesh) -> None:
-    if mesh not in (None, False):
-        raise not_ported("mesh partitioning", "queue 1, item 16")
+def _sharded(ctx, make: Callable[[], Callable]) -> Callable:
+    """``make()``'s wrap where the mesh has ranks; under a shape-only mesh
+    a callable that refuses (``parallel/sharding.py: rank_mesh``)."""
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.parallel.sharding import rank_mesh
+    if isinstance(ctx.mesh, RankMesh):
+        return make()
+
+    def refuse(*args, **kwargs):
+        rank_mesh(ctx, "running a plan")
+    return refuse
+
+
+def describe_partition(part, kind: str = "gemm") -> Optional[str]:
+    """A partition as the reference's ``describe()`` prints it, for a GEMM
+    or conv, an attention (``"heads"``) or a grouped (``"blocks"``)
+    plan."""
+    if part is None:
+        return None
+    if kind == "heads":
+        return (f"rows{part.rows}x heads{part.cols} "
+                f"({part.n_rows}x{part.n_cols} way)")
+    rows, cols = ("blocks", "experts") if kind == "blocks" else ("rows",
+                                                                 "cols")
+    return (f"{rows}{part.rows}x {cols}{part.cols}x k{part.k} "
+            f"({part.n_rows}x{part.n_cols}x{part.n_k} way)")
 
 
 def _lut_kernels(acu: Acu) -> bool:
@@ -286,7 +318,9 @@ class MatmulPlan:
     ``fused=False`` plans consume shifted integer operands and return the
     raw accumulator, int32 (float32 for LOWRANK): ``plan(a, w)``.
     ``fused=True`` plans run quantize -> LUT GEMM -> dequant in one kernel:
-    ``plan(x, wq, x_scale, x_zp, w_scale) -> float32``.
+    ``plan(x, wq, x_scale, x_zp, w_scale) -> float32``. ``partition`` is
+    the mesh partition the plan runs under (None: local), ``ctx`` its
+    ``MeshContext``.
     """
 
     mode: AcuMode
@@ -294,6 +328,8 @@ class MatmulPlan:
     use_kernels: bool
     fused: bool
     fn: Callable[..., torch.Tensor]
+    partition: Optional[object] = None     # parallel.planner.GemmPartition
+    ctx: Optional[object] = None
 
     def __call__(self, *args) -> torch.Tensor:
         return self.fn(*args)
@@ -338,10 +374,19 @@ def matmul_plan(acu: Acu, *, a_bits: Optional[int] = None,
     the ACU's operand width). A fused request that cannot be served (not
     LUT mode, no ``use_kernels``, no table) falls back to the unfused plan,
     as in the reference, so callers can ask for fusion unconditionally.
+    Under a mesh (module docstring) rows shard over ``acu_rows``, columns
+    over ``acu_cols`` and, opted in, the contraction over ``acu_k`` with
+    an int32 sum before the dequant (LOWRANK's float accumulator drops
+    ``acu_k``).
     """
-    _require_single_device(mesh)
+    from repro_torch.parallel import acu_shard
     fused = acu.fused if fused is None else fused
     a_bits = acu.bits if a_bits is None else a_bits
+    ctx = mesh_context(mesh)
+    partition = None
+    if ctx is not None:
+        partition = acu_shard.resolve_partition(
+            ctx, float_accum=acu.mode == AcuMode.LOWRANK)
     if fused and _lut_kernels(acu):
         from repro_torch.kernels.fused_lut_dense.ops import fused_lut_dense
 
@@ -349,12 +394,21 @@ def matmul_plan(acu: Acu, *, a_bits: Optional[int] = None,
             return fused_lut_dense(x, wq, acu.device_lut(x.device),
                                    acu.offset, x_scale, x_zp, w_scale,
                                    bits=a_bits, emit_acc=emit_acc)
-
+        fn = fused_call
+        if partition is not None:
+            fn = _sharded(ctx, lambda: acu_shard.wrap_fused(
+                fused_call, lambda *a: fused_call(*a, emit_acc=True), ctx,
+                partition, acu.m00()))
         return MatmulPlan(mode=acu.mode, bits=acu.bits, use_kernels=True,
-                          fused=True, fn=fused_call)
+                          fused=True, fn=fn, partition=partition, ctx=ctx)
+    fn = _resolve_unfused(acu)
+    if partition is not None:
+        base = fn
+        fn = _sharded(ctx, lambda: acu_shard.wrap_unfused(
+            base, ctx, partition, acu.m00()))
     return MatmulPlan(mode=acu.mode, bits=acu.bits,
-                      use_kernels=acu.use_kernels, fused=False,
-                      fn=_resolve_unfused(acu))
+                      use_kernels=acu.use_kernels, fused=False, fn=fn,
+                      partition=partition, ctx=ctx)
 
 
 def matmul_bwd_plan(acu: Acu, *, a_bits: Optional[int] = None,
@@ -370,29 +424,54 @@ def matmul_bwd_plan(acu: Acu, *, a_bits: Optional[int] = None,
     Fused (LUT + kernels) resolves to the in-kernel-quantizing
     ``fused_lut_bwd`` kernel; every other ACU quantizes outside,
     ``clip(round(a / sa))``, and runs its mode's unfused GEMM (LOWRANK with
-    kernels: ``err_matmul``). For LUT the two are bitwise equal. Single
-    device: the reference's two callables differ only in their mesh
-    partitions, so here they are one function.
+    kernels: ``err_matmul``). For LUT the two are bitwise equal. The two
+    callables differ only in their mesh partitions: each backward GEMM is
+    the forward's with permuted roles (``planner.bwd_gemm_partitions``), so
+    ``gx`` sums int32 partials over the forward's cols axes and ``gw`` over
+    its rows axes before the one dequant. LOWRANK (a float accumulator)
+    computes both locally under a mesh.
     """
+    from repro_torch.parallel import acu_shard
     from .quantization import quantize_symmetric
-    _require_single_device(mesh)
     fused = acu.fused if fused is None else fused
     a_bits = acu.bits if a_bits is None else a_bits
+    ctx = mesh_context(mesh)
+    gx_part = gw_part = None
+    if ctx is not None and acu.mode != AcuMode.LOWRANK:
+        fwd_part = acu_shard.resolve_partition(ctx)
+        if fwd_part is not None:
+            from repro_torch.parallel.planner import bwd_gemm_partitions
+            gx_part, gw_part = bwd_gemm_partitions(fwd_part)
+
     if fused and _lut_kernels(acu):
         from repro_torch.kernels.fused_lut_dense.ops import fused_lut_bwd
 
-        def fn(a, b, sa, sb):
+        def bwd_call(a, b, sa, sb, *, emit_acc=False):
             return fused_lut_bwd(a, b, acu.device_lut(a.device), acu.offset,
-                                 sa, sb, bits=a_bits)
-        return fn, fn
+                                 sa, sb, bits=a_bits, emit_acc=emit_acc)
 
-    gemm = _resolve_unfused(acu)
+        def route(part):
+            if part is None:
+                return lambda a, b, sa, sb: bwd_call(a, b, sa, sb)
+            return _sharded(ctx, lambda: acu_shard.wrap_fused_bwd(
+                bwd_call, lambda *a: bwd_call(*a, emit_acc=True), ctx, part,
+                acu.m00()))
+        return route(gx_part), route(gw_part)
 
-    def fn(a, b, sa, sb):
-        acc = gemm(quantize_symmetric(a, sa, a_bits),
-                   quantize_symmetric(b, sb, a_bits))
-        return acc.to(torch.float32) * (sa * sb)
-    return fn, fn
+    base = _resolve_unfused(acu)
+
+    def route(part):
+        gemm = base
+        if part is not None:
+            gemm = _sharded(ctx, lambda: acu_shard.wrap_unfused(
+                base, ctx, part, acu.m00()))
+
+        def fn(a, b, sa, sb):
+            acc = gemm(quantize_symmetric(a, sa, a_bits),
+                       quantize_symmetric(b, sb, a_bits))
+            return acc.to(torch.float32) * (sa * sb)
+        return fn
+    return route(gx_part), route(gw_part)
 
 
 # ---------------------------------------------------------------------------
@@ -489,7 +568,9 @@ class ConvPlan:
     fall back, with the same bits, and ``bwd_tiling`` is always None.
     ``describe()`` has the reference's keys, so plan reports of the two
     packages can be compared; ``tiling`` names kernel 6's banding and
-    ``partition`` is None (no mesh yet).
+    ``partition`` the mesh partition: the ``acu_conv`` one for the fused
+    routes, the dense GEMM's for the im2col routes (None: local). ``ctx``
+    is the ``MeshContext`` the plan runs under.
     """
 
     mode: AcuMode
@@ -503,6 +584,8 @@ class ConvPlan:
     tiling: Optional[object] = None
     bwd_route: Optional[str] = None
     bwd_tiling: Optional[tuple[int, int, int, int]] = None
+    partition: Optional[object] = None
+    ctx: Optional[object] = None
 
     def __call__(self, *args) -> torch.Tensor:
         if self.fn is None:
@@ -519,8 +602,9 @@ class ConvPlan:
             "gemm": f"M={m} K={k} N={n}",
             "tiling": None if self.tiling is None else
                 self.tiling.describe(self.spec.out_spatial[0]),
-            "partition": None,
-            "report": list(self.report),
+            "partition": describe_partition(self.partition),
+            "report": list(self.report) + (list(self.partition.report)
+                                           if self.partition else []),
         }
 
 
@@ -543,9 +627,14 @@ def conv_plan(acu: Acu, spec: ConvSpec, *, a_bits: Optional[int] = None,
     reference's audit lines in ``report``. ``route`` pins one:
     ``"im2col"`` forces the eager path (the oracle); ``"fused_conv"`` and
     ``"tiled"`` raise where the reference raises, instead of falling back.
+    Under a mesh the fused routes run ``parallel/acu_shard.py:
+    wrap_fused_conv`` (batch x output-row bands over ``acu_conv_rows``,
+    output channels over ``acu_conv_cols``, input channels over an opted-in
+    ``acu_conv_k``).
     """
     from repro_torch.kernels.fused_lut_conv import ops as cops
-    _require_single_device(mesh)
+    from repro_torch.parallel import acu_shard
+    ctx = mesh_context(mesh)
     if route not in (None, "fused_conv", "tiled", "im2col"):
         raise ValueError(f"unknown conv route {route!r}")
     fused = acu.fused if fused is None else fused
@@ -621,15 +710,31 @@ def conv_plan(acu: Acu, spec: ConvSpec, *, a_bits: Optional[int] = None,
                 acu.multiplier.n_codes)
             kernel_fn = cops.fused_lut_conv_tiled
 
-        def fused_call(x, wq, xs, xz, ws, *, emit_acc=False):
+        def fused_call(x, wq, xs, xz, ws, *, emit_acc=False, padding=None):
+            # ``padding`` overrides the spec's: the banded mesh wrap passes
+            # pre-padded row slabs with zero row padding
+            kw = dict(geom_kw)
+            if padding is not None:
+                kw["padding"] = padding
             return kernel_fn(x, wq, acu.device_lut(x.device), acu.offset,
-                             xs, xz, ws, emit_acc=emit_acc, **geom_kw)
+                             xs, xz, ws, emit_acc=emit_acc, **kw)
 
+        partition = None
+        fn = fused_call
+        if ctx is not None:
+            partition = acu_shard.resolve_conv_partition(
+                ctx, float_accum=acu.mode == AcuMode.LOWRANK)
+        if partition is not None:
+            fn = _sharded(ctx, lambda: acu_shard.wrap_fused_conv(
+                fused_call, lambda *a, **k: fused_call(*a, emit_acc=True,
+                                                       **k),
+                ctx, partition, acu.m00(), kh * kw, spec=spec))
         return ConvPlan(mode=acu.mode, bits=acu.bits, use_kernels=True,
                         fused=True,
                         route="tiled" if serve_tiled else "fused_conv",
-                        spec=spec, fn=fused_call, report=tuple(report),
-                        tiling=tiling, bwd_route="banded")
+                        spec=spec, fn=fn, report=tuple(report),
+                        tiling=tiling, bwd_route="banded",
+                        partition=partition, ctx=ctx)
 
     if spec.groups == 1:
         r = "im2col"
@@ -637,8 +742,13 @@ def conv_plan(acu: Acu, spec: ConvSpec, *, a_bits: Optional[int] = None,
         r = "im2col_depthwise"
     else:
         r = "im2col_grouped"
+    partition = None
+    if ctx is not None:
+        partition = acu_shard.resolve_partition(
+            ctx, float_accum=acu.mode == AcuMode.LOWRANK)
     return ConvPlan(mode=acu.mode, bits=acu.bits, use_kernels=acu.use_kernels,
-                    fused=fused, route=r, spec=spec, report=tuple(report))
+                    fused=fused, route=r, spec=spec, report=tuple(report),
+                    partition=partition, ctx=ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -683,8 +793,8 @@ class AttnPlan:
 
     ``use_kernels`` plays the part of the reference's ``use_pallas``; a
     CPU tensor takes the kernels' plain versions, as everywhere.
-    ``describe()`` has the reference's keys; ``partition`` is None (no
-    mesh yet).
+    ``describe()`` has the reference's keys; ``partition`` is the
+    ``acu_attn`` partition under a mesh (None: local).
     """
 
     mode: AcuMode
@@ -694,6 +804,7 @@ class AttnPlan:
     spec: AttnSpec
     fn: Optional[Callable[..., torch.Tensor]] = None
     report: tuple[str, ...] = ()
+    partition: Optional[object] = None
 
     def __call__(self, *args) -> torch.Tensor:
         if self.fn is None:
@@ -711,26 +822,34 @@ class AttnPlan:
                    if self.spec.kv_layout == "paged" else ""),
             "mask": f"causal={self.spec.causal} window={self.spec.window} "
                     f"softcap={self.spec.softcap}",
-            "partition": None,
-            "report": list(self.report),
+            "partition": describe_partition(self.partition, "heads"),
+            "report": list(self.report) + (list(self.partition.report)
+                                           if self.partition else []),
         }
 
 
-def attn_plan(acu: Acu, spec: AttnSpec, *,
-              a_bits: Optional[int] = None) -> AttnPlan:
+def attn_plan(acu: Acu, spec: AttnSpec, *, a_bits: Optional[int] = None,
+              mesh=None) -> AttnPlan:
     """Resolve one attention site to a route, with the reference's audited
     fallback: an ACU that cannot run the approximate kernel (not LUT mode,
     no ``use_kernels``, no table) resolves to ``"dense"`` and attention
-    stays exact. A plan depends only on static geometry, so the ACU keeps
-    each one it resolves and hands it out again."""
+    stays exact. Under a mesh, batch rows shard over ``acu_attn_rows`` and
+    KV heads (whole GQA groups) over ``acu_attn_heads``
+    (``acu_shard.wrap_attn``). A plan depends only on static geometry and
+    the mesh, so the ACU keeps each one it resolves and hands it out
+    again."""
     a_bits = acu.bits if a_bits is None else a_bits
-    plan = acu._plans.get((spec, a_bits))
+    ctx = mesh_context(mesh)
+    key = (spec, a_bits, None if ctx is None else
+           (id(ctx.mesh), tuple(sorted(ctx.rules.items()))))
+    plan = acu._plans.get(key)
     if plan is None:
-        plan = acu._plans[spec, a_bits] = _resolve_attn(acu, spec, a_bits)
+        plan = acu._plans[key] = _resolve_attn(acu, spec, a_bits, ctx)
     return plan
 
 
-def _resolve_attn(acu: Acu, spec: AttnSpec, a_bits: int) -> AttnPlan:
+def _resolve_attn(acu: Acu, spec: AttnSpec, a_bits: int,
+                  ctx=None) -> AttnPlan:
     report: list[str] = []
     if spec.hq % spec.hkv != 0:
         raise ValueError(f"hq={spec.hq} not a multiple of hkv={spec.hkv}")
@@ -752,30 +871,56 @@ def _resolve_attn(acu: Acu, spec: AttnSpec, a_bits: int) -> AttnPlan:
 
     from repro_torch.kernels.flash_attention.ops import (
         approx_flash_attention, approx_flash_attention_paged)
+    from repro_torch.parallel import acu_shard
     kw = dict(bits=a_bits, causal=spec.causal, window=spec.window,
-              softcap=spec.softcap, row_heads=spec.hq)
+              softcap=spec.softcap)
+    rep = spec.hq // spec.hkv
 
-    if paged:
-        rep = spec.hq // spec.hkv
+    # the kernels on (B, Hq, Sq, D) operands with per-batch-row rowinfo;
+    # the head count of the call is q's (a mesh rank's is a slice)
+    def attn_call(q, k, v, qs, ks, vs, rowinfo=None):
+        b, hq, sq, d = q.shape
+        out = approx_flash_attention(
+            q, k, v, acu.device_lut(q.device), acu.offset, qs, ks, vs,
+            rowinfo=rowinfo, row_heads=hq, **kw)
+        return out.reshape(b, hq, sq, d)
 
-        def fn(q, k_pool, v_pool, qs, ks, vs, rowinfo, page_table):
-            b, hq, sq, d = q.shape
-            out = approx_flash_attention_paged(
-                q, k_pool, v_pool, acu.device_lut(q.device), acu.offset, qs,
-                ks, vs, rowinfo=rowinfo, page_table=page_table, rep=rep,
-                **kw)
-            return out.reshape(b, hq, sq, d)
-    else:
-        def fn(q, k, v, qs, ks, vs, rowinfo=None):
-            b, hq, sq, d = q.shape
-            out = approx_flash_attention(
-                q, k, v, acu.device_lut(q.device), acu.offset, qs, ks, vs,
-                rowinfo=rowinfo, **kw)
-            return out.reshape(b, hq, sq, d)
+    def attn_call_paged(q, k_pool, v_pool, qs, ks, vs, rowinfo, page_table):
+        b, hq, sq, d = q.shape
+        out = approx_flash_attention_paged(
+            q, k_pool, v_pool, acu.device_lut(q.device), acu.offset, qs, ks,
+            vs, rowinfo=rowinfo, page_table=page_table, rep=rep,
+            row_heads=hq, **kw)
+        return out.reshape(b, hq, sq, d)
+
+    partition = None
+    if ctx is not None:
+        partition = acu_shard.resolve_attn_partition(ctx, hq=spec.hq,
+                                                     hkv=spec.hkv)
+    fn = attn_call_paged if paged else attn_call
+    if partition is not None and paged:
+        fn = _sharded(ctx, lambda: acu_shard.wrap_attn_paged(
+            attn_call_paged, ctx, partition, hq=spec.hq, hkv=spec.hkv))
+    elif partition is not None:
+        def make():
+            sharded = acu_shard.wrap_attn(attn_call, ctx, partition,
+                                          hq=spec.hq, hkv=spec.hkv)
+
+            def fn(q, k, v, qs, ks, vs, rowinfo=None):
+                if rowinfo is None:   # end-aligned over the whole keys
+                    sq, sk = q.shape[2], k.shape[2]
+                    rowinfo = torch.tensor(
+                        [sk - sq, 0, sk], dtype=torch.int32,
+                        device=q.device).expand(q.shape[0], 3)
+                return sharded(q, k, v, qs, ks, vs,
+                               rowinfo.to(torch.int32))
+            return fn
+        fn = _sharded(ctx, make)
 
     return AttnPlan(mode=acu.mode, bits=acu.bits, use_kernels=True,
                     route="fused_attn_paged" if paged else "fused_attn",
-                    spec=spec, fn=fn, report=tuple(report))
+                    spec=spec, fn=fn, report=tuple(report),
+                    partition=partition)
 
 
 # ---------------------------------------------------------------------------
@@ -816,8 +961,8 @@ class GroupedPlan:
       the fused route's bitwise oracle.
 
     ``use_kernels`` plays the part of the reference's ``use_pallas``.
-    ``describe()`` has the reference's keys; ``partition`` is None (no mesh
-    yet).
+    ``describe()`` has the reference's keys; ``partition`` is the
+    ``acu_grouped`` partition under a mesh (None: local).
     """
 
     mode: AcuMode
@@ -827,6 +972,7 @@ class GroupedPlan:
     spec: GroupedSpec
     fn: Optional[Callable[..., torch.Tensor]] = None
     report: tuple[str, ...] = ()
+    partition: Optional[object] = None
 
     def __call__(self, *args) -> torch.Tensor:
         if self.fn is None:
@@ -843,8 +989,9 @@ class GroupedPlan:
             "n_blocks": s.n_blocks,
             "gemm": f"({s.n_blocks}x{s.n_experts}, {s.cap}, {s.d_in}) x "
                     f"({s.n_experts}, {s.d_in}, {s.d_out})",
-            "partition": None,
-            "report": list(self.report),
+            "partition": describe_partition(self.partition, "blocks"),
+            "report": list(self.report) + (list(self.partition.report)
+                                           if self.partition else []),
         }
 
 
@@ -855,8 +1002,11 @@ def grouped_plan(acu: Acu, spec: GroupedSpec, *, a_bits: Optional[int] = None,
     mode, no ``use_kernels``, no table) resolves to ``"vmap"``. The route
     does not depend on ``fused``. ``route`` pins one: ``"fused_grouped"``
     raises if the kernel cannot serve the ACU, ``"vmap"`` forces the
-    per-expert composition (the oracle)."""
-    _require_single_device(mesh)
+    per-expert composition (the oracle). Under a mesh, experts shard over
+    ``acu_grouped_experts`` and dispatch blocks over ``acu_grouped_rows``
+    (``acu_shard.wrap_fused_grouped``)."""
+    from repro_torch.parallel import acu_shard
+    ctx = mesh_context(mesh)
     a_bits = acu.bits if a_bits is None else a_bits
     if route not in (None, "fused_grouped", "vmap"):
         raise ValueError(f"unknown grouped route {route!r}")
@@ -878,13 +1028,23 @@ def grouped_plan(acu: Acu, spec: GroupedSpec, *, a_bits: Optional[int] = None,
 
     from repro_torch.kernels.fused_lut_grouped.ops import fused_lut_grouped
 
-    def fn(xe, wq, xs, xz, ws, counts):
+    def grouped_call(xe, wq, xs, xz, ws, counts, *, emit_acc=False):
         return fused_lut_grouped(xe, wq, acu.device_lut(xe.device),
-                                 acu.offset, xs, xz, ws, counts, bits=a_bits)
+                                 acu.offset, xs, xz, ws, counts, bits=a_bits,
+                                 emit_acc=emit_acc)
 
+    partition = None
+    fn = grouped_call
+    if ctx is not None:
+        partition = acu_shard.resolve_grouped_partition(
+            ctx, n_experts=spec.n_experts, n_blocks=spec.n_blocks)
+    if partition is not None:
+        fn = _sharded(ctx, lambda: acu_shard.wrap_fused_grouped(
+            grouped_call, lambda *a: grouped_call(*a, emit_acc=True), ctx,
+            partition, acu.m00(), n_experts=spec.n_experts))
     return GroupedPlan(mode=acu.mode, bits=acu.bits, use_kernels=True,
                        route="fused_grouped", spec=spec, fn=fn,
-                       report=tuple(report))
+                       report=tuple(report), partition=partition)
 
 
 def make_acu(name: str, mode: AcuMode | str = AcuMode.LUT, rank: int = 8,

@@ -28,7 +28,9 @@ on the full tensors, and the GEMMs run the routes of
 outside, the mode's GEMM, one dequant), or for a fused conv the
 banded route (the weight gradient on ``fused_lut_conv_bwd_w``, the input
 gradient on ``fused_lut_bwd`` with an integer col2im). Only the gradients
-autograd asks for are computed.
+autograd asks for are computed. Under a mesh of ranks every plan runs
+sharded (``parallel/acu_shard.py``) and so do both backwards, bitwise the
+local gradients.
 """
 from __future__ import annotations
 
@@ -133,12 +135,29 @@ def _ste(fwd, bwd: BwdFn, x, w, xqp: QParams, wqp: QParams,
     return fwd(*args)
 
 
-def _exact_matmul_bwd(g, xf, wf, need_gx, need_gw):
+def _exact_gemms(plan):
+    """The exact STE backward's two GEMMs, ``gx_gemm(g, wf) = g @ wf.T`` and
+    ``gw_gemm(xf, g) = xf.T @ g``: local, or under a mesh of ranks with
+    the plan's partition (``acu_shard.bwd_gemms``: ``gx`` row-blocked like
+    the activations, ``gw`` column-blocked like the weights, each local
+    GEMM over the whole contraction)."""
+    from repro_torch.launch.mesh import RankMesh
+    if plan.partition is not None and isinstance(plan.ctx.mesh, RankMesh):
+        from repro_torch.parallel.acu_shard import bwd_gemms
+        return bwd_gemms(plan.ctx, plan.partition)
+    return (lambda g, wf: g @ wf.t()), (lambda xf, g: xf.t() @ g)
+
+
+def _exact_matmul_bwd(plan) -> BwdFn:
     """The reference's exact STE backward: ``gx = g @ wf.T``, ``gw = xf.T
     @ g``, float32."""
-    with exact_f32():
-        return (g @ wf.t() if need_gx else None,
-                xf.t() @ g if need_gw else None)
+    gx_gemm, gw_gemm = _exact_gemms(plan)
+
+    def bwd(g, xf, wf, need_gx, need_gw):
+        with exact_f32():
+            return (gx_gemm(g, wf) if need_gx else None,
+                    gw_gemm(xf, g) if need_gw else None)
+    return bwd
 
 
 def _approx_matmul_bwd(cfg: "ApproxConfig", fused: bool) -> BwdFn:
@@ -189,7 +208,7 @@ def approx_matmul(x: torch.Tensor, w: torch.Tensor, cfg: ApproxConfig,
         return _affine_matmul_dequant(plan(xq, wq), xqp, wqp)
 
     bwd = (_approx_matmul_bwd(cfg, fused) if cfg.approx_bwd
-           else _exact_matmul_bwd)
+           else _exact_matmul_bwd(plan))
     return _ste(fwd, bwd, x, w, xqp, wqp, cfg, w_axis=1)
 
 
@@ -461,11 +480,14 @@ def _exact_conv(x, w, b, stride, pad, dilation, groups):
     return y if b is None else y + b.reshape(1, -1, 1, 1)
 
 
-def _exact_conv_bwd(spec: ConvSpec) -> BwdFn:
+def _exact_conv_bwd(plan) -> BwdFn:
     """The reference's exact conv STE backward, in its im2col form:
-    ``gw = cols(xf).T @ g`` and ``gx = col2im(g @ wf)``, float32."""
+    ``gw = cols(xf).T @ g`` and ``gx = col2im(g @ wf)``, float32; under a
+    mesh its two GEMMs take the conv partition (:func:`_exact_gemms`)."""
+    spec = plan.spec
     cout, _, kh, kw = spec.w_shape
     geom = (kh, kw, spec.stride, spec.padding, spec.dilation)
+    gx_gemm, gw_gemm = _exact_gemms(plan)
 
     def bwd(g, xf, wf, need_gx, need_gw):
         g2 = g.reshape(-1, cout)                             # (N*P, Cout)
@@ -473,10 +495,11 @@ def _exact_conv_bwd(spec: ConvSpec) -> BwdFn:
         with exact_f32():
             if need_gw:
                 cols, _ = _im2col(xf, *geom)
-                gw = (cols.reshape(-1, cols.shape[-1]).t() @ g2).t()
+                gw = gw_gemm(cols.reshape(-1, cols.shape[-1]), g2).t()
                 gw = gw.reshape(spec.w_shape)
             if need_gx:
-                gcols = g2 @ wf.reshape(cout, -1)            # (N*P, C*kh*kw)
+                # (N*P, C*kh*kw)
+                gcols = gx_gemm(g2, wf.reshape(cout, -1).t())
                 gx = _col2im(gcols.reshape(spec.x_shape[0], -1,
                                            gcols.shape[-1]),
                              spec.x_shape, *geom)
@@ -485,7 +508,7 @@ def _exact_conv_bwd(spec: ConvSpec) -> BwdFn:
     return bwd
 
 
-def _banded_conv_bwd(acu: Acu, spec: ConvSpec, a_bits: int) -> BwdFn:
+def _banded_conv_bwd(acu: Acu, plan, a_bits: int) -> BwdFn:
     """The ApproxTrain conv backward of the fused route (the reference's
     ``bwd_route="banded"``). Weight gradient: ``fused_lut_conv_bwd_w``'s
     int32 (kh*kw, Cin, Cout) accumulator, ONE dequant ``acc * (sx * sg)``,
@@ -496,9 +519,14 @@ def _banded_conv_bwd(acu: Acu, spec: ConvSpec, a_bits: int) -> BwdFn:
     strided slices: integer adds are exact and associative, so it is the
     reference's canvas bit for bit. The reference loops over output-row
     bands to fit VMEM; here one band covers all rows (the band count is
-    invisible in integer sums)."""
+    invisible in integer sums). Under a mesh of ranks the weight gradient
+    sums band-slab partials over the conv partition's rows axes
+    (``acu_shard.wrap_conv_bwd_w``) and the input gradient's GEMM sums
+    over its cols axes (``wrap_conv_gx_gemm``), bitwise the local ones."""
     from repro_torch.kernels.fused_lut_conv.ops import fused_lut_conv_bwd_w
     from repro_torch.kernels.fused_lut_dense.ops import fused_lut_bwd
+    from repro_torch.launch.mesh import RankMesh
+    spec = plan.spec
     n, cin, h, w_in = spec.x_shape
     cout, _, kh, kw = spec.w_shape
     ho, wo = spec.out_spatial
@@ -506,23 +534,39 @@ def _banded_conv_bwd(acu: Acu, spec: ConvSpec, a_bits: int) -> BwdFn:
     dh, dw = spec.dilation
     (ph0, ph1), (pw0, pw1) = spec.padding
 
+    def gw_acc(x, g, rm, sx, sg, padding):
+        return fused_lut_conv_bwd_w(
+            x, g, acu.device_lut(g.device), acu.offset, sx, sg,
+            ksize=(kh, kw), stride=spec.stride, padding=padding,
+            dilation=spec.dilation, bits=a_bits, rmask=rm)
+
+    def gx_acc(a, b, sa, sb):
+        return fused_lut_bwd(a, b, acu.device_lut(a.device), acu.offset, sa,
+                             sb, bits=a_bits, emit_acc=True)
+
+    part = plan.partition
+    if part is not None and isinstance(plan.ctx.mesh, RankMesh):
+        from repro_torch.parallel import acu_shard
+        gw_call = acu_shard.wrap_conv_bwd_w(gw_acc, plan.ctx, part, spec)
+        gx_call = acu_shard.wrap_conv_gx_gemm(gx_acc, plan.ctx, part,
+                                              acu.m00())
+    else:
+        gw_call = lambda xf, g, sx, sg: gw_acc(  # noqa: E731
+            xf, g, None, sx, sg, spec.padding)
+        gx_call = gx_acc
+
     def bwd(g, xf, wf, need_gx, need_gw):
-        lut = acu.device_lut(g.device)
         sg = _sym_scale(g, a_bits)
         gx = gw = None
         if need_gw:
             sx = _sym_scale(xf, a_bits)
-            acc = fused_lut_conv_bwd_w(
-                xf, g, lut, acu.offset, sx, sg, ksize=(kh, kw),
-                stride=spec.stride, padding=spec.padding,
-                dilation=spec.dilation, bits=a_bits)
+            acc = gw_call(xf, g, sx, sg)
             gw = acc.to(torch.float32) * (sx * sg)
             gw = gw.permute(2, 1, 0).reshape(spec.w_shape)
         if need_gx:
             sw = _sym_scale(wf, a_bits)
-            acc = fused_lut_bwd(g.reshape(-1, cout), wf.reshape(cout, -1),
-                                lut, acu.offset, sg, sw, bits=a_bits,
-                                emit_acc=True)       # (N*Ho*Wo, Cin*kh*kw)
+            # (N*Ho*Wo, Cin*kh*kw)
+            acc = gx_call(g.reshape(-1, cout), wf.reshape(cout, -1), sg, sw)
             acc = acc.reshape(n, ho, wo, cin, kh, kw)
             canvas = torch.zeros((n, cin, h + ph0 + ph1, w_in + pw0 + pw1),
                                  dtype=torch.int32, device=g.device)
@@ -549,8 +593,8 @@ def _fused_conv(x: torch.Tensor, w: torch.Tensor, cfg: ApproxConfig,
         wq = acu_operand(quantize(w, wqp_c), wqp_c)
         return plan(x, wq, xs, xz, ws)
 
-    bwd = (_banded_conv_bwd(cfg.acu, plan.spec, cfg.a_bits)
-           if cfg.approx_bwd else _exact_conv_bwd(plan.spec))
+    bwd = (_banded_conv_bwd(cfg.acu, plan, cfg.a_bits)
+           if cfg.approx_bwd else _exact_conv_bwd(plan))
     y = _ste(fwd, bwd, x, w, xqp, wqp, cfg, w_axis=0)   # (N, Ho, Wo, Cout)
     return y.permute(0, 3, 1, 2).to(x.dtype)
 

@@ -50,6 +50,14 @@
 //    the item's pixel groups (8 / wr).
 //  * Pixels past the slice (a group of 4 that overhangs it) are masked, so
 //    they contribute nothing.
+//  * rmask (optional, (N, Ho) int32 0/1, the reference's row mask): an
+//    output row whose entry is 0 contributes nothing. A zero gradient code
+//    would still add LUT[x, off], so masked rows are left out of the sum:
+//    each item's pixel list is compacted to the pixels of its live rows
+//    (the k-th live row found by a scan of the item's rows) before the
+//    gather loop, which then runs as without a mask. The mesh runtime
+//    (parallel/acu_shard.py: wrap_conv_bwd_w) masks band-padding rows and
+//    padded images with it. Without a mask nothing changes.
 #include "lut_narrow.cuh"
 #include "lut_quant.cuh"
 
@@ -125,7 +133,8 @@ template <int BN, int TW>
 __global__ void __launch_bounds__(kThreads, 1)
 bwd_w_kernel(const float* __restrict__ x, const float* __restrict__ gr,
              const int16_t* __restrict__ lut_g, const float* __restrict__ sx_p,
-             const float* __restrict__ sg_p, int* __restrict__ out, Geom g) {
+             const float* __restrict__ sg_p, const int* __restrict__ rmask,
+             int* __restrict__ out, Geom g) {
   using LN = Lanes<BN>;
   constexpr int KS = LN::KS, TN = LN::TN;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -221,7 +230,23 @@ bwd_w_kernel(const float* __restrict__ x, const float* __restrict__ gr,
     const Item r = item_of(it);
     cp_wait<0>();      // this item's raw operands (and, first, the table)
     __syncthreads();   // ... for every thread; the last item's gathers done
-    const int P = max(r.nb, 0) * r.nw;
+    // the item's live output rows (all of them without a mask); pixel c of
+    // the compacted list is raw slice pixel src(c)
+    const int* rm = rmask != nullptr ? rmask + (size_t)r.img * g.ho + r.oh0
+                                     : nullptr;
+    int n_live = max(r.nb, 0);
+    if (rm != nullptr) {
+      n_live = 0;
+      for (int rr = 0; rr < r.nb; ++rr) n_live += rm[rr] != 0;
+    }
+    auto src = [&](int c) {
+      if (rm == nullptr) return c;
+      int k = c / r.nw, rr = 0;
+      for (;; ++rr)
+        if (rm[rr] != 0 && k-- == 0) break;
+      return rr * r.nw + c % r.nw;
+    };
+    const int P = n_live * r.nw;
     const int pg = (P + 3) / 4;
     // the band's codes: word (cq, p) = channels 4cq .. 4cq + 3 of input
     // pixel p; outside the image code 0 (the table row off), past C off
@@ -252,8 +277,8 @@ bwd_w_kernel(const float* __restrict__ x, const float* __restrict__ gr,
       for (int q = 0; q < 4; ++q) {
         const uint32_t code =
             4 * gp + q < P && r.co0 + o < g.cout
-                ? lutgemm::symmetric_index(raw_g[(4 * gp + q) * BN + o], sg,
-                                           lo, hi, off, n)
+                ? lutgemm::symmetric_index(raw_g[src(4 * gp + q) * BN + o],
+                                           sg, lo, hi, off, n)
                 : static_cast<uint32_t>(off);
         word |= code << (8 * q);
       }
@@ -261,8 +286,9 @@ bwd_w_kernel(const float* __restrict__ x, const float* __restrict__ gr,
     }
     // each pixel's band word at tap (0, 0), channel quad 0
     for (int p = tid; p < pg * 4; p += kThreads) {
-      const int rr = p / max(r.nw, 1);
-      pix[p] = p < P ? rr * g.sh * g.cols_in + (p - rr * r.nw) * g.sw : 0;
+      const int ps = p < P ? src(p) : 0;
+      const int rr = ps / max(r.nw, 1);
+      pix[p] = p < P ? rr * g.sh * g.cols_in + (ps - rr * r.nw) * g.sw : 0;
     }
     // the row list: entry e = cq * taps + t -> (band word offset of the
     // tap's window, output row t * C + c, first channel c); dead entries
@@ -322,8 +348,9 @@ bwd_w_kernel(const float* __restrict__ x, const float* __restrict__ gr,
 
 template <int BN, int TW>
 int launch(const float* x, const float* gr, const int16_t* lut,
-           const float* sx, const float* sg, int* out, const Geom& g,
-           int smem_bytes, int num_blocks, cudaStream_t stream) {
+           const float* sx, const float* sg, const int* rmask, int* out,
+           const Geom& g, int smem_bytes, int num_blocks,
+           cudaStream_t stream) {
   const Layout<BN, TW> L(g);
   if (static_cast<size_t>(smem_bytes) != L.total || L.total > kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -336,37 +363,39 @@ int launch(const float* x, const float* gr, const int16_t* lut,
   if (items >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   const int grid = static_cast<int>(items < num_blocks ? items : num_blocks);
   if (grid <= 0) return static_cast<int>(cudaSuccess);
-  kernel<<<grid, kThreads, smem_bytes, stream>>>(x, gr, lut, sx, sg, out, g);
+  kernel<<<grid, kThreads, smem_bytes, stream>>>(x, gr, lut, sx, sg, rmask,
+                                                 out, g);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int TW>
 int launch_bn(int bn, const float* x, const float* gr, const int16_t* lut,
-              const float* sx, const float* sg, int* out, const Geom& g,
-              int smem_bytes, int num_blocks, cudaStream_t s) {
+              const float* sx, const float* sg, const int* rmask, int* out,
+              const Geom& g, int smem_bytes, int num_blocks, cudaStream_t s) {
   switch (bn) {
     case 16:
-      return launch<16, TW>(x, gr, lut, sx, sg, out, g, smem_bytes,
+      return launch<16, TW>(x, gr, lut, sx, sg, rmask, out, g, smem_bytes,
                             num_blocks, s);
     case 32:
-      return launch<32, TW>(x, gr, lut, sx, sg, out, g, smem_bytes,
+      return launch<32, TW>(x, gr, lut, sx, sg, rmask, out, g, smem_bytes,
                             num_blocks, s);
     case 64:
-      return launch<64, TW>(x, gr, lut, sx, sg, out, g, smem_bytes,
+      return launch<64, TW>(x, gr, lut, sx, sg, rmask, out, g, smem_bytes,
                             num_blocks, s);
     default:
       break;
   }
   if constexpr (TW == 4)
     if (bn == 128)
-      return launch<128, 4>(x, gr, lut, sx, sg, out, g, smem_bytes,
+      return launch<128, 4>(x, gr, lut, sx, sg, rmask, out, g, smem_bytes,
                             num_blocks, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// out: the zeroed (kh*kw, c, cout) int32 accumulator. The tiling (bands of
+// out: the zeroed (kh*kw, c, cout) int32 accumulator; rmask: null, or
+// (n, ho) int32, a 0 leaving that output row out. The tiling (bands of
 // bh output rows, tiles_h of them; column strips of bw; cg channels an
 // item, c4 channels in all; Cout tiles of bn; tw row words a warp, wr warps
 // across the row words) is the wrapper's, run as given: an item past the
@@ -374,7 +403,8 @@ int launch_bn(int bn, const float* x, const float* gr, const int16_t* lut,
 // out. The launch refuses a tiling it is not built for.
 extern "C" int fused_lut_conv_bwd_w_launch(
     const float* x, const float* g, const int16_t* lut, const float* sx,
-    const float* sg, int* out, int n, int c, int h, int w, int cout, int kh,
+    const float* sg, const int* rmask, int* out, int n, int c, int h, int w,
+    int cout, int kh,
     int kw, int sh, int sw, int ph, int pw, int dh, int dw, int ho, int wo,
     int n_codes, int offset, int lo, int hi, int bh, int bw, int tiles_h,
     int cg, int c4, int bn, int tw, int wr, int smem_bytes, int num_blocks,
@@ -393,9 +423,9 @@ extern "C" int fused_lut_conv_bwd_w_launch(
   geo.plane = geo.rows_in * geo.cols_in;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tw == 9)
-    return launch_bn<9>(bn, x, g, lut, sx, sg, out, geo, smem_bytes,
+    return launch_bn<9>(bn, x, g, lut, sx, sg, rmask, out, geo, smem_bytes,
                         num_blocks, s);
-  return launch_bn<4>(bn, x, g, lut, sx, sg, out, geo, smem_bytes,
+  return launch_bn<4>(bn, x, g, lut, sx, sg, rmask, out, geo, smem_bytes,
                       num_blocks, s);
 }
 

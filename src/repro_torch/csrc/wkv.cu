@@ -47,8 +47,9 @@ __global__ void __launch_bounds__(HD)
 wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ w,
            const float* __restrict__ u, const float* s0,
-           float* __restrict__ out, float* sT, int T, int H, Strides rs,
-           Strides ks, Strides vs, Strides ws) {
+           float* __restrict__ out, float* sT, float* __restrict__ bounds,
+           int chunk, int T, int H, Strides rs, Strides ks, Strides vs,
+           Strides ws) {
   __shared__ float rb[2][HD], kb[2][HD], wb[2][HD], ub[HD];
   const int row = blockIdx.x;  // b * H + h
   const int b = row / H, h = row % H;
@@ -75,8 +76,14 @@ wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
     vv = vp[0];
   }
   __syncthreads();
+  const size_t bound_stride = (size_t)gridDim.x * HD * HD;
   for (int t = 0; t < T; ++t) {
     const int cur = t & 1;
+    if (bounds != nullptr && t % chunk == 0) {
+      float* bp = bounds + (size_t)(t / chunk) * bound_stride + state + j;
+#pragma unroll
+      for (int i = 0; i < HD; ++i) bp[(size_t)i * HD] = S[i];
+    }
     const bool more = t + 1 < T;
     float rn = 0.f, kn = 0.f, wn = 0.f, vn = 0.f;
     if (more) {
@@ -109,34 +116,42 @@ wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
 template <int HD>
 cudaError_t launch_hd(const float* r, const float* k, const float* v,
                       const float* w, const float* u, const float* s0,
-                      float* out, float* sT, int B, int T, int H,
-                      const Strides* st, cudaStream_t stream) {
-  wkv_kernel<HD><<<B * H, HD, 0, stream>>>(r, k, v, w, u, s0, out, sT, T, H,
-                                          st[0], st[1], st[2], st[3]);
+                      float* out, float* sT, float* bounds, int chunk,
+                      int B, int T, int H, const Strides* st,
+                      cudaStream_t stream) {
+  wkv_kernel<HD><<<B * H, HD, 0, stream>>>(r, k, v, w, u, s0, out, sT,
+                                          bounds, chunk, T, H, st[0], st[1],
+                                          st[2], st[3]);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// strides: (b, t, h) of r, k, v, w in turn, in elements.
+// strides: (b, t, h) of r, k, v, w in turn, in elements. bounds, when not
+// null, receives the state before every step t with t % chunk == 0:
+// (ceil(T / chunk), B*H, hd, hd), what the backward (wkv_bwd.cu) restarts
+// its chunks from.
 extern "C" int wkv_launch(const float* r, const float* k, const float* v,
                           const float* w, const float* u, const float* s0,
-                          float* out, float* sT, int B, int T, int H, int hd,
+                          float* out, float* sT, float* bounds, int chunk,
+                          int B, int T, int H, int hd,
                           long long rsb, long long rst, long long rsh,
                           long long ksb, long long kst, long long ksh,
                           long long vsb, long long vst, long long vsh,
                           long long wsb, long long wst, long long wsh,
                           void* stream) {
-  if (B <= 0 || H <= 0 || T < 0)
+  if (B <= 0 || H <= 0 || T < 0 || (bounds != nullptr && chunk <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides st[4] = {{rsb, rst, rsh}, {ksb, kst, ksh}, {vsb, vst, vsh},
                          {wsb, wst, wsh}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16:
-      return launch_hd<16>(r, k, v, w, u, s0, out, sT, B, T, H, st, s);
+      return launch_hd<16>(r, k, v, w, u, s0, out, sT, bounds, chunk, B, T,
+                             H, st, s);
     case 64:
-      return launch_hd<64>(r, k, v, w, u, s0, out, sT, B, T, H, st, s);
+      return launch_hd<64>(r, k, v, w, u, s0, out, sT, bounds, chunk, B, T,
+                             H, st, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.parallel.sharding import rank_mesh
 
 
 class MarkovLM:
@@ -110,10 +111,14 @@ def blob_task(size: int = 28, n_classes: int = 10, seed: int = 0):
 # device placement + bounded prefetch
 # ---------------------------------------------------------------------------
 
-def shard_batch(batch: dict, device=None) -> dict:
+def shard_batch(batch: dict, sharding=None, device=None) -> dict:
     """A batch of numpy arrays as tensors on ``device`` (``cuda`` unless
-    given). One device: the reference's ``sharding`` argument becomes a
-    mesh with ROADMAP item 16."""
+    given). ``sharding`` is the reference's argument: under a mesh of
+    ranks (``launch/mesh.py: RankMesh``, or a ``MeshContext`` over one)
+    every rank holds the whole global batch on its device, and the
+    data-parallel step cuts its rows (``train/trainer.py``)."""
+    if sharding is not None:
+        rank_mesh(sharding, "placing a batch")
     dev = resolve_device(device)
     return {k: torch.as_tensor(np.asarray(v)).to(dev)
             for k, v in batch.items()}
@@ -130,9 +135,13 @@ class Prefetcher:
     the stop flag, and ``close`` drains the queue until the thread exits.
     """
 
-    def __init__(self, it: Iterator[dict], depth: int = 2, device=None):
+    def __init__(self, it: Iterator[dict], depth: int = 2, sharding=None,
+                 device=None):
         self.q: queue.Queue = queue.Queue(maxsize=depth)
         self.it = it
+        if sharding is not None:
+            rank_mesh(sharding, "placing a batch")
+        self.sharding = sharding
         self.device = resolve_device(device)
         self._stop = threading.Event()
         self._err: BaseException | None = None
@@ -155,7 +164,8 @@ class Prefetcher:
             for b in self.it:
                 if self._stop.is_set():
                     return
-                if not self._put(("item", shard_batch(b, self.device))):
+                if not self._put(("item", shard_batch(b, self.sharding,
+                                                      self.device))):
                     return
         except BaseException as e:  # noqa: BLE001 — must reach the consumer
             self._put(("error", e))

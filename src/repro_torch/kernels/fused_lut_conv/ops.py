@@ -23,12 +23,13 @@ nothing here sizes a CUDA tile with it: kernel 5's and kernel 6's tilings
 come from this card's shared memory.
 
 The weight-gradient wrapper (kernel 7) drops the reference's ``bh``,
-``bn``, ``mc`` and ``rmask`` arguments: they size VMEM row bands and mask
-band-padding rows and mesh slabs. Kernel 7 runs its own tiling
-(:func:`pick_bwd_w_tiling`: items of a band of output rows x a channel
-group x a Cout tile, quantized once into shared memory, at least two an SM
-at ResNet-20's and CNN-224's shapes) and masks the pixels past a slice, so
-there are no padded rows and no mesh.
+``bn`` and ``mc`` arguments: they size VMEM row bands. Kernel 7 runs its
+own tiling (:func:`pick_bwd_w_tiling`: items of a band of output rows x a
+channel group x a Cout tile, quantized once into shared memory, at least
+two an SM at ResNet-20's and CNN-224's shapes) and masks the pixels past a
+slice. It keeps the reference's ``rmask``, a (N, Ho) 0/1 output-row mask:
+the mesh runtime (``parallel/acu_shard.py: wrap_conv_bwd_w``) gives every
+band slab and padded image one, and a masked row adds nothing.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
 version in ``ref.py``.
@@ -788,7 +789,9 @@ def fused_lut_conv_bwd_w(x: torch.Tensor, g: torch.Tensor, lut: torch.Tensor,
                          ksize: tuple[int, int], stride=(1, 1),
                          padding=((0, 0), (0, 0)), dilation=(1, 1),
                          bits: int = 8,
-                         tiling: Optional[BwdWTiling] = None) -> torch.Tensor:
+                         tiling: Optional[BwdWTiling] = None,
+                         rmask: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """Approximate conv weight gradient (kernel 7, the ApproxTrain regime).
 
     ``x``: (N, C, H, W) float residual (the saved fake-quantized input);
@@ -801,7 +804,11 @@ def fused_lut_conv_bwd_w(x: torch.Tensor, g: torch.Tensor, lut: torch.Tensor,
     caller dequants once, ``acc * (sx * sg)``. ``tiling`` launches the
     CUDA kernel with the one given, as given (a check's planted fault); it
     is refused (:func:`check_bwd_w_tiling`) if the kernel is not built for
-    it. Every tiling gives the same bits.
+    it. Every tiling gives the same bits. ``rmask`` (N, Ho), 0/1: an
+    output row whose entry is 0 is left out of the sum (zeroing its
+    gradient would not do: a zero code still adds ``LUT[qx + off, off]``);
+    counted by ``fused_lut_conv_bwd_w.rmask_launches`` beside
+    ``launches``.
     """
     n_codes = int(round(lut.numel() ** 0.5))
     n, c, h, w_in = x.shape
@@ -818,11 +825,14 @@ def fused_lut_conv_bwd_w(x: torch.Tensor, g: torch.Tensor, lut: torch.Tensor,
     if tiling is not None:
         check_bwd_w_tiling(tiling, c, ho, wo, cout, kh, kw, sh, sw, dh, dw,
                            n_codes)
+    if rmask is not None and tuple(rmask.shape) != (n, ho):
+        raise ValueError(f"rmask has shape {tuple(rmask.shape)}, expected "
+                         f"{(n, ho)}")
     if x.device.type == "cpu":
         return fused_lut_conv_bwd_w_ref(
             x, g, lut.reshape(-1), offset, n_codes, x_scale, g_scale,
             ksize=ksize, stride=stride, padding=padding, dilation=dilation,
-            bits=bits)
+            bits=bits, rmask=rmask)
     lo = -(1 << (bits - 1))
     hi = (1 << (bits - 1)) - 1
     table = runtime.lut_to_int16(lut)
@@ -831,8 +841,12 @@ def fused_lut_conv_bwd_w(x: torch.Tensor, g: torch.Tensor, lut: torch.Tensor,
     f = dict(dtype=torch.float32, device=x.device)
     sx = torch.as_tensor(x_scale, **f).reshape(1).contiguous()
     sg = torch.as_tensor(g_scale, **f).reshape(1).contiguous()
+    if rmask is not None:
+        rmask = rmask.to(device=x.device, dtype=torch.int32).contiguous()
     for t, name, dt in ((x, "x", torch.float32), (g, "g", torch.float32),
-                        (table, "lut", torch.int16)):
+                        (table, "lut", torch.int16)) + (
+                            () if rmask is None else
+                            ((rmask, "rmask", torch.int32),)):
         runtime.check_cuda_operand(t, name, dt, x.device)
     # items add their partial sums into it
     out = torch.zeros((kh * kw, c, cout), device=x.device, dtype=torch.int32)
@@ -845,13 +859,17 @@ def fused_lut_conv_bwd_w(x: torch.Tensor, g: torch.Tensor, lut: torch.Tensor,
     t = tiling
     lib = runtime.kernel_library("fused_lut_conv_bwd_w")
     lib.check(lib.launch(x.data_ptr(), g.data_ptr(), table.data_ptr(),
-                         sx.data_ptr(), sg.data_ptr(), out.data_ptr(), n, c,
-                         h, w_in, cout, kh, kw, sh, sw, ph0, pw0, dh, dw, ho,
-                         wo, n_codes, offset, lo, hi, t.bh, t.bw, t.tiles_h,
-                         t.cg, t.c4, t.bn, t.tw, t.wr, t.smem_bytes, blocks,
-                         stream))
+                         sx.data_ptr(), sg.data_ptr(),
+                         None if rmask is None else rmask.data_ptr(),
+                         out.data_ptr(), n, c, h, w_in, cout, kh, kw, sh, sw,
+                         ph0, pw0, dh, dw, ho, wo, n_codes, offset, lo, hi,
+                         t.bh, t.bw, t.tiles_h, t.cg, t.c4, t.bn, t.tw, t.wr,
+                         t.smem_bytes, blocks, stream))
     fused_lut_conv_bwd_w.launches += 1
+    if rmask is not None:
+        fused_lut_conv_bwd_w.rmask_launches += 1
     return out
 
 
 fused_lut_conv_bwd_w.launches = 0
+fused_lut_conv_bwd_w.rmask_launches = 0

@@ -274,10 +274,13 @@ def fused_lut_conv_bwd_w_ref(x: torch.Tensor, g: torch.Tensor,
                              n_codes: int, x_scale, g_scale, *,
                              ksize: tuple[int, int], stride=(1, 1),
                              padding=((0, 0), (0, 0)), dilation=(1, 1),
-                             bits: int = 8) -> torch.Tensor:
+                             bits: int = 8,
+                             rmask: torch.Tensor | None = None
+                             ) -> torch.Tensor:
     """x: (N, C, H, W) float residual; g: (N, Ho, Wo, Cout) float
     gradient. Returns the int32 (kh*kw, C, Cout) tap-major accumulator
-    ``sum_pixels LUT[qx(tap) + off, qg + off]``."""
+    ``sum_pixels LUT[qx(tap) + off, qg + off]``; with ``rmask`` (N, Ho)
+    0/1, over the pixels of the output rows whose entry is nonzero."""
     from repro_torch.core.approx_ops import _im2col
     from repro_torch.core.quantization import quantize_symmetric
     kh, kw = ksize
@@ -288,8 +291,11 @@ def fused_lut_conv_bwd_w_ref(x: torch.Tensor, g: torch.Tensor,
     cols, _ = _im2col(qx.to(torch.float32), kh, kw, stride, padding,
                       dilation)                         # (N, P, C*kh*kw)
     cols = cols.reshape(-1, cols.shape[-1]).t().to(torch.int64) + offset
-    acc = lut_gather_sum(cols, qg.reshape(-1, cout).to(torch.int64) + offset,
-                         lut_flat, n_codes)             # (C*kh*kw, Cout)
+    rows = qg.reshape(-1, cout).to(torch.int64) + offset
+    if rmask is not None:
+        keep = (rmask != 0)[:, :, None].expand(g.shape[:3]).reshape(-1)
+        cols, rows = cols[:, keep], rows[keep]
+    acc = lut_gather_sum(cols, rows, lut_flat, n_codes)  # (C*kh*kw, Cout)
     return acc.reshape(c, kh * kw, cout).transpose(0, 1).contiguous()
 
 

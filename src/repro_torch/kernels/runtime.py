@@ -62,7 +62,7 @@ SIGNATURES = {
                       [_P] * 6 + [_I] * 8 + [_P] + [_I] * 9 + [_P]
                       + [_I] * 2 + [_P]),
     "fused_lut_conv_bwd_w": ("fused_lut_conv_bwd_w_launch",
-                             [_P] * 6 + [_I] * 15 + [_I] * 4 + [_I] * 10
+                             [_P] * 7 + [_I] * 15 + [_I] * 4 + [_I] * 10
                              + [_P]),
     "approx_flash_attention": ("approx_flash_attention_launch",
                                [_P] * 12 + [_I] * 12 + [_L] * 9 + [_I] * 7
@@ -74,7 +74,8 @@ SIGNATURES = {
     "quantize": ("quantize_launch",
                  [_P, _I, _P, _P, _P, _I, _I] + [_L] * 17 + [_I] * 7
                  + [_L] * 3 + [_P]),
-    "wkv": ("wkv_launch", [_P] * 8 + [_I] * 4 + [_L] * 12 + [_P]),
+    "wkv": ("wkv_launch", [_P] * 9 + [_I] * 5 + [_L] * 12 + [_P]),
+    "wkv_bwd": ("wkv_bwd_launch", [_P] * 16 + [_I] * 5 + [_P]),
     "flash_attention": ("flash_attention_launch",
                         [_P] * 5 + [_I] * 11 + [_L] * 12 + [_I] * 3
                         + [ctypes.c_float] * 2 + [_I, _P]),

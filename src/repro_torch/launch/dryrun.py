@@ -12,7 +12,7 @@ Nothing here touches a device: the step runs on ``meta`` arguments under
 (1 x 1, the one H100, the default) counts the costs. ``pod``, ``multipod``
 and ``both`` record the planner's reports and each device's argument bytes
 under its partition specs; their cost fields are null, since a mesh of
-more devices does not run on the port (ROADMAP.md, queue 1, item 16).
+more devices is not costed yet (ROADMAP.md, queue 1, item 16c).
 ``--no-probe`` is accepted for the reference's command line and changes
 nothing: the reference probes two unrolls because XLA counts a scan body
 once, and the port's step runs every layer.
@@ -102,9 +102,9 @@ def count_cell(arch: str, shape_name: str, *, mesh_name: str = "1x1",
         rec["moe_dispatch"] = bundle.meta["moe_dispatch"]
     if n_dev > 1:
         rec.update({k: None for k in COST_KEYS})
-        rec["note"] = ("costs not counted: a mesh of more than one device "
-                       "does not run on the port (ROADMAP.md, queue 1, "
-                       "item 16)")
+        rec["note"] = ("costs not counted: the steps, collectives and "
+                       "costs of a mesh of more than one device are not "
+                       "ported (ROADMAP.md, queue 1, item 16c)")
         rec["compile_s"] = round(time.monotonic() - t0, 1)
         if verbose:
             print(f"[dryrun] {arch} x {shape_name} ({mesh_name}, {variant}): "

@@ -87,7 +87,7 @@ def _check_runnable(mesh) -> None:
     if mesh.size != 1:
         from repro_torch.core.acu import not_ported
         raise not_ported(f"a step over a mesh of {mesh.size} devices",
-                         "queue 1, item 16")
+                         "queue 1, item 16c")
 
 
 @dataclasses.dataclass

@@ -7,7 +7,10 @@ products stay plain ``@``, as the reference computes them outside any
 kernel. The WKV recurrence runs kernel 12 (``kernels/wkv``) for a prefill
 (T = S) and a decode step (T = 1) alike: the reference's one-step decode
 and its chunked scan compute the same steps, and its chunking only bounds
-what a backward pass saves, which serving has none of.
+what a backward pass saves. Without a cache and with a gradient wanted,
+kernel 12 keeps the state before every ``rwkv_chunk`` steps and its
+backward (``csrc/wkv_bwd.cu`` on the card) restores each chunk from there,
+as the reference's checkpointed chunk scan does.
 
 State per layer: time-mix shift (B, 1, D), wkv state (B, H, hd, hd)
 float32, channel-mix shift (B, 1, D). Given a state (views of the cache),
@@ -86,7 +89,8 @@ def time_mix(x: torch.Tensor, p: dict, cfg, acfg: Optional[ApproxConfig],
                          device=x.device)
         s_out = None
     y, s_new = wkv(r.to(torch.float32), k.to(torch.float32),
-                   v.to(torch.float32), w, u, s0, state_out=s_out)
+                   v.to(torch.float32), w, u, s0, state_out=s_out,
+                   chunk=cfg.rwkv_chunk)
 
     # per-head group norm, then the gate
     c = y - y.mean(-1, keepdim=True)

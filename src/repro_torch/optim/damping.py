@@ -13,8 +13,8 @@ rows, B_big: the accumulated batch). The schedule is host-side and
 integer-valued: the trainer folds ``accum`` whole data batches into one
 optimizer step, and the state round-trips through the checkpoint
 manifest's ``extra`` as plain JSON, so a resumed run replays the exact
-schedule. The mesh-side pair (``shard_noise_stats``) waits for the mesh
-(ROADMAP item 16).
+schedule. On a mesh of ranks, :func:`shard_noise_stats` gives the pair
+from each rank's own gradient and the summed mean.
 """
 from __future__ import annotations
 
@@ -142,3 +142,20 @@ def update_state(state: DampingState, cfg: DampingConfig, stats: NoiseStats,
             accum = max(target, state.accum // cfg.max_growth, cfg.accum_min)
     return DampingState(accum=accum, updates=k, ema_s=ema_s, ema_g2=ema_g2,
                         ema_resid=ema_resid, b_noise=b_noise)
+
+
+def shard_noise_stats(grads, grads_mean, axis_name, b_local: int,
+                      n_workers: int, *, mesh) -> NoiseStats:
+    """The per-rank vs summed-mean pair on a mesh of ranks: ``grads`` is
+    this rank's gradient of its own rows, ``grads_mean`` the already
+    all-reduced mean (both free: the step has them). One gather of a
+    scalar is added; the ranks' |g|^2 are summed in rank order.
+    ``gsq_big`` is taken on the mean, which every rank holds whole, so
+    every rank (and a one-process oracle given the same mean) reduces it
+    in the same order."""
+    axes = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+    local = tree_sqnorm(grads)
+    small = mesh.all_gather(local.reshape(1), axes).sum() / torch.tensor(
+        float(n_workers), dtype=torch.float32, device=local.device)
+    return NoiseStats(gsq_small=small, gsq_big=tree_sqnorm(grads_mean),
+                      b_small=b_local, b_big=int(b_local) * int(n_workers))

@@ -3,9 +3,13 @@ active :class:`MeshContext` maps them to mesh axes with divisibility checks
 (port of ``repro.parallel.sharding``).
 
 Model code stays mesh-agnostic: ``shard(x, "batch", None, "mlp")`` is an
-identity when no mesh is active or the mesh has one device. The port runs
-on one device; a mesh of more devices is described (shapes, specs, the
-planner's reports) but not run: :func:`shard` raises under one.
+identity when no mesh is active or the mesh has one device. Under a mesh of
+ranks (``launch/mesh.py: RankMesh``) every rank holds the whole global
+tensor (the mesh runtime is SPMD on global operands: each ACU plan cuts its
+own blocks and gathers its result), so a layout hint changes no value and
+:func:`shard` checks it and returns ``x``. A :class:`~repro_torch.launch.
+mesh.MeshShape` of more than one device has no ranks to run on: there
+:func:`shard` raises.
 """
 from __future__ import annotations
 
@@ -162,13 +166,54 @@ def use_mesh_context(ctx: MeshContext):
         _STATE.ctx = prev
 
 
+def mesh_context(mesh) -> Optional[MeshContext]:
+    """A ``mesh`` argument -> the ``MeshContext`` it names, or None for
+    local work: ``None`` reads the active ``use_mesh`` context, ``False``
+    forces local, a ``RankMesh`` or a shape-only ``MeshShape`` gets the
+    default rules; anything else raises ``TypeError``."""
+    from repro_torch.launch.mesh import MeshShape, RankMesh
+    if mesh is False:
+        return None
+    if mesh is None:
+        return current_mesh_context()
+    if isinstance(mesh, MeshContext):
+        return mesh
+    if isinstance(mesh, (RankMesh, MeshShape)):
+        return MeshContext(mesh=mesh, rules=dict(DEFAULT_RULES))
+    raise TypeError(f"mesh must be None, False, a MeshContext, a RankMesh "
+                    f"or a MeshShape, got {type(mesh).__name__}")
+
+
+def rank_mesh(mesh, what: str):
+    """The ``RankMesh`` that ``mesh`` (one, or a ``MeshContext`` over one)
+    runs ``what`` on. A shape-only ``MeshShape`` has no ranks and raises
+    ``NotImplementedError`` naming ROADMAP item 16c; anything else raises
+    ``TypeError``."""
+    from repro_torch.launch.mesh import MeshShape, RankMesh
+    m = mesh.mesh if isinstance(mesh, MeshContext) else mesh
+    if isinstance(m, RankMesh):
+        return m
+    if isinstance(m, MeshShape):
+        from repro_torch.core.acu import not_ported
+        raise not_ported(f"{what} over the shape-only mesh {m!r} (a "
+                         f"MeshShape has no ranks; use launch/mesh.py: "
+                         f"make_host_multi_mesh)", "queue 1, item 16c")
+    raise TypeError(f"mesh must be a RankMesh (launch/mesh.py) or a "
+                    f"MeshContext over one, got {type(m).__name__}")
+
+
 def shard(x, *logical: Optional[str]):
     """Annotate ``x`` with logical axes: the identity without an active
-    mesh or on a mesh of one device; raises ``NotImplementedError`` under a
-    larger mesh (its collectives are not ported)."""
+    mesh or on a mesh of one device; under a mesh of ranks, the layout is
+    resolved (``MeshContext.spec`` with the tensor's sizes, which drops
+    what does not divide) and ``x`` returned as it is; under a shape-only
+    mesh of more devices, raises ``NotImplementedError``."""
     ctx = current_mesh_context()
     if ctx is None or ctx.size == 1:
         return x
-    from repro_torch.core.acu import not_ported
-    raise not_ported(f"sharding over a mesh of {ctx.size} devices",
-                     "queue 1, item 16")
+    if len(logical) != x.dim():
+        raise ValueError(f"{len(logical)} logical axes for a tensor of "
+                         f"{x.dim()} dims")
+    rank_mesh(ctx, f"sharding over {ctx.size} devices")
+    ctx.spec(*logical, dim_sizes=tuple(x.shape))
+    return x

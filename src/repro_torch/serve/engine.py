@@ -27,11 +27,18 @@ the quantize kernel, attention runs the approximate flash attention
 kernel, contiguous or paged, and an RWKV time mix the WKV kernel. Pool
 blocks are zeroed when they are allocated: a recycled block's stale K/V
 would otherwise reach the K/V scales and, under a biased multiplier, the
-masked keys' ``LUT[0, v]`` terms. ``mesh`` is not ported
-(ROADMAP queue 1, item 16).
+masked keys' ``LUT[0, v]`` terms.
+
+``mesh`` (a ``launch/mesh.py: RankMesh`` or a ``MeshContext``) activates
+its context (the default rules for a mesh, a context verbatim) around
+every model call, as the reference does: every ACU plan in the call runs its
+sharded route (``parallel/acu_shard.py``) and returns the global result,
+so every rank of the mesh, fed the same requests, takes the same tokens.
+``mesh=None`` keeps the single-device behaviour.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 from typing import Callable, Optional
@@ -44,6 +51,17 @@ from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models.transformer import (apply_model,
                                             check_paged_kinds, init_cache,
                                             init_paged_cache, map_cache)
+from repro_torch.parallel.sharding import mesh_context, use_mesh_context
+
+
+def _mesh_scope(mesh) -> Callable:
+    """A context factory for the engines' model calls: nothing, or the
+    mesh's context (``parallel/sharding.py: mesh_context``; a context
+    verbatim: its rules may omit keys on purpose)."""
+    ctx = None if mesh is None else mesh_context(mesh)
+    if ctx is None:
+        return contextlib.nullcontext
+    return lambda: use_mesh_context(ctx)
 
 
 @dataclasses.dataclass
@@ -64,19 +82,21 @@ class ServeEngine:
     pads), then decoded in lockstep until the longest budget drains."""
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 4,
-                 max_seq: int = 512, acfg=None, device=None):
+                 max_seq: int = 512, acfg=None, device=None, mesh=None):
         self.params = params
         self.cfg = cfg
         self.slots = slots
         self.max_seq = max_seq
         self.acfg = acfg
         self.device = resolve_device(device)
+        self._mesh_scope = _mesh_scope(mesh)
 
     def _model(self, tokens: np.ndarray, cache, cache_pos, **kw):
         toks = torch.from_numpy(np.ascontiguousarray(tokens, np.int64))
-        logits, _ = apply_model(self.params, toks.to(self.device), self.cfg,
-                                acfg=self.acfg, cache=cache,
-                                cache_pos=cache_pos, **kw)
+        with self._mesh_scope():
+            logits, _ = apply_model(self.params, toks.to(self.device),
+                                    self.cfg, acfg=self.acfg, cache=cache,
+                                    cache_pos=cache_pos, **kw)
         return logits[:, -1]
 
     def _wave(self, reqs: list[Request],
@@ -162,13 +182,14 @@ class ContinuousServeEngine:
     (prompts longer than ``max_seq``)."""
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 4,
-                 max_seq: int = 512, acfg=None, device=None):
+                 max_seq: int = 512, acfg=None, device=None, mesh=None):
         self.params = params
         self.cfg = cfg
         self.slots = slots
         self.max_seq = max_seq
         self.acfg = acfg
         self.device = resolve_device(device)
+        self._mesh_scope = _mesh_scope(mesh)
         self.stats: dict = {}
 
     def _admit(self, req: Request, slot: int, cache):
@@ -186,11 +207,12 @@ class ContinuousServeEngine:
         # the recurrent state that a free slot kept stepping): the
         # reference prefills a fresh row and inserts it
         row = map_cache(lambda t: t[:, slot:slot + 1].zero_(), cache)
-        logits, _ = apply_model(
-            self.params, torch.from_numpy(toks).to(dev), self.cfg,
-            acfg=self.acfg, cache=row, cache_pos=0,
-            pos_offset=torch.tensor([off], device=dev), pad_mask=valid,
-            last_only=True)
+        with self._mesh_scope():
+            logits, _ = apply_model(
+                self.params, torch.from_numpy(toks).to(dev), self.cfg,
+                acfg=self.acfg, cache=row, cache_pos=0,
+                pos_offset=torch.tensor([off], device=dev), pad_mask=valid,
+                last_only=True)
         self.stats["prefills"] += 1
         tok = int(_greedy(logits[0, -1]))
         budget = max(0, min(req.max_new_tokens, self.max_seq - bucket))
@@ -268,13 +290,14 @@ class ContinuousServeEngine:
                     done += 1
             if not active.any():
                 continue
-            logits, _ = apply_model(
-                self.params, torch.from_numpy(cur[:, None].astype(np.int64)
-                                              ).to(dev), self.cfg,
-                acfg=self.acfg, cache=cache,
-                cache_pos=torch.from_numpy(pos).to(dev), decode=True,
-                pos_offset=torch.from_numpy(offs).to(dev),
-                pad_mask=torch.from_numpy(valid).to(dev))
+            with self._mesh_scope():
+                logits, _ = apply_model(
+                    self.params,
+                    torch.from_numpy(cur[:, None].astype(np.int64)).to(dev),
+                    self.cfg, acfg=self.acfg, cache=cache,
+                    cache_pos=torch.from_numpy(pos).to(dev), decode=True,
+                    pos_offset=torch.from_numpy(offs).to(dev),
+                    pad_mask=torch.from_numpy(valid).to(dev))
             nxt = _greedy(logits[:, -1])
             live = np.flatnonzero(active)
             cur[live] = nxt[live]
@@ -379,7 +402,7 @@ class PagedContinuousServeEngine:
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 4,
                  max_seq: int = 512, block_size: int = 16, acfg=None,
                  hbm_budget: Optional[int] = None, prefix_cache: bool = True,
-                 device=None):
+                 device=None, mesh=None):
         assert max_seq % block_size == 0, (max_seq, block_size)
         # a power of two >= the bucket floor: the tail chunk's bucket never
         # overflows its block
@@ -393,6 +416,7 @@ class PagedContinuousServeEngine:
         self.acfg = acfg
         self.prefix_cache = prefix_cache
         self.device = resolve_device(device)
+        self._mesh_scope = _mesh_scope(mesh)
         self.n_logical = max_seq // block_size
         # an rwkv model has no KV to page (and no block bytes to budget);
         # the reference's engine fails here dividing by them
@@ -412,11 +436,12 @@ class PagedContinuousServeEngine:
         toks = torch.from_numpy(np.ascontiguousarray(tokens, np.int64))
         pos_t = (pos if isinstance(pos, int)
                  else torch.from_numpy(np.asarray(pos, np.int64)).to(dev))
-        logits, _ = apply_model(
-            self.params, toks.to(dev), self.cfg, acfg=self.acfg,
-            cache=self._cache, cache_pos=pos_t,
-            page_table=torch.from_numpy(np.ascontiguousarray(table)).to(dev),
-            **kw)
+        with self._mesh_scope():
+            logits, _ = apply_model(
+                self.params, toks.to(dev), self.cfg, acfg=self.acfg,
+                cache=self._cache, cache_pos=pos_t,
+                page_table=torch.from_numpy(
+                    np.ascontiguousarray(table)).to(dev), **kw)
         return logits
 
     def _pools(self):
@@ -742,18 +767,20 @@ class VisionServeEngine:
     """
 
     def __init__(self, params, forward_fn: Callable, *, slots: int = 8,
-                 acfg=None, device=None):
+                 acfg=None, device=None, mesh=None):
         self.params = params
         self.slots = slots
         self.acfg = acfg
         self.device = resolve_device(device)
         self._forward = forward_fn
+        self._mesh_scope = _mesh_scope(mesh)
 
     def plan_report(self, image_shape, w_shape, acfg, **geom) -> dict:
-        """The conv route one layer takes (see
+        """The conv route one layer takes under the engine's mesh (see
         :func:`repro_torch.core.approx_ops.conv_plan_report`)."""
         from repro_torch.core.approx_ops import conv_plan_report
-        return conv_plan_report(image_shape, w_shape, acfg, **geom)
+        with self._mesh_scope():
+            return conv_plan_report(image_shape, w_shape, acfg, **geom)
 
     def run(self, images: np.ndarray) -> np.ndarray:
         """images: (B, C, H, W) -> logits (B, n_classes), served in waves
@@ -767,7 +794,7 @@ class VisionServeEngine:
                 wave = np.concatenate(
                     [wave, np.zeros((pad, *wave.shape[1:]), wave.dtype)])
             x = torch.from_numpy(wave).to(self.device)
-            with torch.inference_mode():
+            with torch.inference_mode(), self._mesh_scope():
                 logits = self._forward(self.params, x, self.acfg)
             outs.append(logits.cpu().numpy()[:self.slots - pad])
         return np.concatenate(outs, axis=0)

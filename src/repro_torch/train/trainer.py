@@ -1,5 +1,4 @@
-"""Fault-tolerant training loop, single device (port of
-``repro.train.trainer``).
+"""Fault-tolerant training loop (port of ``repro.train.trainer``).
 
 ``Trainer.fit`` drives ``(params, opt_state)`` through ``loss_fn(params,
 batch) -> scalar tensor``. ``params`` is a tree of tensors (nested dicts,
@@ -24,9 +23,19 @@ as an LM's, or a flat dict); the optimizer updates it in place
 * the straggler watchdog, ``step_hook`` and ``fail_hook``.
 
 With approximate layers (``ApproxConfig``) the same loop retrains through
-the approximate forward and the STE backward. The data-parallel step
-(``mesh``, ``dp_axes``) raises ``NotImplementedError`` naming its ROADMAP
-item.
+the approximate forward and the STE backward.
+
+Data parallelism (``TrainerConfig(mesh=RankMesh, dp_axes=...)``): every
+rank runs ``fit`` with the same global batches; the step cuts this rank's
+rows by its ``dp_axes`` coordinate (the reference's ``P(ax)`` in-spec),
+takes their gradients, all-reduces them through the int8 error-feedback
+``compressed_psum`` (int32 code sums: the mean is the same bits in any
+reduction order) and updates the replicated parameters with the mean. The
+loss is averaged over the ranks, the per-rank damping scalars are gathered
+and folded on the host in rank order in float64, and ``gsq_big`` is taken
+on the replicated mean. Each rank's EF residual rides in the checkpoint
+as the reference's third tree, stacked over the ranks; rank 0 writes the
+checkpoint and every rank reads it.
 """
 from __future__ import annotations
 
@@ -38,9 +47,10 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
-from repro_torch.core.acu import not_ported
+from repro_torch.optim import compression as compression_lib
 from repro_torch.optim import damping as damping_lib
 from repro_torch.optim.adamw import SGD, AdamW
+from repro_torch.parallel.sharding import rank_mesh
 from repro_torch.train import checkpoint as ckpt_lib
 
 
@@ -57,8 +67,12 @@ class TrainerConfig:
     # gradient-noise batch damping: each optimizer step consumes ``accum``
     # whole data batches; mutually exclusive with a fixed ``microbatch``
     damping: Optional[damping_lib.DampingConfig] = None
-    mesh: Optional[object] = None            # not ported (item 16)
-    dp_axes: tuple[str, ...] = ("data",)     # not ported (item 16)
+    # data parallelism over ``dp_axes`` of a mesh of ranks
+    # (launch/mesh.py: RankMesh, or a MeshContext over one; the trainer
+    # keeps the RankMesh), gradients all-reduced by the int8
+    # error-feedback compressed_psum
+    mesh: Optional[object] = None
+    dp_axes: tuple[str, ...] = ("data",)
 
 
 class Trainer:
@@ -67,9 +81,16 @@ class Trainer:
     def __init__(self, loss_fn: Callable, optimizer: AdamW | SGD,
                  cfg: Optional[TrainerConfig] = None):
         cfg = TrainerConfig() if cfg is None else cfg
-        if cfg.mesh is not None or tuple(cfg.dp_axes) != ("data",):
-            raise not_ported("the data-parallel step (TrainerConfig.mesh, "
-                             "dp_axes)", "queue 1, item 16")
+        self._dp_workers = 1
+        self._ef_resid = None         # this rank's EF residual (data-parallel)
+        if cfg.mesh is not None:
+            cfg = dataclasses.replace(
+                cfg, mesh=rank_mesh(cfg.mesh, "the data-parallel step"))
+            missing = [a for a in cfg.dp_axes if a not in cfg.mesh.shape]
+            if missing or not cfg.dp_axes:
+                raise ValueError(f"dp_axes {cfg.dp_axes} are not axes of "
+                                 f"the mesh {cfg.mesh.shape}")
+            self._dp_workers = cfg.mesh.group_size(cfg.dp_axes)
         if cfg.damping is not None and cfg.microbatch > 1:
             raise ValueError("damping drives the accumulation factor itself; "
                              "set microbatch=0 when damping is enabled")
@@ -125,6 +146,8 @@ class Trainer:
         return loss / nm, T.unflatten(params, acc), sq if want_sq else None
 
     def _run_step(self, params, opt_state, batch, n_micro: int):
+        if self.cfg.mesh is not None:
+            return self._run_dp_step(params, opt_state, batch, n_micro)
         loss, grads, micro_sqsum = self._grads_and_stats(params, batch,
                                                          n_micro)
         stats = None
@@ -135,17 +158,93 @@ class Trainer:
         return params, opt_state, loss, stats
 
     # ------------------------------------------------------------------
+    # the data-parallel step
+    # ------------------------------------------------------------------
+
+    def _local_rows(self, batch, n_micro: int):
+        """This rank's rows of the global batch: the leading dim (dim 1 of
+        stacked microbatches) cut by the rank's ``dp_axes`` coordinate."""
+        mesh, w = self.cfg.mesh, self._dp_workers
+        idx = mesh.axis_index(self.cfg.dp_axes)
+        dim = 1 if n_micro > 1 else 0
+
+        def cut(x):
+            if x.shape[dim] % w:
+                raise ValueError(f"{w} data-parallel ranks do not divide "
+                                 f"batch dim {x.shape[dim]} (leaf shape "
+                                 f"{tuple(x.shape)})")
+            rows = x.shape[dim] // w
+            return x.narrow(dim, idx * rows, rows)
+        return T.tree_map(cut, batch)
+
+    def _run_dp_step(self, params, opt_state, batch, n_micro: int):
+        mesh, axes, w = self.cfg.mesh, self.cfg.dp_axes, self._dp_workers
+        if self._ef_resid is None:
+            self._ef_resid = self._init_ef(params)
+        loss, grads, _ = self._grads_and_stats(
+            params, self._local_rows(batch, n_micro), n_micro)
+        mean, ef = compression_lib.compressed_psum(
+            grads, compression_lib.EFState(residual=self._ef_resid), axes,
+            mesh=mesh)
+        self._ef_resid = ef.residual
+        nw = torch.tensor(float(w), dtype=torch.float32, device=loss.device)
+        loss = mesh.all_gather(loss.reshape(1), axes).sum() / nw
+        # per-rank scalars, gathered to the host in rank order (folded in
+        # float64 by _damping_update); |mean|^2 on the replicated mean
+        local = mesh.all_gather(torch.stack([
+            damping_lib.tree_sqnorm(grads),
+            damping_lib.tree_sqnorm(ef.residual)]).reshape(1, 2),
+            axes).tolist()
+        stats = {"local_sq": [a for a, _ in local],
+                 "resid_sq": [b for _, b in local],
+                 "gsq_big": damping_lib.tree_sqnorm(mean)}
+        params, opt_state = self.opt.update(mean, opt_state, params)
+        return params, opt_state, loss, stats
+
+    def _init_ef(self, params):
+        return T.tree_map(lambda p: torch.zeros(
+            p.shape, dtype=torch.float32, device=p.device), params)
+
+    def _writer(self) -> bool:
+        """Whether this process writes checkpoints (rank 0 of a mesh)."""
+        return self.cfg.mesh is None or self.cfg.mesh.rank == 0
+
+    def _ckpt_tree(self, params, opt_state):
+        """What a checkpoint holds: ``(params, opt_state)``, and on a mesh
+        the EF residual of every data-parallel rank stacked on a leading
+        axis, the reference's third tree (its ``keystr`` names ``[2]...``).
+        Collective: every rank calls it."""
+        if self.cfg.mesh is None:
+            return (params, opt_state)
+        if self._ef_resid is None:
+            self._ef_resid = self._init_ef(params)
+        mesh, axes = self.cfg.mesh, self.cfg.dp_axes
+        stacked = T.tree_map(lambda r: mesh.all_gather(r[None], axes, 0),
+                             self._ef_resid)
+        return (params, opt_state, stacked)
+
+    # ------------------------------------------------------------------
     # checkpoint state
     # ------------------------------------------------------------------
 
     def _restore_into(self, step: int, params, opt_state) -> dict:
         """Overwrites every leaf of ``(params, opt_state)`` in place from
-        checkpoint ``step``; returns its manifest."""
+        checkpoint ``step`` (on a mesh, this rank's EF residual too);
+        returns its manifest."""
         live = (params, opt_state)
-        tree, man = ckpt_lib.restore(self.cfg.ckpt_dir, step, live)
+        like = live
+        if self.cfg.mesh is not None:
+            w = self._dp_workers
+            like = live + (T.tree_map(lambda p: torch.zeros(
+                (w,) + tuple(p.shape), dtype=torch.float32,
+                device=p.device), params),)
+        tree, man = ckpt_lib.restore(self.cfg.ckpt_dir, step, like)
         with torch.no_grad():
-            for dst, src in zip(T.leaves(live), T.leaves(tree)):
+            for dst, src in zip(T.leaves(live), T.leaves(tree[:2])):
                 dst.copy_(src)
+        if self.cfg.mesh is not None:
+            idx = self.cfg.mesh.axis_index(self.cfg.dp_axes)
+            self._ef_resid = T.tree_map(lambda r: r[idx].clone(), tree[2])
         return man
 
     def restore_or_init(self, params, opt_state):
@@ -172,6 +271,8 @@ class Trainer:
         ``fail_hook(step)`` runs before each step (failure injection);
         ``step_hook(step, params, consumed)`` after it."""
         c = self.cfg
+        if c.mesh is not None and self._ef_resid is None:
+            self._ef_resid = self._init_ef(params)
         params, opt_state, start, extra = self.restore_or_init(
             params, opt_state)
         step = start
@@ -204,7 +305,8 @@ class Trainer:
             return b
 
         def trim_replay():
-            durable = (self.saver.last_saved_step if c.async_ckpt
+            durable = (self.saver.last_saved_step
+                       if c.async_ckpt and self._writer()
                        else max(saved_consumed, default=None))
             if durable is None or durable not in saved_consumed:
                 return
@@ -227,6 +329,8 @@ class Trainer:
                 if failures > c.max_failures or not c.ckpt_dir:
                     raise
                 self.saver.wait()   # in-flight snapshot becomes durable
+                if c.mesh is not None:
+                    c.mesh.barrier()    # ... before any rank looks
                 restored = ckpt_lib.latest_step(c.ckpt_dir)
                 if restored is None:
                     raise RuntimeError(
@@ -269,14 +373,19 @@ class Trainer:
                 if damp is not None:
                     extra_out["damping"] = damp.to_dict()
                 saved_consumed[step] = consumed
-                if c.async_ckpt:
-                    self.saver.submit(c.ckpt_dir, step, (params, opt_state),
+                tree = self._ckpt_tree(params, opt_state)
+                if not self._writer():
+                    pass
+                elif c.async_ckpt:
+                    self.saver.submit(c.ckpt_dir, step, tree,
                                       extra=extra_out, keep=c.keep)
                 else:
-                    ckpt_lib.save(c.ckpt_dir, step, (params, opt_state),
+                    ckpt_lib.save(c.ckpt_dir, step, tree,
                                   extra=extra_out, keep=c.keep)
                 trim_replay()
         self.saver.wait()
+        if c.mesh is not None:
+            c.mesh.barrier()        # rank 0's last checkpoint is durable
         self.consumed = consumed
         self.damp_state = damp
         return params, opt_state
@@ -308,9 +417,24 @@ class Trainer:
         return damp.accum, T.tree_map(lambda *xs: _stack(xs), *drawn), rows
 
     def _damping_update(self, damp, stats, n_micro, batch_rows):
+        total = batch_rows * (damp.accum if damp.accum > 1 else 1)
+        if self.cfg.mesh is not None:
+            # the mesh pair: each rank's gradient against the all-reduced
+            # mean, the per-rank scalars folded in rank order in float64
+            w = self._dp_workers
+            if total % w != 0 or total // w == total:
+                return damp
+            st = damping_lib.NoiseStats(
+                gsq_small=float(np.asarray(stats["local_sq"],
+                                           np.float64).sum() / w),
+                gsq_big=float(stats["gsq_big"]),
+                b_small=total // w, b_big=total,
+                resid_sq=float(np.asarray(stats["resid_sq"],
+                                          np.float64).sum() / w))
+            return damping_lib.update_state(damp, self.cfg.damping, st,
+                                            batch_rows)
         if n_micro < 2:
             return damp    # no pair this step (odd batch at accum=1)
-        total = batch_rows * (damp.accum if damp.accum > 1 else 1)
         st = damping_lib.NoiseStats(
             gsq_small=float(stats["micro_sqsum"]) / n_micro,
             gsq_big=float(stats["gsq_big"]),

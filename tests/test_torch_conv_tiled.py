@@ -385,9 +385,18 @@ def test_conv_plan_pins_and_budgets_match_reference(ref, name):
 
 
 def test_mesh_still_refused():
+    """What a conv plan still refuses under a mesh: an argument that is no
+    mesh, and running over a shape-only production mesh, which has no
+    ranks (its partition is resolved and reported all the same)."""
+    from repro_torch.launch.mesh import make_production_mesh
     spec = ConvSpec((1, 4, 6, 6), (4, 4, 3, 3), padding=((1, 1), (1, 1)))
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(TypeError, match="mesh must be"):
         conv_plan(_port_acu(), spec, mesh=object())
+    plan = conv_plan(_port_acu(), spec, mesh=make_production_mesh())
+    assert plan.describe()["partition"] == \
+        "rows('data',)x cols('model',)x k() (16x16x1 way)"
+    with pytest.raises(NotImplementedError, match="item 16c"):
+        plan(*[None] * 5)
 
 
 # ---------------------------------------------------------------------------

@@ -224,11 +224,12 @@ def test_matmul_plan_routes():
 def test_unported_modes_and_routes_raise():
     spec = ConvSpec((1, 4, 6, 6), (4, 4, 3, 3), padding=((1, 1), (1, 1)))
     acu = make_acu("mul8s_1L2H", "lut", use_kernels=True, fused=True)
-    # the tiled route and grouped convs are ported: only the mesh raises
+    # the tiled route, grouped convs and meshes are ported: a mesh
+    # argument that is no mesh raises
     assert conv_plan(acu, spec, route="tiled").route == "tiled"
     assert conv_plan(acu, ConvSpec((1, 4, 6, 6), (4, 2, 3, 3),
                                    groups=2)).route == "im2col_grouped"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="mesh must be"):
         conv_plan(acu, spec, mesh=object())
     wide = make_acu("mul12s_2KM", "lut")          # > 10 bits: FUNCTIONAL
     assert wide.mode == AcuMode.FUNCTIONAL and wide.lut is None

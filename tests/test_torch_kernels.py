@@ -279,7 +279,7 @@ def test_every_kernel_source_has_a_signature():
         "lut_matmul", "fused_lut_dense", "fused_lut_conv", "fused_lut_bwd",
         "fused_lut_conv_bwd_w", "approx_flash_attention", "err_matmul",
         "fused_lut_grouped", "quantize", "wkv", "flash_attention",
-        "fused_lut_conv_tiled"}
+        "fused_lut_conv_tiled", "wkv_bwd"}
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

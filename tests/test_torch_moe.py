@@ -258,7 +258,7 @@ def test_grouped_plan_routes_and_audit(ref):
         pinned()
     with pytest.raises(ValueError, match="unknown grouped route"):
         grouped_plan(tacfg.acu, spec, route="tiled")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="mesh must be"):
         grouped_plan(tacfg.acu, spec, mesh=object())
 
 

@@ -234,14 +234,17 @@ def test_serve_fsdp_threshold():
 
 def test_shard_identity_and_refusal():
     """``shard`` is the identity without a mesh and on one device, and
-    refuses a larger mesh (its collectives are not ported)."""
+    refuses a larger shape-only mesh (a ``MeshShape`` has no ranks; under
+    a mesh of ranks it is a checked identity,
+    ``tests/test_torch_sharded_acu.py``)."""
     x = torch.ones(4, 8)
     assert shard(x, "batch", "mlp") is x
     with use_mesh(make_host_mesh()):
         assert shard(x, "batch", "mlp") is x
     with use_mesh(MESH):
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md, queue 1, item 16"):
+                           match="shape-only mesh.*ROADMAP.md, queue 1, "
+                                 "item 16c"):
             shard(x, "batch", "mlp")
 
 

@@ -446,7 +446,7 @@ def test_dryrun_main_in_process(tmp_path):
     for r in recs:
         assert r["flops"] is None and r["step_time_lb"] is None
         assert r["step_time_min"] is None
-        assert "item 16" in r["note"] and r["plan_report"]
+        assert "item 16c" in r["note"] and r["plan_report"]
         assert 0 < r["arg_bytes"]
     skip = dryrun.count_cell("smollm-135m", "long_500k")
     assert skip["skipped"].startswith("long_500k skipped")

@@ -438,9 +438,19 @@ def test_trainer_microbatches_average_gradients():
 @pytest.mark.parametrize("field,value", [("mesh", "somewhere"),
                                          ("dp_axes", ("pod", "data"))])
 def test_trainer_refuses_unported_options(field, value):
+    """The data-parallel step runs on a mesh of ranks
+    (``tests/test_torch_dp_train.py``). Still refused: a ``mesh`` that is
+    no mesh (``TypeError``), and ``dp_axes`` over a shape-only production
+    mesh, which has no ranks to run on."""
+    from repro_torch.launch.mesh import make_production_mesh
+    if field == "mesh":
+        with pytest.raises(TypeError, match="RankMesh"):
+            Trainer(lambda p, b: None, SGD(), TrainerConfig(mesh=value))
+        return
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, queue 1, item 16"):
-        Trainer(lambda p, b: None, SGD(), TrainerConfig(**{field: value}))
+                       match="ROADMAP.md, queue 1, item 16c"):
+        Trainer(lambda p, b: None, SGD(),
+                TrainerConfig(mesh=make_production_mesh(), dp_axes=value))
 
 
 @pytest.mark.parametrize("field", ["ckpt_dir", "damping"])
