@@ -150,8 +150,10 @@
    ``csrc/wkv_bwd.cu`` against ``wkv_bwd_ref`` on the card on the same
    saved chunk boundaries, at 40 heads x 64 for T 1, 255, 256 and 1024
    (and 4 x 512), within WKV_BWD_TOL of each gradient's largest entry,
-   its ``du`` the same bits in two runs, timed against its plain version
-   and its bound; then rwkv6-3b at full width, cut to WKV_TRAIN_LAYERS
+   its ``du`` the same bits in two runs, every state it restores
+   (``states_out``) bitwise the forward's, timed against its plain version
+   and its bound, with the forward's time and bound at 4 x 512; then
+   rwkv6-3b at full width, cut to WKV_TRAIN_LAYERS
    layers, trained for WKV_TRAIN_STEPS AdamW steps through ``loss_fn`` on
    the fused ACU at 4 x 512 tokens: every leaf's gradient finite and
    nonzero (``bonus``, ``lora_B_*``, ``decay_base``), one ``wkv`` and one
@@ -2106,6 +2108,7 @@ def rwkv_phase(torch, np, dev, check, acu, ops, launches, account,
     from repro_torch.core import (ApproxConfig, acu_operand, quantize,
                                   symmetric_qparams)
     from repro_torch.kernels.quantize.ref import quantize_ref
+    from repro_torch.kernels.wkv.ops import wkv_work
     from repro_torch.kernels.wkv.ref import out_bound, wkv_ref
     from repro_torch.models import transformer as T
     from repro_torch.serve import engine as E
@@ -2154,8 +2157,7 @@ def rwkv_phase(torch, np, dev, check, acu, ops, launches, account,
               f"{float(bound.max()):.3e})")
         ms = cuda_ms(torch, kern, 20 if t == 1 else 5)
         pms = cuda_ms(torch, plain, 1, warm=0)
-        bytes_ = (5 * nb * t * h * hd + h * hd + 2 * nb * h * hd * hd) * 4
-        flops = 7 * nb * h * t * hd * hd      # FLOPs: an FMA counts two
+        bytes_, flops = wkv_work(r, k, v, w, u, s0, None)
         bound_ms = max(bytes_ / HBM_BYTES_PER_S, flops / (2 * fma_per_s)) \
             * 1e3
         print(f"    {label:22s} {ms:.4f} ms (plain {pms:.2f}), bound "
@@ -2370,7 +2372,16 @@ def rwkv_phase(torch, np, dev, check, acu, ops, launches, account,
 # then rwkv6-3b at full width cut to WKV_TRAIN_LAYERS layers, trained for
 # WKV_TRAIN_STEPS AdamW steps at WKV_TRAIN_BATCH x WKV_TRAIN_SEQ tokens
 WKV_BWD_CASES = ((2, 1), (2, 255), (2, 256), (1, 1024))
+# an NVIDIA H100 80GB HBM3 at 700 W, before the redesign of kernel 12b
+# and of kernel 12's sequence path: ms a layer at WKV_TRAIN_BATCH x
+# WKV_TRAIN_SEQ (wkv_bwd from this script's run; the forward, with the
+# chunk boundaries, from tools/wkv_probe.py)
+WKV_BEFORE_MS = {"wkv_bwd": 3.262, "wkv": 0.3503}
 WKV_BWD_TOL = 1e-4
+# the reduced configs' rwkv_chunk, not a multiple of the sequence kernel's
+# 16-step tile (its per-step boundary test), at both head dims: (hd, B, T)
+WKV_SHORT_CHUNK = 8
+WKV_SHORT_CASES = ((16, 2, 37), (64, 2, 37))
 WKV_TRAIN_LAYERS, WKV_TRAIN_STEPS = 2, 3
 WKV_TRAIN_BATCH, WKV_TRAIN_SEQ = 4, 512
 
@@ -2379,8 +2390,10 @@ def wkv_bwd_phase(torch, np, dev, check, acu, ops, launches, account,
                   fma_per_s) -> dict:
     """Kernel 12's backward (``csrc/wkv_bwd.cu``): held against
     ``wkv_bwd_ref`` on the same saved chunk boundaries at rwkv6-3b's 40
-    heads of 64, its ``du`` the same bits in two runs, timed against its
-    plain version and its bound; then rwkv6-3b at full width, cut to
+    heads of 64, its ``du`` the same bits in two runs, every state it
+    restores bitwise the forward's, timed against its plain version and its
+    bound (and the forward at 4 x 512 against its own); then rwkv6-3b at
+    full width, cut to
     ``WKV_TRAIN_LAYERS`` layers, trained for ``WKV_TRAIN_STEPS`` AdamW steps
     through ``loss_fn`` on the fused ACU with the launch counters set to 0
     just before and read just after: every leaf's gradient finite and
@@ -2390,8 +2403,9 @@ def wkv_bwd_phase(torch, np, dev, check, acu, ops, launches, account,
     from repro_torch.configs import get_config
     from repro_torch.core import ApproxConfig
     from repro_torch.data.pipeline import MarkovLM
-    from repro_torch.kernels.wkv.ops import CHUNK, _forward
-    from repro_torch.kernels.wkv.ref import wkv_bwd_ref
+    from repro_torch.kernels.wkv.ops import (CHUNK, _forward, wkv_bwd_work,
+                                             wkv_work)
+    from repro_torch.kernels.wkv.ref import out_bound, wkv_bwd_ref, wkv_ref
     from repro_torch.models import transformer as T
     from repro_torch.optim.adamw import AdamW
     from repro_torch.tree import leaves_with_names, unflatten
@@ -2406,7 +2420,7 @@ def wkv_bwd_phase(torch, np, dev, check, acu, ops, launches, account,
           f"{hd}, chunks of {CHUNK}, within {WKV_BWD_TOL} of each "
           f"gradient's largest entry:")
 
-    def operands(b, t):
+    def operands(b, t, hd=hd):
         r, k, v, g = (torch.randn((b, t, h, hd), generator=gen, device=dev)
                       for _ in range(4))
         w = torch.rand((b, t, h, hd), generator=gen, device=dev) * 0.9 + 0.05
@@ -2414,25 +2428,56 @@ def wkv_bwd_phase(torch, np, dev, check, acu, ops, launches, account,
         s0 = torch.randn((b, h, hd, hd), generator=gen, device=dev)
         return r, k, v, w, u, s0, g
 
-    def bwd_cost(b, t):
-        """Bytes (operands, bounds and gradients once) and FLOPs: 3 a
-        token, head and state entry to restore S (w*S, k*v, +) and 18 for
-        the reverse pass, an FMA two FLOPs, against the FP32 FLOP rate."""
-        nc = -(-t // CHUNK)
-        bytes_ = (5 * b * t * h * hd + h * hd + nc * b * h * hd * hd
-                  + 4 * b * t * h * hd + h * hd + b * h * hd * hd) * 4
-        return bytes_, (3 + 18) * b * t * h * hd * hd
+    def fold(a):
+        return a.transpose(1, 2).reshape(-1, a.shape[1], a.shape[3])
+
+    def rel_errs(got, want):
+        return [float((a.double() - b_.double()).abs().max())
+                / max(float(b_.abs().max()), 1e-30)
+                for a, b_ in zip(got, want)]
+
+    for hd_, b, t in WKV_SHORT_CASES:
+        c = WKV_SHORT_CHUNK
+        r, k, v, w, u, s0, g = operands(b, t, hd_)
+        fo, fs, fb = _forward(r, k, v, w, u, s0, None, c)
+        folded = [fold(a) for a in (r, k, v, w)] + [
+            u, s0.reshape(b * h, hd_, hd_)]
+        po, ps, pb = wkv_ref(*folded, chunk=c)
+        fwd_ok = (torch.equal(fs.reshape(b * h, hd_, hd_), ps)
+                  and torch.equal(fb, pb) and bool(
+                      ((fold(fo) - po).abs() <= out_bound(*folded)).all()))
+        got = ops["wkv_bwd"](r, k, v, w, u, fb, g, None, c)
+        dr, dk, dv, dw, du, ds0 = wkv_bwd_ref(*folded[:5], fb, fold(g), None,
+                                              c)
+        unfold = lambda a: a.reshape(b, h, t, hd_).transpose(1, 2)  # noqa
+        errs = rel_errs(got, (unfold(dr), unfold(dk), unfold(dv),
+                              unfold(dw), du, ds0.reshape(b, h, hd_, hd_)))
+        check(fwd_ok and max(errs) <= WKV_BWD_TOL,
+              f"chunks of {c} (not a multiple of 16), hd {hd_} B {b} T {t}: "
+              f"forward S_T and boundaries bitwise, out within out_bound; "
+              f"wkv_bwd within {WKV_BWD_TOL} (worst {max(errs):.2e})")
+        del r, k, v, w, u, s0, g, fo, fs, fb, folded, po, ps, pb, got
 
     for b, t in WKV_BWD_CASES + ((WKV_TRAIN_BATCH, WKV_TRAIN_SEQ),):
         r, k, v, w, u, s0, g = operands(b, t)
         _, _, bounds = _forward(r, k, v, w, u, s0, None, CHUNK)
         kern = lambda: ops["wkv_bwd"](r, k, v, w, u, bounds, g, None)
         got, again = kern(), kern()
+        # every state the kernel restores, against the forward's own walk
+        # (the plain update on the card, from s0)
+        states = torch.empty((b * h, t, hd, hd), device=dev)
+        ops["wkv_bwd"](r, k, v, w, u, bounds, g, None, states_out=states)
+        walk, same = s0.reshape(b * h, hd, hd), True
+        fk, fv, fw = (fold(a) for a in (k, v, w))
+        for step in range(t):
+            same &= torch.equal(states[:, step], walk)
+            walk = fw[:, step, :, None] * walk + fk[:, step, :, None] \
+                * fv[:, step, None, :]
+        check(bool(same), f"wkv_bwd B {b} T {t}: every state the kernel "
+                          f"restores bitwise the forward's")
+        del states, walk, fk, fv, fw
 
         def plain():      # wkv_bwd_ref on the card, in the folded layout
-            def fold(a):
-                return a.transpose(1, 2).reshape(b * h, t, hd)
-
             def unfold(a):
                 return a.reshape(b, h, t, hd).transpose(1, 2)
             dr, dk, dv, dw, du, ds0 = wkv_bwd_ref(
@@ -2442,10 +2487,7 @@ def wkv_bwd_phase(torch, np, dev, check, acu, ops, launches, account,
                     ds0.reshape(b, h, hd, hd))
         want = plain()
         pms = cuda_ms(torch, plain, 1, warm=0)
-        errs = []
-        for a, b_ in zip(got, want):
-            errs.append(float((a.double() - b_.double()).abs().max())
-                        / max(float(b_.abs().max()), 1e-30))
+        errs = rel_errs(got, want)
         ok = all(e <= WKV_BWD_TOL for e in errs) and all(
             bool(torch.isfinite(a).all()) for a in got)
         check(ok and torch.equal(got[4], again[4]),
@@ -2453,7 +2495,7 @@ def wkv_bwd_phase(torch, np, dev, check, acu, ops, launches, account,
               f"{WKV_BWD_TOL} of the plain version's largest entry (worst "
               f"{max(errs):.2e}), du the same bits in two runs")
         ms = cuda_ms(torch, kern, 3)
-        bytes_, flops = bwd_cost(b, t)
+        bytes_, flops = wkv_bwd_work(r, k, v, w, u, bounds, g, None)
         bound_ms = max(bytes_ / HBM_BYTES_PER_S, flops / (2 * fma_per_s)) \
             * 1e3
         print(f"    B {b} T {t:4d}: {ms:.3f} ms (plain {pms:.1f} ms), "
@@ -2467,6 +2509,31 @@ def wkv_bwd_phase(torch, np, dev, check, acu, ops, launches, account,
                                      .max()) for a, b_ in zip(got, want)),
                     ops_per_s=2 * fma_per_s)
             out["ms"], out["bound_ms"], out["plain_ms"] = ms, bound_ms, pms
+            # the forward at the same shape, as training calls it (with
+            # the chunk boundaries): its time against its bound
+            fwd = lambda: _forward(r, k, v, w, u, s0, None, CHUNK)
+            fo, fs, fb = fwd()
+            folded = [fold(a) for a in (r, k, v, w)] + [
+                u, s0.reshape(b * h, hd, hd)]
+            po, ps, pb = wkv_ref(*folded, chunk=CHUNK)
+            diff = (fold(fo) - po).abs()
+            check(torch.equal(fs.reshape(b * h, hd, hd), ps)
+                  and torch.equal(fb, pb) and torch.equal(fb, bounds)
+                  and bool((diff <= out_bound(*folded)).all())
+                  and bool(torch.isfinite(fo).all()),
+                  f"forward wkv B {b} T {t}: S_T and the chunk boundaries "
+                  f"bitwise the plain version's, out within out_bound (max "
+                  f"|diff| {float(diff.max()):.2e})")
+            del fo, fs, fb, folded, po, ps, pb, diff
+            fms = cuda_ms(torch, fwd, 5)
+            fbytes, fflops = wkv_work(r, k, v, w, u, s0, CHUNK)
+            fbound = max(fbytes / HBM_BYTES_PER_S,
+                         fflops / (2 * fma_per_s)) * 1e3
+            print(f"    forward wkv B {b} T {t} (with the chunk "
+                  f"boundaries): {fms:.4f} ms, bound {fbound:.4f} ms "
+                  f"({fbytes / 1e6:.1f} MB, {fflops / 1e9:.2f} G FP32 "
+                  f"FLOPs), {fbound / fms:.3f} of it")
+            out["fwd_ms"], out["fwd_bound_ms"] = fms, fbound
         del r, k, v, w, u, s0, g, bounds, got, again, want
     torch.cuda.empty_cache()
 
@@ -6001,7 +6068,11 @@ def main() -> int:
     print(f"kernel 12's backward ({card}): wkv_bwd {wkv_train['ms']:.3f} ms "
           f"a layer at {WKV_TRAIN_BATCH} x {WKV_TRAIN_SEQ} (plain "
           f"{wkv_train['plain_ms']:.1f} ms, bound "
-          f"{wkv_train['bound_ms']:.4f} ms); rwkv6-3b cut to "
+          f"{wkv_train['bound_ms']:.4f} ms; before the redesign "
+          f"{WKV_BEFORE_MS['wkv_bwd']:.3f}); forward wkv "
+          f"{wkv_train['fwd_ms']:.4f} ms (bound "
+          f"{wkv_train['fwd_bound_ms']:.4f}; before "
+          f"{WKV_BEFORE_MS['wkv']:.4f}); rwkv6-3b cut to "
           f"{WKV_TRAIN_LAYERS} layers, {WKV_TRAIN_STEPS} AdamW steps: losses "
           + ", ".join(f"{x:.4f}" for x in wkv_train["losses"])
           + ", step ms " + ", ".join(f"{x:.1f}" for x in wkv_train["step_ms"])

@@ -7,9 +7,9 @@ There is no fallback between the two. The kernel reads r/k/v/w through
 their strides, so it needs none of the fold transposes.
 
 ``state_out`` receives ``S_T`` in place; it may be ``s0`` itself (each
-(b, h) state is read whole before it is written), which is how the port's
-time mix updates its cache. That serving path carries no gradient: asking
-for one through it raises ``ValueError``.
+kernel block reads the state entries it writes before it writes them),
+which is how the port's time mix updates its cache. That serving path
+carries no gradient: asking for one through it raises ``ValueError``.
 
 With a gradient wanted, :class:`_WKV` (a ``torch.autograd.Function``)
 runs the recurrence on every device: its forward keeps the state before
@@ -39,6 +39,13 @@ def _fold(a: torch.Tensor) -> torch.Tensor:
     return a.to(torch.float32).transpose(1, 2).reshape(b * h, t, hd)
 
 
+def _aligned(a: torch.Tensor) -> torch.Tensor:
+    """``a`` as float32, contiguous and 16-byte aligned (the kernels stage
+    their operands with 16-byte copies)."""
+    a = a.to(torch.float32).contiguous()
+    return a if a.data_ptr() % 16 == 0 else a.clone()
+
+
 def _check(r, k, v, w, u, s0, state_out):
     b, t, h, hd = r.shape
     for name, a in (("k", k), ("v", v), ("w", w)):
@@ -51,6 +58,40 @@ def _check(r, k, v, w, u, s0, state_out):
     if state_out is not None and state_out.shape != s0.shape:
         raise ValueError(f"state_out {tuple(state_out.shape)} differs from "
                          f"s0 {tuple(s0.shape)}")
+
+
+def wkv_work(r, k, v, w, u, s0, chunk: Optional[int]) -> tuple[int, int]:
+    """(bytes, FLOPs) of the forward on these operands, for the ``meta``
+    rule and the bounds measured on the card: ``r``/``k``/``v``/``w``,
+    ``u`` and ``s0`` read once, ``out``, ``S_T`` and the chunk-boundary
+    states (with ``chunk``) written once as float32; per token and head
+    k v^T, u * kv, S + u kv, r (S + u kv) and w S + kv, hd^2 each, as
+    multiplies and adds (an FMA two FLOPs): 7 hd^2."""
+    b, t, h, hd = r.shape
+    nc = n_chunks(t, chunk) if chunk is not None else 0
+    bytes_ = runtime.nbytes(r, k, v, w, u, s0) + (
+        b * t * h * hd + b * h * hd * hd + nc * b * h * hd * hd) * 4
+    return bytes_, 7 * b * t * h * hd * hd
+
+
+def wkv_bwd_work(r, k, v, w, u, bounds, dout, ds_t) -> tuple[int, int]:
+    """(bytes, FLOPs) of the backward on these operands, for the ``meta``
+    rule and the bounds measured on the card. Bytes: the operands, the
+    chunk-boundary states, ``dout`` and ``ds_t`` read once, the four
+    (B, T, H, hd) gradients, ``du`` and ``ds0`` written once as float32
+    (the restored states stay on chip). FLOPs, the function's least (an
+    FMA two): 3 hd^2 a token and head to restore the state from the chunk
+    boundaries (w*S, k*v, +), and 11 hd^2 for the reverse pass, r dout^T
+    (1), dS_{t-1} = w dS + r dout^T (2) and four sums over an entry, S dout
+    (dr), S dS (dw), dS v (dk) and k dS (dv) (2 each); a = S + u kv is
+    never formed, since dr, dk, dv and du take its u kv part as O(hd)
+    terms: u k (v.dout), u r (v.dout), dout (sum u k r) and k r (v.dout).
+    So 14 hd^2: the function's work, not the kernel's instructions
+    (``csrc/wkv_bwd.cu`` restores each state twice and carries dS twice)."""
+    b, t, h, hd = r.shape
+    bytes_ = runtime.nbytes(r, k, v, w, u, bounds, dout, ds_t) + (
+        4 * b * t * h * hd + h * hd + b * h * hd * hd) * 4
+    return bytes_, (3 + 11) * b * t * h * hd * hd
 
 
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
@@ -81,12 +122,8 @@ def _forward(r, k, v, w, u, s0, state_out, chunk):
     b, t, h, hd = r.shape
     nc = n_chunks(t, chunk) if chunk is not None else 0
     if r.device.type == "meta":
-        # per token and head: k v^T, u * kv, S + u kv, r (S + u kv) and
-        # w S + kv, hd^2 each, as multiplies and adds: 7 hd^2 operations
-        runtime.count_work("wkv", flops=7 * b * t * h * hd * hd,
-                           bytes_=runtime.nbytes(r, k, v, w, u, s0)
-                           + (b * t * h * hd + b * h * hd * hd
-                              + nc * b * h * hd * hd) * 4)
+        bytes_, flops = wkv_work(r, k, v, w, u, s0, chunk)
+        runtime.count_work("wkv", flops=flops, bytes_=bytes_)
         s_t = runtime.meta_empty(b, h, hd, hd, dtype=torch.float32) \
             if state_out is None else state_out
         bounds = runtime.meta_empty(nc, b * h, hd, hd, dtype=torch.float32) \
@@ -110,6 +147,10 @@ def _forward(r, k, v, w, u, s0, state_out, chunk):
     for a, name in zip(rkvw, "rkvw"):
         if a.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous along hd")
+    if t > 1:   # the sequence kernel stages whole rows with 16-byte copies
+        rkvw = [a if a.data_ptr() % 16 == 0
+                and all(st % 4 == 0 for st in a.stride()[:3])
+                else _aligned(a) for a in rkvw]
     u = u.to(torch.float32).contiguous()
     s0 = s0.to(torch.float32).contiguous()
     s_t = torch.empty_like(s0) if state_out is None else state_out
@@ -138,31 +179,27 @@ def _forward(r, k, v, w, u, s0, state_out, chunk):
     return out, s_t, bounds
 
 
-def wkv_bwd(r, k, v, w, u, bounds, dout, ds_t, chunk: int = CHUNK):
+def wkv_bwd(r, k, v, w, u, bounds, dout, ds_t, chunk: int = CHUNK, *,
+            states_out: Optional[torch.Tensor] = None):
     """The recurrence's backward in the (B, T, H, hd) layout: ``bounds``
     from the forward, ``dout`` (B, T, H, hd), ``ds_t`` (B, H, hd, hd) or
     None. Returns ``(dr, dk, dv, dw, du (H, hd), ds0 (B, H, hd, hd))``,
     float32: the CUDA kernel on a CUDA tensor, ``wkv_bwd_ref`` on a CPU
-    one, the shape rule on ``meta``."""
+    one, the shape rule on ``meta``. ``states_out`` (B*H, T, hd, hd),
+    CUDA only, receives every state the kernel restores (``S_{t-1}`` at
+    ``[:, t]``), for a check against the forward's."""
     b, t, h, hd = r.shape
     if r.device.type == "meta":
-        # FLOPs, a multiply and an add one each (an FMA two), as the
-        # forward's 7 and ATen's counter count them: the forward again from
-        # the chunk boundaries (3 hd^2 a token and head: w*S, k*v, +), then
-        # 18 hd^2 a token and head (kv, a, dr, dw, da, dkv, du, dk, dv,
-        # dS), about 11 FP32 instructions where FMAs contract; bytes: the
-        # operands, the four (B, T, H, hd) gradients, du, ds0, and the
-        # restored states written and read back once
-        runtime.count_work(
-            "wkv_bwd", flops=(3 + 18) * b * t * h * hd * hd,
-            bytes_=runtime.nbytes(r, k, v, w, u, bounds, dout, ds_t)
-            + 4 * b * t * h * hd * 4 + (h * hd + b * h * hd * hd) * 4
-            + 2 * b * t * h * hd * hd * 4)
+        bytes_, flops = wkv_bwd_work(r, k, v, w, u, bounds, dout, ds_t)
+        runtime.count_work("wkv_bwd", flops=flops, bytes_=bytes_)
         grads = [runtime.meta_empty(b, t, h, hd, dtype=torch.float32)
                  for _ in range(4)]
         return (*grads, runtime.meta_empty(h, hd, dtype=torch.float32),
                 runtime.meta_empty(b, h, hd, hd, dtype=torch.float32))
     if r.device.type == "cpu":
+        if states_out is not None:
+            raise ValueError("states_out is the CUDA kernel's; on the CPU, "
+                             "ref.py: wkv_bwd_tiled_ref keeps the states")
         dr, dk, dv, dw, du, ds0 = wkv_bwd_ref(
             _fold(r), _fold(k), _fold(v), _fold(w), u, bounds, _fold(dout),
             None if ds_t is None else ds_t.reshape(b * h, hd, hd), chunk)
@@ -172,13 +209,19 @@ def wkv_bwd(r, k, v, w, u, bounds, dout, ds_t, chunk: int = CHUNK):
     if hd not in HEAD_DIMS:
         raise ValueError(f"the wkv kernel takes head dims {HEAD_DIMS}, got "
                          f"{hd}")
-    ins = [a.to(torch.float32).contiguous() for a in (r, k, v, w, dout)]
+    ins = [_aligned(a) for a in (r, k, v, w, dout)]
     u = u.to(torch.float32).contiguous()
     ds_t = None if ds_t is None else ds_t.to(torch.float32).contiguous()
     for a, name in zip(ins + [u, bounds] + ([ds_t] if ds_t is not None
                                             else []),
                        ("r", "k", "v", "w", "dout", "u", "bounds", "ds_t")):
         runtime.check_cuda_operand(a, name, torch.float32, r.device)
+    if states_out is not None:
+        runtime.check_cuda_operand(states_out, "states_out", torch.float32,
+                                   r.device)
+        if tuple(states_out.shape) != (b * h, t, hd, hd):
+            raise ValueError(f"states_out {tuple(states_out.shape)} is not "
+                             f"{(b * h, t, hd, hd)}")
     grads = [torch.empty((b, t, h, hd), dtype=torch.float32, device=r.device)
              for _ in range(4)]
     ds0 = torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)
@@ -188,8 +231,6 @@ def wkv_bwd(r, k, v, w, u, bounds, dout, ds_t, chunk: int = CHUNK):
         du.zero_()
         return (*grads, du, ds0)
     du_part = torch.empty((b * h, hd), dtype=torch.float32, device=r.device)
-    scratch = torch.empty((b * h, min(chunk, t), hd, hd),
-                          dtype=torch.float32, device=r.device)
     rr, kk, vv, ww, gg = ins
     lib = runtime.kernel_library("wkv_bwd")
     _, stream = runtime.launch_config(r)
@@ -198,7 +239,8 @@ def wkv_bwd(r, k, v, w, u, bounds, dout, ds_t, chunk: int = CHUNK):
         u.data_ptr(), bounds.data_ptr(), gg.data_ptr(),
         None if ds_t is None else ds_t.data_ptr(),
         *(g.data_ptr() for g in grads), ds0.data_ptr(), du_part.data_ptr(),
-        du.data_ptr(), scratch.data_ptr(), b, t, h, hd, chunk, stream))
+        du.data_ptr(), None if states_out is None else states_out.data_ptr(),
+        b, t, h, hd, chunk, stream))
     wkv_bwd.launches += 1
     return (*grads, du, ds0)
 

@@ -143,6 +143,27 @@ def engine_parity(engine: str, dtype: str, arch: str, monkeypatch,
         assert eng.stats["tokens"] == sum(m for _, m in specs)
 
 
+def engine_repeats(engine: str, arch: str, **overrides) -> None:
+    """One port engine at ``reduced_config(arch)`` in float32 (with
+    ``overrides``) serves :func:`_specs` twice: the same tokens both
+    times, each request its whole budget, and (but the wave engine) the
+    second run's ``stats`` counting only its own tokens. ``run`` starts
+    from fresh caches, slot states and blocks, so nothing of the first
+    run reaches the second."""
+    cfg = dataclasses.replace(reduced_config(arch), dtype="float32",
+                              **overrides)
+    params = init_params(0, cfg, device="cpu")
+    name, kw = ENGINES[engine]
+    eng = globals()[name](params, cfg, max_seq=64, acfg=_acfg(), **kw, **CPU)
+    specs = _specs(cfg.vocab_size)
+    first = [list(r.out) for r in eng.run(_reqs(specs))]
+    second = [list(r.out) for r in eng.run(_reqs(specs))]
+    assert second == first
+    assert [len(o) for o in first] == [m for _, m in specs]
+    if engine != "wave":
+        assert eng.stats["tokens"] == sum(m for _, m in specs)
+
+
 def _straightline(params, cfg, acfg, prompt, n_new, max_seq):
     """One request decoded by direct apply_model calls, with the continuous
     engine's bucketed, left-padded prefill."""

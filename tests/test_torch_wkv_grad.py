@@ -15,7 +15,7 @@
   every leaf's gradient within ``MODEL_TOL`` of its largest entry;
 * on the card (marked ``cuda``): the CUDA backward ``csrc/wkv_bwd.cu``
   against ``wkv_bwd_ref`` within ``CUDA_TOL``, with ``du`` bitwise equal
-  across two runs.
+  across two runs and every state it restores bitwise the forward's.
 """
 from __future__ import annotations
 
@@ -111,10 +111,13 @@ def test_wkv_autograd_function_on_the_cpu():
 
 
 def test_wkv_backward_meta_rule():
-    """On ``meta`` the backward reports ``wkv_bwd``: 21 hd^2 FLOPs a token
-    and head (3 to restore the state, 18 for the reverse pass; an FMA
-    counts two, as the forward's 7), and gradients of the inputs'
-    shapes."""
+    """On ``meta`` the backward reports ``wkv_bwd``: 14 hd^2 FLOPs a token
+    and head (3 to restore the state, 11 for the reverse pass with the
+    ``u kv`` part of ``a`` taken as O(hd) terms; an FMA counts two, as the
+    forward's 7); bytes for the operands, the
+    chunk-boundary states and ``dout`` read once and the gradients, ``du``
+    and ``ds0`` written once (the kernel keeps its restored states on chip,
+    so they move no bytes); and gradients of the inputs' shapes."""
     b, t, h, hd = 2, 300, 3, 16
     args = [torch.empty(b, t, h, hd, device="meta", requires_grad=True)
             for _ in range(4)]
@@ -126,7 +129,13 @@ def test_wkv_backward_meta_rule():
         grads = torch.autograd.grad(out.sum(), [*args, u])
     assert tally.by_kernel["wkv"].calls == 1
     assert tally.by_kernel["wkv_bwd"].calls == 1
-    assert tally.by_kernel["wkv_bwd"].flops == 21 * b * t * h * hd * hd
+    assert tally.by_kernel["wkv_bwd"].flops == 14 * b * t * h * hd * hd
+    nc = -(-t // wkv_ops.CHUNK)
+    # read: r k v w dout, u, the boundaries, dS_T (autograd's zeros for
+    # the unused S_T); written: the four gradients, du, ds0
+    assert tally.by_kernel["wkv_bwd"].bytes == 4 * (
+        5 * b * t * h * hd + h * hd + nc * b * h * hd * hd + b * h * hd * hd
+        + 4 * b * t * h * hd + h * hd + b * h * hd * hd)
     assert [tuple(g.shape) for g in grads] == [(b, t, h, hd)] * 4 + [(h, hd)]
 
 
@@ -229,10 +238,13 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t", [1, 255, 256, 300])
-def test_cuda_wkv_bwd_matches_plain_version(cuda, t):
+@pytest.mark.parametrize("t,chunk", [(1, 256), (255, 256), (256, 256),
+                                     (300, 256), (37, 8)])
+def test_cuda_wkv_bwd_matches_plain_version(cuda, t, chunk):
     """The CUDA backward against ``wkv_bwd_ref`` on the same saved
-    boundaries, and its ``du`` the same bits in two runs."""
+    boundaries, and its ``du`` the same bits in two runs; at the reduced
+    configs' chunk of 8 too (not a multiple of the sequence kernel's
+    16-step tile)."""
     rng = np.random.default_rng(t)
     b, h, hd = 2, 4, 64
     r, k, v = (rng.normal(size=(b, t, h, hd)).astype(np.float32)
@@ -243,15 +255,23 @@ def test_cuda_wkv_bwd_matches_plain_version(cuda, t):
     dout = rng.normal(size=(b, t, h, hd)).astype(np.float32)
     cpu = _t(r, k, v, w, u, s0)
     dev = [a.to(cuda) for a in cpu]
-    _, _, bounds = wkv_ops._forward(*dev, None, wkv_ops.CHUNK)
+    _, _, bounds = wkv_ops._forward(*dev, None, chunk)
     n0 = wkv_ops.wkv_bwd.launches
+    states = torch.empty((b * h, t, hd, hd), device=cuda)
     got = wkv_ops.wkv_bwd(*dev[:5], bounds, torch.from_numpy(dout).to(cuda),
-                          None)
+                          None, chunk, states_out=states)
     again = wkv_ops.wkv_bwd(*dev[:5], bounds,
-                            torch.from_numpy(dout).to(cuda), None)
+                            torch.from_numpy(dout).to(cuda), None, chunk)
     assert wkv_ops.wkv_bwd.launches == n0 + 2
     assert torch.equal(got[4], again[4])
+    # every state the kernel restores is the forward's, bit for bit
+    fold = lambda a: a.transpose(1, 2).reshape(b * h, t, hd)  # noqa: E731
+    s, (fk, fv, fw) = cpu[5].reshape(b * h, hd, hd), map(fold, cpu[1:4])
+    for step in range(t):
+        assert torch.equal(states[:, step].cpu(), s), step
+        s = fw[:, step, :, None] * s + fk[:, step, :, None] \
+            * fv[:, step, None, :]
     want = wkv_ops.wkv_bwd(*cpu[:5], bounds.cpu(), torch.from_numpy(dout),
-                           None)
+                           None, chunk)
     for g, w_ in zip(got, want):
         _close(g.cpu(), w_, CUDA_TOL)
